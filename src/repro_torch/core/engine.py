@@ -1,0 +1,665 @@
+"""HOBBIT OffloadEngine on PyTorch: serve a MoE model whose experts live in
+host memory, through a device-resident mixed-precision expert cache, the
+dynamic loader, the adaptive predictor and the multidimensional cache
+manager (Fig. 4), with the grouped decode path of the JAX reference
+(``src/repro/core/engine.py``) and the same cache/loader decisions.
+
+What changes on a card:
+
+* Host storage is pinned.  Hi experts keep the model dtype (the reference's
+  float32 host copy is an exact upcast of bf16 weights); lo experts are
+  quantized on the device, expert by expert, from the same float32 upcast,
+  so their codes equal the reference's.
+* Expert copies are real.  ``_stage`` copies an expert's host bytes into
+  fresh device staging buffers on its thread's own CUDA stream and waits
+  for them (so the staging engine's futures and stall accounting measure
+  the real link); ``_commit_staged`` makes the compute stream wait on the
+  copy's event and then copies staging -> pool slot.  A copy never writes
+  a pool slot from a copy stream, so a kernel still reading the slot for an
+  earlier layer cannot race it.
+* The union-overflow experts (a layer's union demand larger than the pool)
+  live in extra rows of the same pool tensors (``hi_slots + B*top_k`` and
+  ``lo_slots + B*top_k`` rows), and the lo kernels read every expert in
+  place through a per-pair slot index: nothing is gathered or concatenated
+  per layer.
+* The hi half is one ``torch.matmul`` pair per (token, expert) on pool
+  views; the lo half is the two hand-written dequant kernels.
+* The host blocks on the card where the reference does.  Per MoE layer it
+  reads back the normed hidden state and the gating result (the scheduler
+  runs on the host): two synchronisations.  With prefetch on, each predictor
+  call reads back its stacked-gating probabilities: one or two calls per
+  active row on every MoE layer but the last (the adaptive walk, then a
+  one-layer prediction when the walk did not reach the next layer).  A
+  union-overflow miss waits for its staged copy, and each step ends with
+  one logits readback.
+
+Not ported yet (raise NotImplementedError): the paged KV layout, the
+per-expert reference path (``grouped=False``) and the host compute mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache import MultidimensionalCache
+from repro_torch.core.fleet_heat import FleetHeat
+from repro_torch.core.loader import (DynamicExpertLoader, StagingEngine,
+                                     measure_link_bps)
+from repro_torch.core.policies import MULTIDIM, PolicyWeights
+from repro_torch.core.predictor import AdaptiveExpertPredictor
+from repro_torch.core.scoring import (PREC_HI, PREC_LO, PREC_SKIP, Thresholds,
+                                      precision_decisions)
+from repro_torch.core.simulator import TraceLayer
+from repro_torch.device import to_device, to_host
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+from repro_torch.models.model import Model, unstack_layers
+from repro_torch.quant.quantize import PACK_FACTOR, expert_nbytes, quantize
+
+HI_NAMES = ("wi", "wo")
+LO_NAMES = ("wi_data", "wi_scale", "wo_data", "wo_scale")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    hi_slots: int = 16
+    lo_slots: int = 8
+    thresholds: Thresholds = Thresholds(0.6, 0.9)
+    policy: PolicyWeights = MULTIDIM
+    prefetch_p: int = 2
+    lo_bits: int = 4
+    group_size: int = 64
+    dynamic_loading: bool = True     # ablation switch (Fig. 16)
+    prefetch: bool = True            # ablation switch (Fig. 17)
+    compute_mode: str = "device"     # device only (host: a later slice)
+    grouped: bool = True             # grouped decode (per-expert: a later slice)
+    # stage prefetch copies on background streams so they overlap compute;
+    # False drains them synchronously (the deterministic parity setting)
+    async_prefetch: bool = True
+    streams: int = 2
+    ordered: bool = False
+    upgrade: bool = True
+    # link bandwidth in GB/s.  None measures the pinned host -> device rate
+    # at startup (budget accounting only); a value also emulates the link
+    # (each staged copy occupies its stream for bytes/link seconds)
+    link_gbps: Optional[float] = None
+    paged_kv: bool = False           # paged KV: the next slice
+
+
+def _check_ported(ecfg: EngineConfig) -> None:
+    if ecfg.paged_kv:
+        raise NotImplementedError(
+            "paged KV (EngineConfig.paged_kv) arrives with the next slice of the "
+            "port: models/kv_pages.py + the paged flash-decode kernel (ROADMAP "
+            "Queue 1, item 3)")
+    if not ecfg.grouped:
+        raise NotImplementedError(
+            "the per-expert reference decode path (grouped=False) is not ported "
+            "yet (ROADMAP Queue 1, item 4)")
+    if ecfg.compute_mode != "device":
+        raise NotImplementedError(
+            f"compute_mode={ecfg.compute_mode!r} (CPU-helper mode) is not ported "
+            "yet (ROADMAP Queue 1, item 4)")
+
+
+class OffloadEngine:
+    def __init__(self, model: Model, params, ecfg: EngineConfig):
+        _check_ported(ecfg)
+        cfg = model.cfg
+        if cfg.moe is None:
+            raise ValueError("OffloadEngine requires a MoE model")
+        self.model = model
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.params = params
+        self.device = params["embed"].device
+        self.layer_params = unstack_layers(cfg, params)
+        self.moe_layers = [i for i, m in enumerate(cfg.layer_is_moe()) if m]
+        self.num_moe_layers = len(self.moe_layers)
+        mc = cfg.moe
+        d, f = cfg.d_model, mc.d_ff_expert
+
+        # ---- host storage: hi (model dtype) + lo (quantized), pinned ----
+        self._pin = self.device.type == "cuda"
+        self.storage_hi: List[Dict[str, torch.Tensor]] = []
+        self.storage_lo: List[Dict[str, torch.Tensor]] = []
+        self.routers: List[torch.Tensor] = []
+        for li in self.moe_layers:
+            ffn = self.layer_params[li]["ffn"]
+            self.storage_hi.append({n: self._host_copy(ffn["experts"][n])
+                                    for n in HI_NAMES})
+            self.storage_lo.append(self._quantize_layer(ffn["experts"]))
+            self.routers.append(ffn["router"].to(torch.float32))
+        # routers stacked on device for the per-layer gating kernel
+        self.routers_dev = torch.stack(self.routers).contiguous()   # (L, D, E)
+
+        # ---- device pools (overflow rows appended by _ensure_pools) ----
+        self.pool_hi: Dict[str, torch.Tensor] = {}
+        self.pool_lo: Dict[str, torch.Tensor] = {}
+        self._ovf_rows = 0
+        self._ensure_pools(mc.top_k)
+
+        # ---- manager / loader / predictor ----
+        # owner: main-thread
+        self.fleet = FleetHeat()
+        self.cache = MultidimensionalCache(self.num_moe_layers, ecfg.hi_slots,
+                                           ecfg.lo_slots, ecfg.policy,
+                                           fleet=self.fleet)
+        hi_b = expert_nbytes(d, f, 16)
+        lo_b = expert_nbytes(d, f, ecfg.lo_bits, group_size=ecfg.group_size)
+        self.expert_bytes = {PREC_HI: hi_b, PREC_LO: lo_b}
+        self.loader = DynamicExpertLoader(
+            self.cache, ecfg.thresholds if ecfg.dynamic_loading
+            else Thresholds(1.0, 1.0),
+            self._fetch, lambda prec: self.expert_bytes[prec])
+        link_bps = (ecfg.link_gbps * 1e9 if ecfg.link_gbps
+                    else measure_link_bps(device=self.device))
+        self.scheduler = StagingEngine(
+            self.loader, self._stage, self._commit_staged,
+            streams=ecfg.streams, ordered=ecfg.ordered, link_bps=link_bps,
+            emulate_link=ecfg.link_gbps is not None, upgrade=ecfg.upgrade)
+        self.predictor = AdaptiveExpertPredictor(
+            self.routers, mc.top_k, p=ecfg.prefetch_p, fleet=self.fleet,
+            device=self.device)
+
+        self._copy_streams = threading.local()   # one CUDA stream per thread
+        self._pending_preds: List = []
+        self.trace: List[List[TraceLayer]] = []
+        self._gating_s = 0.0
+        self._expert_dispatches = 0
+        self._union_reloads = 0
+        self._layer_s_ema = 0.0
+        self._layer_period_ema = 0.0
+        self._closed = False
+        self.batch = 1
+        self.max_len = 0
+        self.active = np.ones((1,), bool)
+        self.positions = np.zeros((1,), np.int64)
+        self.kv_cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._pending_joins: Dict[int, np.ndarray] = {}
+        self._unclaimed_joins: Dict[int, np.ndarray] = {}
+
+    # ------------------------------------------------------------------
+    # host storage and device pools
+    # ------------------------------------------------------------------
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=self._pin)
+        out.copy_(t)
+        return out
+
+    def _quantize_layer(self, experts) -> Dict[str, torch.Tensor]:
+        """Quantize one layer's experts on their device, one expert at a
+        time, into (pinned) host code/scale tensors."""
+        ecfg = self.ecfg
+        out: Dict[str, torch.Tensor] = {}
+        for n in HI_NAMES:
+            w = experts[n]
+            num, k, cols = w.shape
+            kp = k // PACK_FACTOR[ecfg.lo_bits]
+            data = torch.empty((num, kp, cols), dtype=torch.int8, pin_memory=self._pin)
+            scale = torch.empty((num, k // ecfg.group_size, cols), dtype=torch.float32,
+                                pin_memory=self._pin)
+            for e in range(num):
+                q = quantize(w[e].to(torch.float32), bits=ecfg.lo_bits,
+                             group_size=ecfg.group_size)
+                data[e].copy_(q.data)
+                scale[e].copy_(q.scale)
+            out[f"{n}_data"], out[f"{n}_scale"] = data, scale
+        return out
+
+    def _ensure_pools(self, overflow_rows: int) -> None:
+        """Pool tensors with `overflow_rows` extra rows after the cache slots
+        (union-overflow experts of one layer).  Growing keeps the resident
+        slots' contents."""
+        if overflow_rows <= self._ovf_rows:
+            return
+        ecfg = self.ecfg
+        lo0 = self.storage_lo[0]
+        hi0 = self.storage_hi[0]
+        for pool, names, src, slots in ((self.pool_hi, HI_NAMES, hi0, ecfg.hi_slots),
+                                        (self.pool_lo, LO_NAMES, lo0, ecfg.lo_slots)):
+            for n in names:
+                new = torch.zeros((slots + overflow_rows, *src[n].shape[1:]),
+                                  dtype=src[n].dtype, device=self.device)
+                if n in pool:
+                    new[:slots].copy_(pool[n][:slots])
+                pool[n] = new
+        self._ovf_rows = overflow_rows
+
+    # ------------------------------------------------------------------
+    # device transfer
+    # ------------------------------------------------------------------
+    def _copy_stream(self) -> torch.cuda.Stream:
+        s = getattr(self._copy_streams, "stream", None)
+        if s is None:
+            s = torch.cuda.Stream(device=self.device)
+            self._copy_streams.stream = s
+        return s
+
+    def _stage(self, moe_idx: int, expert: int, precision: int) -> dict:
+        """Bring one expert's bytes onto the device (the host half of the
+        transfer).  CUDA: pinned host -> fresh staging buffers on this
+        thread's copy stream, returning once the bytes have landed (the
+        staging engine's futures then time the real link).  CPU: views of
+        host storage.  Touches no pool, so background threads may run it."""
+        names = HI_NAMES if precision == PREC_HI else LO_NAMES
+        src = (self.storage_hi if precision == PREC_HI else self.storage_lo)[moe_idx]
+        if self.device.type != "cuda":
+            return {"tensors": {n: src[n][expert] for n in names}, "event": None}
+        stream = self._copy_stream()
+        with torch.cuda.stream(stream):
+            bufs = {n: src[n][expert].to(self.device, non_blocking=True) for n in names}
+            ev = torch.cuda.Event()
+            ev.record(stream)
+        ev.synchronize()
+        return {"tensors": bufs, "event": ev}
+
+    def _commit_one(self, precision: int, slot: int, staged: dict) -> None:
+        """Copy staged buffers into pool slot `slot` on the compute stream."""
+        pool = self.pool_hi if precision == PREC_HI else self.pool_lo
+        ev = staged["event"]
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+        for n, t in staged["tensors"].items():
+            pool[n][slot].copy_(t, non_blocking=True)
+            if ev is not None:
+                t.record_stream(cur)     # freed buffers wait for this copy
+
+    def _commit_staged(self, entries) -> None:
+        """Write staged buffers into the device pools (main thread only).
+        entries: [(task_like_with_precision, slot, staged)]."""
+        for t, slot, staged in entries:
+            self._commit_one(PREC_HI if t.precision == PREC_HI else PREC_LO, slot, staged)
+
+    def _fetch(self, moe_idx: int, expert: int, precision: int, slot: int):
+        """Blocking load of one expert into a pool slot (the synchronous
+        loader's 'cudaMemcpy')."""
+        self._commit_one(precision, slot, self._stage(moe_idx, expert, precision))
+
+    # ------------------------------------------------------------------
+    # serving state
+    # ------------------------------------------------------------------
+    def start_batch(self, batch: int, max_len: int):
+        """Allocate per-slot KV caches and reset serving state for a new
+        batch; all slots start active."""
+        self._check_open()
+        self.batch = batch
+        self.max_len = max_len
+        self.scheduler.flush()          # land any cross-batch in-flight loads
+        self.cache.new_sequence()
+        self._ensure_pools(batch * self.cfg.moe.top_k)
+        self.kv_cache = self.model.init_cache(batch, max_len, self.device)
+        self.positions = np.zeros((batch,), np.int64)
+        self.active = np.ones((batch,), bool)
+        self.trace = []
+        self._pending_preds = []
+        self._pending_joins = {}
+        self._unclaimed_joins = {}
+
+    def prefill_batch(self, prompts) -> np.ndarray:
+        """Prefill the whole prompt batch through the dense model (prefill
+        touches every expert anyway; the offload cache serves decode) and
+        adopt its KV cache.  Returns last-token logits (B, V)."""
+        self._check_open()
+        prompts = np.asarray(prompts, np.int64)
+        b, _ = prompts.shape
+        if b != self.batch:
+            raise ValueError(f"prefill of {b} prompts into a batch of {self.batch}")
+        logits, cache, positions = self.model.prefill(
+            self.params, to_device(prompts, self.device), self.max_len)
+        self.kv_cache = cache
+        self.positions = positions
+        self.active[:] = True
+        return to_host(logits)[0]
+
+    def join(self, slot: int, prompt) -> np.ndarray:
+        """Blocking admission of one request into `slot` (the shared
+        ``serving.api._blocking_join`` loop).  Returns logits (V,)."""
+        self._check_open()
+        if not 0 <= slot < self.batch:
+            raise ValueError(f"slot {slot} outside batch {self.batch}")
+        from repro_torch.serving.api import _blocking_join
+        return _blocking_join(self, slot, prompt)
+
+    def _join_dense(self, slot: int, prompt) -> np.ndarray:
+        prompt = np.asarray(prompt, np.int64).reshape(1, -1)
+        logits, one, positions = self.model.prefill(
+            self.params, to_device(prompt, self.device), self.max_len)
+        for dst, src in zip(self.kv_cache, one):
+            dst["k"][slot].copy_(src["k"][0])
+            dst["v"][slot].copy_(src["v"][0])
+        self.positions[slot] = positions[0]
+        self.active[slot] = True
+        self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+        return to_host(logits[0])[0]
+
+    def join_begin(self, slot: int, prompt, reserve_tokens=None):
+        """Start an incremental admission (dense KV: stash the prompt;
+        join_step runs its one-shot prefill)."""
+        self._check_open()
+        del reserve_tokens          # dense slots are pre-allocated to max_len
+        self._pending_joins[slot] = np.asarray(prompt, np.int64).reshape(-1)
+
+    def join_step(self) -> Dict[int, np.ndarray]:
+        """Run every pending admission; returns {slot: last-token logits},
+        including logits an earlier blocking join finished but did not
+        claim."""
+        done: Dict[int, np.ndarray] = dict(self._unclaimed_joins)
+        self._unclaimed_joins = {}
+        for slot, prompt in list(self._pending_joins.items()):
+            del self._pending_joins[slot]
+            done[slot] = self._join_dense(slot, prompt)
+        return done
+
+    def can_admit(self, tokens: int, *, prompt=None) -> bool:
+        """Dense KV always admits (slots are pre-allocated to max_len)."""
+        del tokens, prompt
+        return True
+
+    def release(self, slot: int):
+        """Free a slot; retires the request from the fleet heat map."""
+        self.active[slot] = False
+        self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+        self.fleet.retire_request()
+
+    def pause(self, slot: int) -> Dict:
+        """Preempt `slot`: snapshot its KV rows to host and free the slot.
+        The expert cache is shared and left as is."""
+        self._check_open()
+        pos = int(self.positions[slot])
+        self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+        rows = [{"k": c["k"][slot].to("cpu", copy=True),
+                 "v": c["v"][slot].to("cpu", copy=True)}
+                for c in self.kv_cache]
+        self.active[slot] = False
+        return {"layout": "dense", "position": pos, "cache": rows}
+
+    def resume(self, slot: int, snapshot: Dict) -> None:
+        """Reinstate a paused request into (a possibly different) `slot`;
+        decode continues logits-identically."""
+        self._check_open()
+        for c, row in zip(self.kv_cache, snapshot["cache"]):
+            c["k"][slot].copy_(row["k"])
+            c["v"][slot].copy_(row["v"])
+        self.positions[slot] = int(snapshot["position"])
+        self.active[slot] = True
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def decode_step_batch(self, tokens) -> np.ndarray:
+        """One batched HOBBIT decode step.  tokens: (B,) int; returns logits
+        (B, V).  Inactive slots ride through attention but take no part in
+        gating, loading, expert compute, the trace or position advance."""
+        self._check_open()
+        return self._decode_step_batch_grouped(tokens)
+
+    def _score_pending_preds(self, mi: int, tops: Dict[int, np.ndarray]):
+        still_pending = []
+        for pred, made_at, r in self._pending_preds:
+            if pred.layer == mi:
+                if r in tops:
+                    self.predictor.record_accuracy(pred, tops[r].tolist(),
+                                                   mi - made_at)
+            elif pred.layer > mi:
+                still_pending.append((pred, made_at, r))
+        self._pending_preds = still_pending
+
+    def _push_pending(self, pr, mi: int, r: int):
+        """Keep at most one pending prediction per (layer, slot)."""
+        self._pending_preds = [
+            (p, m, rr) for p, m, rr in self._pending_preds
+            if not (p.layer == pr.layer and rr == r)]
+        self._pending_preds.append((pr, mi, r))
+
+    def _prefetch_predictions(self, mi: int, rows, h_host, *,
+                              use_async: bool) -> Dict[int, object]:
+        """Adaptive prefetch for subsequent layers (§3.3): one merged job per
+        target layer, each (expert, precision) keeping the largest gate any
+        row gave it."""
+        pred_entry: Dict[int, object] = {}
+        merged: Dict[int, List[Tuple[int, int]]] = {}
+        gmax: Dict[Tuple[int, int, int], float] = {}
+        for r in rows:
+            walk = self.predictor.adaptive_walk(h_host[r], mi, self.cache,
+                                                self.loader.th)
+            walk_layers = set()
+            for pr, dec in walk:
+                pairs = merged.setdefault(pr.layer, [])
+                for e, d, g in zip(pr.experts, dec, pr.gate_vals):
+                    if (int(e), int(d)) not in pairs:
+                        pairs.append((int(e), int(d)))
+                    gk = (pr.layer, int(e), int(d))
+                    gmax[gk] = max(gmax.get(gk, 0.0), float(g))
+                self._push_pending(pr, mi, r)
+                walk_layers.add(pr.layer)
+                if pr.layer == mi + 1:
+                    pred_entry[r] = pr
+            if mi + 1 not in walk_layers:
+                nxt = self.predictor.predict_layers(h_host[r], mi, 1)
+                if nxt:
+                    self._push_pending(nxt[0], mi, r)
+                    pred_entry[r] = nxt[0]
+        for layer, pairs in merged.items():
+            experts = [e for e, _ in pairs]
+            dec = np.asarray([d for _, d in pairs])
+            gates = np.asarray([gmax[(layer, e, d)] for e, d in pairs])
+            if use_async:
+                self.scheduler.submit_prefetch(layer, experts, dec,
+                                               current_layer=mi, gates=gates)
+            else:
+                self.loader.enqueue_prefetch(layer, experts, dec)
+        return pred_entry
+
+    def _trace_entry(self, mi, r, tops, gates, pred_entry) -> TraceLayer:
+        pe = pred_entry.get(r)
+        return TraceLayer(
+            experts=tops[r].tolist(), gate_vals=gates[r],
+            pred_experts=pe.experts if (pe and pe.layer == mi + 1) else None,
+            pred_gate_vals=pe.gate_vals if (pe and pe.layer == mi + 1) else None)
+
+    def _grouped_ffn(self, hs: torch.Tensor, hi_pairs, lo_pairs,
+                     w_hi: np.ndarray, w_lo: np.ndarray, rows) -> torch.Tensor:
+        """All active (row, expert) pairs of one MoE layer.  hs: (B, D);
+        hi_pairs / lo_pairs: [(row, rank, pool slot)] in row order.  Hi: one
+        matmul pair per (token, expert) on pool views.  Lo: the grouped
+        dequant GEMV (up/gate) and the grouped dequant GEMV + gated combine
+        (down), both reading the pool in place.  Returns (B, D) float32,
+        each row renormalised by its kept gate mass."""
+        cfg, ecfg = self.cfg, self.ecfg
+        b, d = hs.shape
+        y = torch.zeros((b, d), dtype=torch.float32, device=hs.device)
+        for r, j, slot in hi_pairs:
+            z = hs[r:r + 1] @ self.pool_hi["wi"][slot]
+            out = L.activate(z, cfg) @ self.pool_hi["wo"][slot]
+            y[r] += float(w_hi[r, j]) * out[0].to(torch.float32)
+        if lo_pairs:
+            n = len(lo_pairs)
+            ints = np.asarray([s for _, _, s in lo_pairs] + [r for r, _, _ in lo_pairs],
+                              np.int32)
+            idx = to_device(ints, hs.device)
+            slot_dev, rows_dev = idx[:n], idx[n:]
+            w_dev = to_device(np.asarray([w_lo[r, j] for r, j, _ in lo_pairs],
+                                         np.float32), hs.device)
+            zl = kops.grouped_dequant_matmul(
+                hs.index_select(0, rows_dev), self.pool_lo["wi_data"],
+                self.pool_lo["wi_scale"], slot_dev, bits=ecfg.lo_bits,
+                group_size=ecfg.group_size).to(hs.dtype)
+            # pairs arrive in row order: the combine's non-decreasing contract
+            y += kops.grouped_dequant_combine(
+                L.activate(zl, cfg), self.pool_lo["wo_data"], self.pool_lo["wo_scale"],
+                slot_dev, rows_dev, w_dev, bits=ecfg.lo_bits,
+                group_size=ecfg.group_size, num_rows=b)
+        wsum = (w_hi + w_lo).sum(axis=1)                 # disjoint weights
+        for r in rows:
+            if wsum[r] > 0:
+                y[r] /= float(wsum[r])
+        return y
+
+    def _decode_step_batch_grouped(self, tokens) -> np.ndarray:
+        cfg, ecfg, mc = self.cfg, self.ecfg, self.cfg.moe
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        if tokens.shape[0] != self.batch:
+            raise ValueError(f"{tokens.shape[0]} tokens for a batch of {self.batch}")
+        b, k = self.batch, mc.top_k
+        rows = [r for r in range(b) if self.active[r]]
+        self.cache.advance_token()
+        x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
+        positions = to_device(self.positions, self.device)
+
+        row_trace = {r: [] for r in rows}
+        for mi, li in enumerate(self.moe_layers):
+            t_layer0 = time.perf_counter()
+            self.scheduler.set_deadline_clock(mi, self._layer_s_ema,
+                                              self._layer_period_ema)
+            p = self.layer_params[li]
+            h = L.apply_norm(p["pre_norm"], x, cfg)
+            x = x + L.attn_decode(p["attn"], h, self.kv_cache[li], positions, cfg)
+            hs = L.apply_norm(p["ffn_norm"], x, cfg)[:, 0]          # (B, D)
+
+            # ---- gating: host sync 1 (hidden state), 2 (router result) ----
+            (h_host,) = to_host(hs.to(torch.float32))
+            tg0 = time.perf_counter()
+            _, vals_g, idx_g = kops.gating_topk(hs, self.routers_dev[mi:mi + 1],
+                                                top_k=k)
+            vals_np, idx_np = to_host(vals_g[0], idx_g[0])
+            self._gating_s += time.perf_counter() - tg0
+            tops: Dict[int, np.ndarray] = {}
+            gates: Dict[int, np.ndarray] = {}
+            for r in rows:
+                tops[r] = idx_np[r]
+                gates[r] = vals_np[r]
+                for e, g in zip(tops[r], gates[r]):
+                    self.fleet.observe((mi, int(e)), float(g))
+
+            self._score_pending_preds(mi, tops)
+
+            # ---- on-demand scoring (union over slots); pins first ----
+            self.loader.new_layer()
+            for r in rows:
+                self.loader.score_and_enqueue(mi, tops[r].tolist(), gates[r],
+                                              clear_pins=False)
+
+            pred_entry = {}
+            if ecfg.prefetch:
+                pred_entry = self._prefetch_predictions(
+                    mi, rows, h_host, use_async=ecfg.async_prefetch)
+
+            # ---- loading ----
+            t_load0 = time.perf_counter()
+            if ecfg.async_prefetch:
+                self.scheduler.wait(mi)
+                self.scheduler.drain_on_demand(self.loader.take_queued(), mi)
+            else:
+                self.loader.drain(mi)
+            t_load = time.perf_counter() - t_load0
+
+            # ---- pairs: hi + lo, union-overflow experts in extra pool rows ----
+            hi_pairs, lo_pairs = [], []
+            w_hi = np.zeros((b, k), np.float32)
+            w_lo = np.zeros((b, k), np.float32)
+            n_ovf_hi = n_ovf_lo = 0
+            for r in rows:
+                dec = precision_decisions(gates[r], self.loader.th)
+                for j in range(k):
+                    d_ = int(dec[j])
+                    if d_ == PREC_SKIP:
+                        continue
+                    e = int(tops[r][j])
+                    is_hi = d_ == PREC_HI
+                    slot = self.cache.lookup((mi, e), is_hi)
+                    if (slot is not None and is_hi
+                            and self.cache.is_inflight((mi, e), True)):
+                        # an upgrade re-copy owns the slot but its bytes are
+                        # still landing; the slot holds no hi weights yet
+                        slot = None
+                    if (slot is None and is_hi and ecfg.async_prefetch
+                            and self.scheduler.serves_lo_downgrade(mi, e)):
+                        # issue-time downgrade: serve the lo copy
+                        is_hi = False
+                        slot = self.cache.lookup((mi, e), False)
+                        self.scheduler.served_lo_expert_steps += 1
+                    if slot is None:
+                        if is_hi:
+                            self.cache.stats.misses_hi += 1
+                            slot = ecfg.hi_slots + n_ovf_hi
+                            n_ovf_hi += 1
+                        else:
+                            self.cache.stats.misses_lo += 1
+                            slot = ecfg.lo_slots + n_ovf_lo
+                            n_ovf_lo += 1
+                        self._commit_one(d_, slot, self._stage(mi, e, d_))
+                        self.loader.loaded_bytes += self.expert_bytes[d_]
+                        self.loader.n_loads[d_] += 1
+                        self._union_reloads += 1
+                    if is_hi:
+                        hi_pairs.append((r, j, slot))
+                        w_hi[r, j] = gates[r][j]
+                    else:
+                        lo_pairs.append((r, j, slot))
+                        w_lo[r, j] = gates[r][j]
+
+            y = self._grouped_ffn(hs, hi_pairs, lo_pairs, w_hi, w_lo, rows)
+            self._expert_dispatches += 1
+            x = x + y[:, None, :].to(x.dtype)
+
+            for r in rows:
+                row_trace[r].append(self._trace_entry(mi, r, tops, gates,
+                                                      pred_entry))
+            self.scheduler.retire_layer(mi)
+            dt_full = time.perf_counter() - t_layer0
+            dt = dt_full - t_load
+            self._layer_s_ema = (dt if self._layer_s_ema == 0.0
+                                 else 0.8 * self._layer_s_ema + 0.2 * dt)
+            self._layer_period_ema = (
+                dt_full if self._layer_period_ema == 0.0
+                else 0.8 * self._layer_period_ema + 0.2 * dt_full)
+
+        self.positions = self.positions + self.active.astype(np.int64)
+        for r in rows:
+            self.trace.append(row_trace[r])
+        lg = self.model.logits(self.params, x)[:, 0]
+        return to_host(lg)[0]
+
+    # ------------------------------------------------------------------
+    def close(self):
+        """Release the staging engine's worker threads.  Idempotent; a
+        closed engine raises RuntimeError on the serving entry points."""
+        if self._closed:
+            return
+        self._closed = True
+        self.scheduler.flush()
+        self.scheduler.shutdown()
+
+    def _check_open(self):
+        if self._closed:
+            raise RuntimeError("OffloadEngine is closed; create a new engine "
+                               "(close() released its staging threads)")
+
+    def stats(self) -> Dict:
+        """JSON-serializable engine counters (cache, loader, predictor,
+        staging, and which kernel implementation each op dispatched)."""
+        s = {
+            "cache": self.cache.stats.to_dict(),
+            "loads_hi": self.loader.n_loads[PREC_HI],
+            "loads_lo": self.loader.n_loads[PREC_LO],
+            "skips": self.loader.n_skips,
+            "loaded_bytes": self.loader.loaded_bytes,
+            "pred_accuracy": {int(d): float(a)
+                              for d, a in self.predictor.accuracy().items()},
+            "gating_s": self._gating_s,
+            "expert_dispatches": self._expert_dispatches,
+            "union_reloads": self._union_reloads,
+            # "<op>.<cuda|torch>" -> count: a card run showing .torch counts
+            # would be timing the plain versions
+            "kernel_dispatch": kops.dispatch_counts(),
+        }
+        s.update(self.scheduler.stats())
+        return s

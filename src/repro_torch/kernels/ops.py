@@ -1,0 +1,304 @@
+"""Dispatch for the hand-written kernels of the serving path.
+
+The device of the tensors decides the implementation, and nothing else does:
+
+    CPU tensors   -> the plain PyTorch version in ``ref.py``
+    CUDA tensors  -> the Hopper kernel in ``csrc/`` (built on first use)
+    anything else -> ValueError
+
+There is no fallback: on CUDA tensors a wrapper launches its kernel or
+raises (a bad shape, dtype or layout, a failed build, or a launch error
+returned by ``cudaGetLastError``).  No environment variable switches the
+card to the plain version.
+
+Every call records which implementation ran in a per-op counter keyed
+``"<op>.cuda"`` or ``"<op>.torch"`` (``dispatch_counts()``); the engine
+surfaces it as ``stats()["kernel_dispatch"]`` so a run can show that the
+serving path really went through the kernels.  A wrapper counts a launch
+exactly where it launches, and the CPU path counts one call of the plain
+version.  Wrappers allocate their outputs with ``torch.empty`` on the
+current stream and never synchronise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.quant.quantize import PACK_FACTOR
+
+_DISPATCH_COUNTS: Dict[str, int] = {}
+
+# widest router a gating kernel takes (Phi-MoE has 16 experts, DeepSeek 160)
+MAX_EXPERTS = 256
+# columns a dequant-kernel thread reads with one 16-byte load
+DEQUANT_COL_ALIGN = 16
+# largest K-chunk a dequant block stages in shared memory (floats)
+DEQUANT_MAX_CHUNK = 512
+# output columns of one pass-1 dequant block (kThreads * kCols in dequant.cu)
+DEQUANT_TILE_N = 2048
+# pass-1 blocks per SM the chunk choice aims for (enough bytes in flight)
+DEQUANT_BLOCKS_PER_SM = 6
+
+
+def _record(op: str, impl: str) -> None:
+    key = f"{op}.{impl}"
+    _DISPATCH_COUNTS[key] = _DISPATCH_COUNTS.get(key, 0) + 1
+
+
+def dispatch_counts() -> Dict[str, int]:
+    """Copy of the per-op counters, keyed ``"<op>.<cuda|torch>"``."""
+    return dict(_DISPATCH_COUNTS)
+
+
+def reset_dispatch_counts() -> None:
+    _DISPATCH_COUNTS.clear()
+
+
+def _route(op: str, *tensors: torch.Tensor) -> str:
+    """"torch" when every tensor lies on the CPU, "cuda" when every tensor
+    lies on one CUDA device; raise otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{op}: tensors on different devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return "torch"
+    if dev.type == "cuda":
+        return "cuda"
+    raise ValueError(f"{op}: no implementation for device {dev}")
+
+
+def _check(op: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{op}: {msg}")
+
+
+def _check_contig(op: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        _check(op, t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _x_flag(op: str, x: torch.Tensor) -> int:
+    _check(op, x.dtype in (torch.bfloat16, torch.float32),
+           f"x must be bfloat16 or float32, got {x.dtype}")
+    return int(x.dtype == torch.bfloat16)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(op: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{op}: CUDA launch failed with cudaError {err}")
+
+
+def k_chunk(k: int, group_size: int, pack: int, cap: int = DEQUANT_MAX_CHUNK) -> int:
+    """Largest K-chunk <= cap that divides K and covers whole quant groups
+    (and therefore whole packed bytes): the shared-memory x stage of one
+    dequant block."""
+    best, m = group_size, group_size
+    while m <= min(cap, k):
+        if k % m == 0:
+            best = m
+        m += group_size
+    return best
+
+
+def dequant_chunk(p: int, k: int, n: int, group_size: int, pack: int,
+                  sm_count: int) -> int:
+    """K-chunk of the dequant kernels' pass 1: the longest legal chunk
+    (``k_chunk``) whose grid of (N-tiles x K-chunks x pairs) blocks still
+    puts DEQUANT_BLOCKS_PER_SM blocks on every SM, so a handful of pairs
+    keeps enough loads in flight to stream from device memory."""
+    tiles = -(-n // DEQUANT_TILE_N)
+    chunk = k_chunk(k, group_size, pack)
+    while (chunk > group_size
+           and p * tiles * (k // chunk) < DEQUANT_BLOCKS_PER_SM * sm_count):
+        chunk = k_chunk(k, group_size, pack, cap=chunk - group_size)
+    return chunk
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+# --------------------------------------------------------------------------
+# gating
+# --------------------------------------------------------------------------
+
+def _check_gating(op: str, x: torch.Tensor, gates: torch.Tensor):
+    _check(op, x.dim() == 2 and gates.dim() == 3, "want x (B, D) and gates (P, D, E)")
+    b, d = x.shape
+    p, dg, e = gates.shape
+    _check(op, dg == d, f"x has D={d}, gates have D={dg}")
+    _check(op, gates.dtype == torch.float32, "gates must be float32")
+    _check(op, 0 < e <= MAX_EXPERTS, f"E={e} outside 1..{MAX_EXPERTS}")
+    _check(op, b > 0 and p > 0, "empty batch or router stack")
+    _check_contig(op, x=x, gates=gates)
+    return p, b, d, e
+
+
+def gating_topk(x: torch.Tensor, gates: torch.Tensor, *, top_k: int):
+    """Fused router: stacked gate matmul + softmax + top-k in one launch.
+
+        x      (B, D)      activations (bf16 or f32)
+        gates  (P, D, E)   stacked router weights (f32)
+        ->     logits (P, B, E) f32, vals (P, B, K) f32 softmax probabilities
+               of the selected experts, idx (P, B, K) int32
+
+    Ties select the lowest expert index on both paths."""
+    op = "gating_topk"
+    if _route(op, x, gates) == "torch":
+        _record(op, "torch")
+        return ref.gating_topk_ref(x, gates, top_k=top_k)
+    p, b, d, e = _check_gating(op, x, gates)
+    _check(op, 0 < top_k <= e, f"top_k={top_k} outside 1..{e}")
+    xb = _x_flag(op, x)
+    lib = build.library("gating")
+    logits = torch.empty((p, b, e), dtype=torch.float32, device=x.device)
+    vals = torch.empty((p, b, top_k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((p, b, top_k), dtype=torch.int32, device=x.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.gating_topk_launch(
+        x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), p, b, d, e, top_k, _stream()))
+    return logits, vals, idx
+
+
+def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """logits (P, B, E) f32 = x @ gates[p] for the next P layers' routers
+    (the adaptive predictor's "Stacking Computer")."""
+    op = "stacked_gating"
+    if _route(op, x, gates) == "torch":
+        _record(op, "torch")
+        return ref.stacked_gating_ref(x, gates)
+    p, b, d, e = _check_gating(op, x, gates)
+    xb = _x_flag(op, x)
+    lib = build.library("gating")
+    logits = torch.empty((p, b, e), dtype=torch.float32, device=x.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.stacked_gating_launch(
+        x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), p, b, d, e, _stream()))
+    return logits
+
+
+# --------------------------------------------------------------------------
+# grouped dequant GEMV (+ gated combine)
+# --------------------------------------------------------------------------
+
+def _check_dequant(op: str, x, data, scale, slot, bits: int, group_size: int):
+    _check(op, bits in PACK_FACTOR, f"bits={bits} not in {sorted(PACK_FACTOR)}")
+    pack = PACK_FACTOR[bits]
+    _check(op, x.dim() == 2 and data.dim() == 3 and scale.dim() == 3 and slot.dim() == 1,
+           "want x (P, K), data (S, K//pack, N), scale (S, K//group, N), slot (P,)")
+    p, k = x.shape
+    s, kp, n = data.shape
+    _check(op, slot.shape[0] == p, f"slot has {slot.shape[0]} entries for {p} pairs")
+    _check(op, kp * pack == k, f"data holds K={kp * pack} codes, x has K={k}")
+    _check(op, group_size > 0 and k % group_size == 0 and group_size % pack == 0,
+           f"group_size={group_size} does not tile K={k} in packed bytes")
+    _check(op, tuple(scale.shape) == (s, k // group_size, n),
+           f"scale shape {tuple(scale.shape)} != {(s, k // group_size, n)}")
+    _check(op, data.dtype == torch.int8, "data must be int8")
+    _check(op, scale.dtype == torch.float32, "scale must be float32")
+    _check(op, slot.dtype == torch.int32, "slot must be int32")
+    _check_contig(op, x=x, data=data, scale=scale, slot=slot)
+    return p, k, n, s, pack
+
+
+def _check_dequant_cuda(op: str, data, scale, n: int):
+    _check(op, n % DEQUANT_COL_ALIGN == 0,
+           f"N={n} must be a multiple of {DEQUANT_COL_ALIGN} (16-byte code loads)")
+    _check(op, data.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0,
+           "data and scale must be 16-byte aligned")
+
+
+def grouped_dequant_matmul(x, data, scale, slot, *, bits: int,
+                           group_size: int) -> torch.Tensor:
+    """y[p] = x[p] @ dequant(data[slot[p]], scale[slot[p]]), float32.
+
+        x      (P, K)             activations, one row per (token, expert) pair
+        data   (S, K//pack, N)    packed codes of the S pool slots
+        scale  (S, K//group, N)   groupwise scales
+        slot   (P,) int32         pool slot each pair reads
+        ->     (P, N) float32
+
+    The kernel reads each pair's expert in place in the pool.  A slot outside
+    0..S-1 aborts the kernel (the next synchronisation raises); the plain
+    version raises IndexError."""
+    op = "grouped_dequant_matmul"
+    if _route(op, x, data, scale, slot) == "torch":
+        _record(op, "torch")
+        return ref.grouped_dequant_matmul_ref(x, data, scale, slot, bits=bits,
+                                              group_size=group_size)
+    p, k, n, s, pack = _check_dequant(op, x, data, scale, slot, bits, group_size)
+    xb = _x_flag(op, x)
+    lib = build.library("dequant")
+    _check_dequant_cuda(op, data, scale, n)
+    out = torch.empty((p, n), dtype=torch.float32, device=x.device)
+    if p == 0:
+        return out
+    chunk = dequant_chunk(p, k, n, group_size, pack, _sm_count(x.device))
+    part = torch.empty((p, k // chunk, n), dtype=torch.float32, device=x.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.grouped_dequant_matmul_launch(
+        x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
+        part.data_ptr(), out.data_ptr(), p, k, n, s, bits, group_size, chunk,
+        _stream()))
+    return out
+
+
+def grouped_dequant_combine(x, data, scale, slot, rows, weights, *, bits: int,
+                            group_size: int, num_rows: int) -> torch.Tensor:
+    """Grouped dequant GEMV + gated combine:
+    out[rows[p]] += weights[p] * (x[p] @ dequant(data[slot[p]], scale[slot[p]])).
+
+        x        (P, K)             per-pair activations
+        data     (S, K//pack, N)    packed codes of the pool slots
+        scale    (S, K//group, N)   groupwise scales
+        slot     (P,) int32         pool slot each pair reads
+        rows     (P,) int32         destination token row, non-decreasing;
+                                    pad pairs carry num_rows
+        weights  (P,) float32       gate weight per pair (0 for pads)
+        ->       (num_rows, N) float32; rows no pair visits are 0
+
+    Each output row adds its pairs in pair order, with no atomics, so the
+    result is the same on every run.  A slot outside 0..S-1, a pad's too,
+    fails as in ``grouped_dequant_matmul``."""
+    op = "grouped_dequant_combine"
+    if _route(op, x, data, scale, slot, rows, weights) == "torch":
+        _record(op, "torch")
+        return ref.grouped_dequant_combine_ref(
+            x, data, scale, slot, rows, weights, bits=bits, group_size=group_size,
+            num_rows=num_rows)
+    p, k, n, s, pack = _check_dequant(op, x, data, scale, slot, bits, group_size)
+    _check(op, tuple(rows.shape) == (p,) and tuple(weights.shape) == (p,),
+           "rows and weights must be (P,)")
+    _check(op, rows.dtype == torch.int32, "rows must be int32")
+    _check(op, weights.dtype == torch.float32, "weights must be float32")
+    _check(op, num_rows > 0, f"num_rows={num_rows} must be positive")
+    _check_contig(op, rows=rows, weights=weights)
+    xb = _x_flag(op, x)
+    lib = build.library("dequant")
+    _check_dequant_cuda(op, data, scale, n)
+    if p == 0:
+        return torch.zeros((num_rows, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((num_rows, n), dtype=torch.float32, device=x.device)
+    chunk = dequant_chunk(p, k, n, group_size, pack, _sm_count(x.device))
+    part = torch.empty((p, k // chunk, n), dtype=torch.float32, device=x.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.grouped_dequant_combine_launch(
+        x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
+        rows.data_ptr(), weights.data_ptr(), part.data_ptr(), out.data_ptr(),
+        p, k, n, s, num_rows, bits, group_size, chunk, _stream()))
+    return out

@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+The CPU path runs these, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.  The two
+grouped dequant functions take the expert pools plus a per-pair ``slot``
+index (the kernels read each expert in place); pass ``slot = arange(P)``
+with per-pair tensors for the JAX package's gathered signature.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.quant.quantize import QTensor, dequantize
+
+
+def stacked_gating_ref(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """logits[p] = x @ gates[p] in float32.  x (B, D); gates (P, D, E)."""
+    return torch.einsum("bd,pde->pbe", x.to(torch.float32), gates.to(torch.float32))
+
+
+def softmax_last(logits: torch.Tensor) -> torch.Tensor:
+    """exp(l - max) / sum(exp(l - max)) over the last axis, written out as
+    the Pallas kernel and the JAX predictor write it."""
+    z = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return z / z.sum(dim=-1, keepdim=True)
+
+
+def topk_lowest_index(probs: torch.Tensor, k: int):
+    """Iterative argmax top-k over the last axis: each round takes the
+    largest value, ties going to the lowest index, then masks it with -1
+    (probabilities are >= 0).  torch.topk does not fix the tie order."""
+    work = probs.clone()
+    vals, idx = [], []
+    for _ in range(k):
+        i = torch.argmax(work, dim=-1)          # first maximal index
+        vals.append(torch.gather(work, -1, i.unsqueeze(-1)).squeeze(-1))
+        idx.append(i)
+        work.scatter_(-1, i.unsqueeze(-1), -1.0)
+    return torch.stack(vals, dim=-1), torch.stack(idx, dim=-1).to(torch.int32)
+
+
+def gating_topk_ref(x: torch.Tensor, gates: torch.Tensor, *, top_k: int):
+    """Router matmul + softmax + top-k.  Returns (logits (P,B,E) f32,
+    vals (P,B,K) f32 softmax probabilities of the selected experts,
+    idx (P,B,K) int32); ties resolve to the lowest expert index."""
+    logits = stacked_gating_ref(x, gates)
+    vals, idx = topk_lowest_index(softmax_last(logits), top_k)
+    return logits, vals, idx
+
+
+def _pair_products(x, data, scale, slot, bits: int, group_size: int):
+    """y[p] = x[p] @ dequant(data[slot[p]], scale[slot[p]]) in float32.
+    A slot outside 0..S-1 raises IndexError (negative ones do not wrap)."""
+    sl = slot.to(torch.long)
+    if bool(((sl < 0) | (sl >= data.shape[0])).any()):
+        raise IndexError(f"slot outside 0..{data.shape[0] - 1}: {slot.tolist()}")
+    q = QTensor(data[sl], scale[sl], bits, group_size, x.shape[-1])
+    w = dequantize(q, dtype=torch.float32)                  # (P, K, N)
+    return torch.einsum("pk,pkn->pn", x.to(torch.float32), w)
+
+
+def grouped_dequant_matmul_ref(x, data, scale, slot, *, bits: int,
+                               group_size: int) -> torch.Tensor:
+    """x (P, K); data (S, K//pack, N) int8; scale (S, K//group, N) f32;
+    slot (P,) int -> (P, N) float32."""
+    return _pair_products(x, data, scale, slot, bits, group_size)
+
+
+def grouped_dequant_combine_ref(x, data, scale, slot, rows, weights, *,
+                                bits: int, group_size: int,
+                                num_rows: int) -> torch.Tensor:
+    """out[rows[p]] += weights[p] * (x[p] @ dequant(data[slot[p]], ...)),
+    added in pair order.  Pad pairs carry rows[p] == num_rows and are dropped;
+    rows no pair visits stay 0.  Returns (num_rows, N) float32."""
+    y = _pair_products(x, data, scale, slot, bits, group_size)
+    out = torch.zeros((num_rows, y.shape[-1]), dtype=torch.float32, device=y.device)
+    keep = (rows >= 0) & (rows < num_rows)
+    contrib = weights.to(torch.float32)[:, None] * y
+    return out.index_add_(0, rows[keep].to(torch.long), contrib[keep])

@@ -1,0 +1,174 @@
+"""Model assembly of the port: config -> init / prefill / decode_step / logits.
+
+Covers the HOBBIT engine's model class: decoder-only, every layer a
+full-window "attn" layer with a MoE FFN (Mixtral / Phi-MoE shapes).  Other
+layer kinds raise NotImplementedError naming the ROADMAP slice that brings
+them.
+
+Parameters are a plain dict of tensors with a flat per-layer list::
+
+    {"embed": (V_pad, D), "final_norm": {"scale": (D,)},
+     "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "ffn_norm",
+                 "ffn": {"router": (D, E), "experts": {"wi", "wo"}}}, ...]}
+
+(the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
+eagerly, so the port keeps the flat view ``unstack_layers`` gives there).
+The decode cache is a list of per-layer {"k", "v"} (B, max_len, Hkv, hd)
+buffers updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers, moe as moe_lib
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless `cfg` is in the ported model class."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"} or cfg.mla is not None or cfg.encoder is not None \
+            or cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: only all-'attn' decoder layers are ported so far; "
+            "sliding-window, MLA, SSM, hybrid and encoder models arrive with "
+            "ROADMAP Queue 1, item 7 (remaining model classes)")
+    if not all(cfg.layer_is_moe()) or cfg.moe is None:
+        raise NotImplementedError(
+            f"{cfg.name}: dense-FFN layers arrive with ROADMAP Queue 1, item 7 "
+            "(remaining model classes)")
+    if cfg.moe.num_shared_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts arrive with ROADMAP Queue 1, item 7")
+    if cfg.frontend is not None or cfg.final_logit_softcap or cfg.scale_embedding:
+        raise NotImplementedError(
+            f"{cfg.name}: frontends, logit softcap and embedding scaling arrive "
+            "with ROADMAP Queue 1, item 7")
+
+
+def _generator(seed: Union[int, torch.Generator], device: torch.device):
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg.validate()
+        check_supported(self.cfg)
+        # padded vocab as in the reference (pad columns are masked)
+        self.v_pad = -(-cfg.vocab_size // 256) * 256
+
+    # -------------------- init --------------------
+    def init(self, seed: Union[int, torch.Generator] = 0,
+             device: DeviceLike = "cuda") -> Dict[str, Any]:
+        """Seeded random parameters on `device` (the reference's init
+        scales; the numbers differ from jax.random's)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        gen = _generator(seed, dev)
+        dt = layers.dtype_of(cfg)
+        params: Dict[str, Any] = {
+            "embed": layers.dense_init((self.v_pad, cfg.d_model), dt, gen, dev,
+                                       scale=0.02),
+            "final_norm": layers.norm_init(cfg, dev),
+            "layers": [],
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.dense_init((cfg.d_model, self.v_pad), dt,
+                                                  gen, dev)
+        for _ in range(cfg.num_layers):
+            params["layers"].append({
+                "pre_norm": layers.norm_init(cfg, dev),
+                "attn": layers.attn_init(cfg, gen, dev),
+                "ffn_norm": layers.norm_init(cfg, dev),
+                "ffn": moe_lib.moe_init(cfg, gen, dev),
+            })
+        return params
+
+    # -------------------- embedding / logits --------------------
+    def logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """(..., D) hidden -> (..., vocab) float32 logits."""
+        cfg = self.cfg
+        h = layers.apply_norm(params["final_norm"], x, cfg)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        lg = h.to(torch.float32) @ w.to(torch.float32)
+        return lg[..., : cfg.vocab_size]
+
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.to(torch.long)]
+
+    # -------------------- prefill --------------------
+    def forward(self, params, tokens: torch.Tensor):
+        """Full-sequence forward.  tokens (B, S).  Returns (hidden (B, S, D),
+        [(k, v) per layer], aux_loss)."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        kvs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in params["layers"]:
+            h = layers.apply_norm(p["pre_norm"], x, cfg)
+            out, kv = layers.attn_forward(p["attn"], h, positions, cfg)
+            x = x + out
+            h = layers.apply_norm(p["ffn_norm"], x, cfg)
+            y, a = moe_lib.moe_forward(p["ffn"], h, cfg)
+            x = x + y
+            aux = aux + a
+            kvs.append(kv)
+        return x, kvs, aux
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: DeviceLike) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed dense per-slot caches, one {"k", "v"} per layer."""
+        cfg = self.cfg
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        dt = layers.dtype_of(cfg)
+        dev = torch.device(device)
+        return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+                for _ in range(cfg.num_layers)]
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int):
+        """Run whole prompts (B, S) and build a decode cache padded to
+        max_len.  Returns (last-token logits (B, V), cache, next positions
+        as a host array (B,))."""
+        x, kvs, _ = self.forward(params, tokens)
+        b, s, _ = x.shape
+        cache = self.init_cache(b, max_len, x.device)
+        for c, (k, v) in zip(cache, kvs):
+            c["k"][:, :s] = k.to(c["k"].dtype)
+            c["v"][:, :s] = v.to(c["v"].dtype)
+        last = self.logits(params, x[:, -1:, :])[:, 0, :]
+        return last, cache, np.full((b,), s, np.int64)
+
+    # -------------------- decode --------------------
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    positions: torch.Tensor, active: Optional[torch.Tensor] = None):
+        """tokens (B, 1); positions (B,) int64 write index; active: optional
+        (B,) bool live-slot mask (dead slots take no MoE capacity).  The cache
+        is updated in place.  Returns logits (B, V)."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        for p, c in zip(params["layers"], cache):
+            h = layers.apply_norm(p["pre_norm"], x, cfg)
+            x = x + layers.attn_decode(p["attn"], h, c, positions, cfg)
+            h = layers.apply_norm(p["ffn_norm"], x, cfg)
+            y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=active)
+            x = x + y
+        return self.logits(params, x)[:, 0, :]
+
+
+def unstack_layers(cfg: ModelConfig, params) -> List[Dict[str, Any]]:
+    """The flat per-layer parameter list (the port stores it flat)."""
+    del cfg
+    return list(params["layers"])
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,280 @@
+"""Unified serving API of the port: one slot-oriented `InferenceBackend`
+protocol in front of the dense (resident-weights) decode path and the HOBBIT
+offload engine, so the scheduler and the launcher drive either one.
+
+    start_batch(batch, max_len)      allocate B slots (all marked active)
+    prefill(prompts (B,S)) -> (B,V)  full-batch prefill, last-token logits
+    join(slot, prompt (S,)) -> (V,)  admit one request into a slot mid-flight
+    join_begin(slot, prompt, ...)    start an incremental admission
+    join_step() -> {slot: (V,)}      advance all admissions
+    can_admit(tokens, *, prompt)     does KV capacity exist for a request?
+    pause(slot) -> snapshot          preempt a slot: KV to host, slot freed
+    resume(slot, snapshot)           re-admit a paused request
+    release(slot)                    free a slot
+    step(tokens (B,)) -> (B,V)       one decode step for the whole batch
+    stats() -> dict                  backend counters
+    close()                          release resources (idempotent)
+
+Only the dense KV layout is ported; ``paged=True`` raises until the paged
+KV slice lands (ROADMAP Queue 1, item 3).  Logits cross to the host as
+float32 numpy arrays, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device, to_host
+from repro_torch.models.model import Model
+from repro_torch.serving.decode import GenerateResult, sample_token
+
+PAGED_NOT_PORTED = ("the paged KV layout arrives with the next slice of the port "
+                    "(models/kv_pages.py + the paged flash-decode kernel, ROADMAP "
+                    "Queue 1, item 3)")
+
+
+@runtime_checkable
+class InferenceBackend(Protocol):
+    """Slot-oriented decode interface served by the continuous scheduler."""
+
+    model: Model
+
+    def start_batch(self, batch: int, max_len: int) -> None: ...
+
+    def prefill(self, prompts: np.ndarray) -> np.ndarray: ...
+
+    def join(self, slot: int, prompt: np.ndarray) -> np.ndarray: ...
+
+    def join_begin(self, slot: int, prompt: np.ndarray,
+                   reserve_tokens: Optional[int] = None) -> None: ...
+
+    def join_step(self) -> dict: ...
+
+    def can_admit(self, tokens: int, *, prompt=None) -> bool: ...
+
+    def pause(self, slot: int) -> dict: ...
+
+    def resume(self, slot: int, snapshot: dict) -> None: ...
+
+    def release(self, slot: int) -> None: ...
+
+    def step(self, tokens: np.ndarray) -> np.ndarray: ...
+
+    def stats(self) -> dict: ...
+
+    def close(self) -> None: ...
+
+
+def _blocking_join(backend, slot: int, prompt) -> np.ndarray:
+    """THE blocking-join loop shared by every backend: begin an admission,
+    then drive `join_step` until `slot` completes; other admissions that
+    finish meanwhile stay claimable (`_unclaimed_joins`)."""
+    backend.join_begin(slot, np.asarray(prompt, np.int32).reshape(-1))
+    while True:
+        done = backend.join_step()
+        lg = done.pop(slot, None)
+        backend._unclaimed_joins.update(done)
+        if lg is not None:
+            return lg
+
+
+class DenseBackend:
+    """All weights resident on the parameters' device; prefill + decode
+    through the dense model (capacity-dispatched MoE)."""
+
+    def __init__(self, model: Model, params, *, paged: bool = False):
+        if paged:
+            raise NotImplementedError(PAGED_NOT_PORTED)
+        self.model = model
+        self.params = params
+        self.device = params["embed"].device
+        self.cache = None
+        self._pending_joins: dict = {}
+        self._unclaimed_joins: dict = {}
+        self.batch = 0
+        self.max_len = 0
+        self.positions = np.zeros((0,), np.int64)
+        self.active = np.zeros((0,), bool)
+
+    def start_batch(self, batch: int, max_len: int) -> None:
+        self.batch, self.max_len = batch, max_len
+        self.positions = np.zeros((batch,), np.int64)
+        self.active = np.ones((batch,), bool)
+        self._pending_joins = {}
+        self._unclaimed_joins = {}
+        self.cache = self.model.init_cache(batch, max_len, self.device)
+
+    def prefill(self, prompts) -> np.ndarray:
+        prompts = np.asarray(prompts, np.int64)
+        logits, self.cache, self.positions = self.model.prefill(
+            self.params, to_device(prompts, self.device), self.max_len)
+        self.active[:] = True
+        return to_host(logits)[0]
+
+    def join(self, slot: int, prompt) -> np.ndarray:
+        return _blocking_join(self, slot, prompt)
+
+    def join_begin(self, slot: int, prompt,
+                   reserve_tokens: Optional[int] = None) -> None:
+        del reserve_tokens          # dense slots are pre-allocated to max_len
+        self._pending_joins[slot] = np.asarray(prompt, np.int64).reshape(-1)
+
+    def join_step(self) -> dict:
+        done: dict = dict(self._unclaimed_joins)
+        self._unclaimed_joins = {}
+        for slot, prompt in list(self._pending_joins.items()):
+            del self._pending_joins[slot]
+            done[slot] = self._join_dense(slot, prompt)
+        return done
+
+    def _join_dense(self, slot: int, prompt) -> np.ndarray:
+        logits, one, positions = self.model.prefill(
+            self.params, to_device(prompt.reshape(1, -1), self.device), self.max_len)
+        for dst, src in zip(self.cache, one):
+            dst["k"][slot].copy_(src["k"][0])
+            dst["v"][slot].copy_(src["v"][0])
+        self.positions[slot] = positions[0]
+        self.active[slot] = True
+        return to_host(logits[0])[0]
+
+    def can_admit(self, tokens: int, *, prompt=None) -> bool:
+        del tokens, prompt
+        return True
+
+    def pause(self, slot: int) -> dict:
+        rows = [{"k": c["k"][slot].to("cpu", copy=True),
+                 "v": c["v"][slot].to("cpu", copy=True)} for c in self.cache]
+        self.active[slot] = False
+        return {"layout": "dense", "position": int(self.positions[slot]), "cache": rows}
+
+    def resume(self, slot: int, snapshot: dict) -> None:
+        for c, row in zip(self.cache, snapshot["cache"]):
+            c["k"][slot].copy_(row["k"])
+            c["v"][slot].copy_(row["v"])
+        self.positions[slot] = int(snapshot["position"])
+        self.active[slot] = True
+
+    def release(self, slot: int) -> None:
+        self.active[slot] = False
+
+    def step(self, tokens) -> np.ndarray:
+        tokens = np.asarray(tokens, np.int64).reshape(-1, 1)
+        logits = self.model.decode_step(
+            self.params, self.cache, to_device(tokens, self.device),
+            to_device(self.positions, self.device),
+            to_device(self.active, self.device))
+        # only active slots advance; freed slots idle at their last position
+        self.positions = self.positions + self.active.astype(np.int64)
+        return to_host(logits)[0]
+
+    def stats(self) -> dict:
+        return {"backend": "dense", "batch": self.batch, "max_len": self.max_len,
+                "load_stall_s": 0.0, "overlap_fraction": 0.0,
+                "precision_downgrades": 0, "issue_reorders": 0,
+                "link_utilization": 0.0, "per_stream_bytes": []}
+
+    def close(self) -> None:
+        """Resident weights hold no staging threads: nothing to release."""
+
+
+class HobbitBackend:
+    """`OffloadEngine` behind the protocol."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.model = engine.model
+
+    def start_batch(self, batch: int, max_len: int) -> None:
+        self.engine.start_batch(batch, max_len)
+
+    def prefill(self, prompts) -> np.ndarray:
+        return self.engine.prefill_batch(prompts)
+
+    def join(self, slot: int, prompt) -> np.ndarray:
+        return self.engine.join(slot, prompt)
+
+    def join_begin(self, slot: int, prompt,
+                   reserve_tokens: Optional[int] = None) -> None:
+        self.engine.join_begin(slot, prompt, reserve_tokens=reserve_tokens)
+
+    def join_step(self) -> dict:
+        return self.engine.join_step()
+
+    def can_admit(self, tokens: int, *, prompt=None) -> bool:
+        return self.engine.can_admit(tokens, prompt=prompt)
+
+    def pause(self, slot: int) -> dict:
+        return self.engine.pause(slot)
+
+    def resume(self, slot: int, snapshot: dict) -> None:
+        self.engine.resume(slot, snapshot)
+
+    def release(self, slot: int) -> None:
+        self.engine.release(slot)
+
+    def step(self, tokens) -> np.ndarray:
+        return self.engine.decode_step_batch(tokens)
+
+    def stats(self) -> dict:
+        s = dict(self.engine.stats())
+        s["backend"] = "hobbit"
+        return s
+
+    def close(self) -> None:
+        self.engine.close()
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendConfig:
+    """Typed backend construction config (mirrored by `launch/serve.py`).
+
+    kind    "dense" (resident weights) or "hobbit" (offload engine)
+    paged   paged KV layout (not ported yet: raises)
+    engine  `core.EngineConfig` for kind="hobbit" (None: defaults)
+    """
+    kind: str = "dense"
+    paged: bool = False
+    engine: Optional[object] = None
+
+
+def make_backend(config, model: Model, params):
+    """``make_backend(BackendConfig(...), model, params)``; a bare kind string
+    stands for the all-defaults config."""
+    cfg = config if isinstance(config, BackendConfig) else BackendConfig(kind=config)
+    if cfg.paged:
+        raise NotImplementedError(PAGED_NOT_PORTED)
+    if cfg.kind == "dense":
+        return DenseBackend(model, params)
+    if cfg.kind == "hobbit":
+        from repro_torch.core.engine import EngineConfig, OffloadEngine
+        return HobbitBackend(OffloadEngine(model, params, cfg.engine or EngineConfig()))
+    raise ValueError(f"unknown backend kind: {cfg.kind!r}")
+
+
+def generate(backend: InferenceBackend, prompts, new_tokens: int, *,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             seed: int = 0) -> GenerateResult:
+    """Greedy/temperature generation through any backend.  prompts: (B, S)."""
+    prompts = np.asarray(prompts, np.int32)
+    b, s = prompts.shape
+    max_len = max_len or (s + new_tokens + 1)
+    backend.start_batch(b, max_len)
+    gen = torch.Generator().manual_seed(seed)
+    t0 = time.time()
+    lg = backend.prefill(prompts)
+    t1 = time.time()
+    out = [prompts]
+    tok = sample_token(lg, gen, temperature)
+    for i in range(new_tokens):
+        out.append(tok[:, None])
+        if i == new_tokens - 1:
+            break
+        lg = backend.step(tok)
+        tok = sample_token(lg, gen, temperature)
+    t2 = time.time()
+    return GenerateResult(np.concatenate(out, axis=1), t1 - t0, t2 - t1, new_tokens)

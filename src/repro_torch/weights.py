@@ -1,0 +1,133 @@
+"""Parameters from the JAX package: its parameter tree, or its checkpoints.
+
+``load_checkpoint(dir)`` reads the ``training/checkpoint.py`` format (one
+``step_<n>.npz`` of leaves ``a0, a1, ...`` plus a ``step_<n>.json`` manifest
+naming each leaf's tree path and dtype, bfloat16 stored as a uint16 view)
+with numpy alone, so ``--ckpt-dir`` works without JAX.  It returns the
+nested tree (lists for integer path components) of float arrays.
+
+``from_jax_params(cfg, tree)`` turns that tree — or the reference's live
+parameters mapped to numpy — into the port's flat per-layer layout, so the
+port and the reference compute the same function.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import dtype_of
+
+_BF16 = "__bf16__"
+
+
+def _bf16_bits_to_f32(u16: np.ndarray) -> np.ndarray:
+    return (u16.astype(np.uint32) << 16).view(np.float32)
+
+
+def _as_f32(arr) -> np.ndarray:
+    """A float array as float32 numpy (bfloat16 values are exact in f32)."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return _bf16_bits_to_f32(a.view(np.uint16))
+    return a.astype(np.float32, copy=False)
+
+
+def _insert(tree: Dict[str, Any], path: List[str], leaf) -> None:
+    node = tree
+    for key, nxt in zip(path[:-1], path[1:]):
+        default: Any = [] if nxt.isdigit() else {}
+        if isinstance(node, list):
+            i = int(key)
+            while len(node) <= i:
+                node.append(None)
+            if node[i] is None:
+                node[i] = default
+            node = node[i]
+        else:
+            node = node.setdefault(key, default)
+    last = path[-1]
+    if isinstance(node, list):
+        i = int(last)
+        while len(node) <= i:
+            node.append(None)
+        node[i] = leaf
+    else:
+        node[last] = leaf
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    p = os.path.join(ckpt_dir, "latest")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return int(f.read().strip())
+
+
+def load_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """Read a JAX-package checkpoint into a nested tree of float32 numpy
+    arrays (bfloat16 leaves widened exactly)."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    with open(os.path.join(ckpt_dir, f"step_{step}.json")) as f:
+        meta = json.load(f)
+    tree: Dict[str, Any] = {}
+    with np.load(os.path.join(ckpt_dir, f"step_{step}.npz")) as data:
+        for key, entry in meta["leaves"].items():
+            arr = data[key]
+            if entry["dtype"] == _BF16:
+                arr = _bf16_bits_to_f32(arr.view(np.uint16))
+            _insert(tree, entry["path"].split("/"), arr)
+    return tree
+
+
+def _flat_layers(cfg: ModelConfig, tree) -> List[Dict[str, Any]]:
+    """(prefix, stacked blocks, tail) -> one param dict per layer, as the
+    reference's ``unstack_layers`` flattens them."""
+    out = list(tree.get("prefix") or [])
+    blocks = tree.get("blocks") or []
+    for i in range(cfg.num_blocks):
+        for j in range(cfg.period):
+            out.append(_index_tree(blocks[j], i))
+    out.extend(tree.get("tail") or [])
+    return out
+
+
+def _index_tree(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index_tree(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def _to_torch(node, dtype: torch.dtype, device: torch.device, f32_keys=()):
+    if isinstance(node, dict):
+        return {k: _to_torch(v, torch.float32 if k in f32_keys else dtype, device,
+                             f32_keys) for k, v in node.items()}
+    return torch.from_numpy(np.array(_as_f32(node))).to(device=device, dtype=dtype)
+
+
+def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
+    """The reference's parameter tree (numpy leaves, stacked ``blocks/<j>/...``
+    layout) as the port's parameters on `device`.  Matrices take the config
+    dtype; norm scales and routers stay float32, as the reference keeps them."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg)
+    f32_keys = ("pre_norm", "ffn_norm", "final_norm", "router")
+    out: Dict[str, Any] = {
+        "embed": _to_torch(params["embed"], dt, dev),
+        "final_norm": _to_torch(params["final_norm"], torch.float32, dev),
+        "layers": [_to_torch(lp, dt, dev, f32_keys) for lp in _flat_layers(cfg, params)],
+    }
+    if "lm_head" in params:
+        out["lm_head"] = _to_torch(params["lm_head"], dt, dev)
+    if len(out["layers"]) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: tree holds {len(out['layers'])} layers, "
+                         f"config has {cfg.num_layers}")
+    return out

@@ -1,0 +1,168 @@
+"""The port's OffloadEngine against the JAX reference engine on the trained
+smoke checkpoints.
+
+With ``async_prefetch=False`` the loader drains synchronously, so cache
+state does not depend on timing and the two engines must agree on every
+decision: per-step logits (atol 1e-4, float32 sums in another order), the
+routed experts and their precision decisions, hi/lo load counts, cache
+hit/miss counts and union-overflow reloads.  The default asynchronous
+configuration is held to the dense model in the unconstrained setting
+(every expert resident at full precision), atol 1e-3 as tests/test_api.py.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from benchmarks.common import CACHE_DIR, bench_config
+from repro.core import EngineConfig as RefEngineConfig
+from repro.core import OffloadEngine as RefEngine
+from repro.models import build_model as build_ref
+from repro.serving.api import DenseBackend as RefDense
+from repro.serving.api import HobbitBackend as RefHobbit
+from repro.training import checkpoint as ckpt
+from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+from repro_torch.core.scoring import precision_decisions
+from repro_torch.models import build_model
+from repro_torch.serving.api import DenseBackend, HobbitBackend
+from repro_torch.weights import from_jax_params, load_checkpoint
+
+torch.set_num_threads(2)
+
+
+def _load(kind, capacity_factor=None):
+    cfg = bench_config(kind)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+    ref = build_ref(cfg)
+    params, _ = ckpt.restore(f"{CACHE_DIR}/{kind}", ref.init(jax.random.PRNGKey(0)))
+    port = build_model(cfg)
+    tparams = from_jax_params(cfg, load_checkpoint(f"{CACHE_DIR}/{kind}"), device="cpu")
+    return cfg, ref, params, port, tparams
+
+
+@pytest.fixture(scope="module", params=["mixtral-smoke", "phi-smoke"])
+def models(request):
+    return _load(request.param)
+
+
+def _decisions(trace, th):
+    return [[precision_decisions(np.asarray(t.gate_vals), th).tolist() for t in row]
+            for row in trace]
+
+
+@pytest.mark.parametrize("slots", [(16, 8), (3, 2)], ids=["roomy", "overflow"])
+def test_sync_engine_matches_reference(models, slots):
+    cfg, ref, params, port, tparams = models
+    hi, lo = slots
+    kw = dict(hi_slots=hi, lo_slots=lo, async_prefetch=False)
+    r_eng = RefEngine(ref, params, RefEngineConfig(**kw))
+    t_eng = OffloadEngine(port, tparams, EngineConfig(**kw))
+    rb, tb = RefHobbit(r_eng), HobbitBackend(t_eng)
+    rng = np.random.default_rng(7)
+    b, s, steps = 2, 8, 6
+    prompts = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    teacher = rng.integers(0, cfg.vocab_size, (steps, b)).astype(np.int32)
+    try:
+        for be in (rb, tb):
+            be.start_batch(b, 32)
+        np.testing.assert_allclose(tb.prefill(prompts), rb.prefill(prompts), atol=1e-4)
+        for t in range(steps):
+            np.testing.assert_allclose(tb.step(teacher[t]), rb.step(teacher[t]),
+                                       atol=1e-4)
+        th = Thresholds(0.6, 0.9)
+        assert [[e.experts for e in row] for row in t_eng.trace] == \
+            [[e.experts for e in row] for row in r_eng.trace]
+        assert _decisions(t_eng.trace, th) == _decisions(r_eng.trace, th)
+        rs, ts = r_eng.stats(), t_eng.stats()
+        for key in ("loads_hi", "loads_lo", "skips", "loaded_bytes", "union_reloads",
+                    "expert_dispatches"):
+            assert ts[key] == rs[key], key
+        for key in ("hits_hi", "hits_lo", "misses_hi", "misses_lo", "evictions"):
+            assert ts["cache"][key] == rs["cache"][key], key
+        assert ts["loads_hi"] > 0 and ts["loads_lo"] > 0
+        if slots == (3, 2):
+            assert ts["union_reloads"] > 0
+        counts = ts["kernel_dispatch"]
+        for op in ("gating_topk", "stacked_gating", "grouped_dequant_matmul",
+                   "grouped_dequant_combine"):
+            assert counts.get(f"{op}.torch", 0) > 0, op
+            assert f"{op}.cuda" not in counts
+    finally:
+        rb.close()
+        tb.close()
+
+
+def test_join_release_pause_resume_match_reference(models):
+    """Mid-flight admission into a freed slot and pause/resume through the
+    engine keep logits equal to the reference."""
+    cfg, ref, params, port, tparams = models
+    kw = dict(hi_slots=8, lo_slots=4, async_prefetch=False)
+    rb = RefHobbit(RefEngine(ref, params, RefEngineConfig(**kw)))
+    tb = HobbitBackend(OffloadEngine(port, tparams, EngineConfig(**kw)))
+    rng = np.random.default_rng(11)
+    p0, p1, p2 = (rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                  for n in (6, 9, 5))
+    try:
+        outs = []
+        for be in (rb, tb):
+            be.start_batch(2, 40)
+            be.release(0)
+            be.release(1)
+            lg = [be.join(0, p0)]
+            lg.append(be.step(np.asarray([3, 0], np.int32))[0])
+            lg.append(be.join(1, p1))
+            lg.append(be.step(np.asarray([5, 7], np.int32)))
+            snap = be.pause(0)
+            # another request overwrites the paused slot's KV rows
+            lg.append(be.join(0, p2))
+            lg.append(be.step(np.asarray([2, 9], np.int32)))
+            be.release(0)
+            be.resume(0, snap)
+            lg.append(be.step(np.asarray([11, 13], np.int32)))
+            outs.append(lg)
+        for a, b in zip(*outs):
+            np.testing.assert_allclose(b, a, atol=1e-4)
+    finally:
+        rb.close()
+        tb.close()
+
+
+def test_default_async_engine_matches_dense_unconstrained():
+    """Default EngineConfig (async staging on two streams, measured link)
+    with every expert resident at full precision equals the dense model —
+    the port's and the reference's."""
+    cfg, ref, params, port, tparams = _load("mixtral-smoke", capacity_factor=8.0)
+    n = cfg.num_layers * cfg.moe.num_experts
+    ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
+                        prefetch=False)
+    assert ecfg.async_prefetch
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    teacher = rng.integers(0, cfg.vocab_size, (4, 2)).astype(np.int32)
+    dense, hob, rdense = (DenseBackend(port, tparams),
+                          HobbitBackend(OffloadEngine(port, tparams, ecfg)),
+                          RefDense(ref, params))
+    try:
+        for be in (dense, hob, rdense):
+            be.start_batch(2, 32)
+        lg_d, lg_h, lg_r = (be.prefill(prompts) for be in (dense, hob, rdense))
+        np.testing.assert_allclose(lg_h, lg_d, atol=1e-3)
+        np.testing.assert_allclose(lg_d, lg_r, atol=1e-4)
+        for t in range(4):
+            lg_d, lg_h, lg_r = (be.step(teacher[t]) for be in (dense, hob, rdense))
+            np.testing.assert_allclose(lg_h, lg_d, atol=1e-3)
+            np.testing.assert_allclose(lg_d, lg_r, atol=1e-4)
+    finally:
+        hob.close()
+
+
+def test_unported_engine_modes_raise():
+    _, _, _, port, tparams = _load("mixtral-smoke")
+    for kw in (dict(paged_kv=True), dict(grouped=False), dict(compute_mode="host")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            OffloadEngine(port, tparams, EngineConfig(**kw))

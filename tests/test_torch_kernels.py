@@ -1,0 +1,240 @@
+"""Plain PyTorch versions of the four serving-path kernels against the JAX
+package's ops, in both of its modes: ``mode="pallas"`` (the Pallas kernel
+body in interpret mode) and ``mode="xla"`` (its jnp oracle).  Tolerance
+rtol 1e-5 / atol 1e-4, the tests/test_kernels.py convention.  Inputs are
+made with numpy from a seed and handed to both sides.
+
+The CUDA kernels cannot run here (no nvcc, no card); chip_smoke.py holds
+each one against these plain versions on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops
+
+torch.set_num_threads(2)
+RTOL, ATOL = 1e-5, 1e-4
+MODES = ["pallas", "xla"]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# gating
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("e", [8, 16])
+@pytest.mark.parametrize("b", [1, 4])
+def test_gating_topk_matches_reference(mode, e, b):
+    rng = np.random.default_rng(e * 10 + b)
+    d = 256
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    gates = (rng.standard_normal((1, d, e)) / np.sqrt(d)).astype(np.float32)
+    lg_r, v_r, i_r = jops.gating_topk(jnp.asarray(x), jnp.asarray(gates), top_k=2,
+                                      mode=mode)
+    lg_t, v_t, i_t = ops.gating_topk(_t(x), _t(gates), top_k=2)
+    _close(lg_t, lg_r)
+    _close(v_t, v_r)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_r))
+    assert i_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_gating_topk_ties_go_to_lowest_index(mode):
+    """Duplicate router columns give exactly equal logits: both sides pick
+    the lower expert index first."""
+    rng = np.random.default_rng(5)
+    d, e = 128, 8
+    gates = (rng.standard_normal((1, d, e)) / np.sqrt(d)).astype(np.float32)
+    gates[0, :, 5] = gates[0, :, 2]
+    gates[0, :, 7] = gates[0, :, 2]
+    x = rng.standard_normal((3, d)).astype(np.float32)
+    # make expert 2 (and its copies 5, 7) the winners for every row
+    x = x + 4.0 * gates[0, :, 2][None, :] / np.square(gates[0, :, 2]).sum()
+    _, v_r, i_r = jops.gating_topk(jnp.asarray(x), jnp.asarray(gates), top_k=3,
+                                   mode=mode)
+    _, v_t, i_t = ops.gating_topk(_t(x), _t(gates), top_k=3)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_r))
+    np.testing.assert_array_equal(i_t.numpy(), np.tile([2, 5, 7], (3, 1))[None])
+    _close(v_t, v_r)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,e", [(1, 8), (2, 8), (3, 16)])
+def test_stacked_gating_matches_reference(mode, p, e):
+    rng = np.random.default_rng(p * 100 + e)
+    d = 256
+    x = rng.standard_normal((1, d)).astype(np.float32)
+    gates = (rng.standard_normal((p, d, e)) / np.sqrt(d)).astype(np.float32)
+    want = jops.stacked_gating(jnp.asarray(x), jnp.asarray(gates), mode=mode)
+    got = ops.stacked_gating(_t(x), _t(gates))
+    assert got.shape == (p, 1, e) and got.dtype == torch.float32
+    _close(got, want)
+
+
+# --------------------------------------------------------------------------
+# grouped dequant GEMV (+ combine)
+# --------------------------------------------------------------------------
+PACK = {8: 1, 4: 2, 2: 4}
+
+
+def _pool(rng, slots, k, n, bits, gs):
+    data = rng.integers(-128, 128, (slots, k // PACK[bits], n)).astype(np.int8)
+    scale = (rng.random((slots, k // gs, n)) * 0.05 + 1e-3).astype(np.float32)
+    return data, scale
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_grouped_dequant_matmul_gathered_signature(mode, bits):
+    """slot = arange(P) with per-pair tensors is the reference's gathered
+    signature."""
+    rng = np.random.default_rng(bits)
+    p, k, n, gs = 4, 256, 128, 64
+    x = rng.standard_normal((p, k)).astype(np.float32)
+    data, scale = _pool(rng, p, k, n, bits, gs)
+    want = jops.grouped_dequant_matmul(jnp.asarray(x), jnp.asarray(data),
+                                       jnp.asarray(scale), bits=bits, group_size=gs,
+                                       mode=mode)
+    got = ops.grouped_dequant_matmul(_t(x), _t(data), _t(scale),
+                                     torch.arange(p, dtype=torch.int32),
+                                     bits=bits, group_size=gs)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_grouped_dequant_matmul_reads_pool_by_slot(mode):
+    """Pairs read arbitrary (repeated) pool slots in place: equal to the
+    reference run on the gathered copies."""
+    rng = np.random.default_rng(9)
+    k, n, gs, bits = 256, 128, 64, 4
+    data, scale = _pool(rng, 6, k, n, bits, gs)
+    slot = np.asarray([4, 0, 4, 2, 5], np.int32)
+    x = rng.standard_normal((len(slot), k)).astype(np.float32)
+    want = jops.grouped_dequant_matmul(jnp.asarray(x), jnp.asarray(data[slot]),
+                                       jnp.asarray(scale[slot]), bits=bits,
+                                       group_size=gs, mode=mode)
+    got = ops.grouped_dequant_matmul(_t(x), _t(data), _t(scale), _t(slot),
+                                     bits=bits, group_size=gs)
+    _close(got, want)
+
+
+COMBINE_CASES = {
+    # non-decreasing rows with repeats, one pad pair, row 2 never visited
+    "pads_and_unvisited": ([0, 0, 1, 3, 3, 4, 4], 4),
+    # every pair on one row
+    "one_row": ([1, 1, 1, 1], 3),
+    # all pads: every row zero
+    "all_pads": ([2, 2], 2),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("case", sorted(COMBINE_CASES))
+def test_grouped_dequant_combine_matches_reference(mode, bits, case):
+    rows, num_rows = COMBINE_CASES[case]
+    rows = np.asarray(rows, np.int32)
+    rng = np.random.default_rng(bits * 7 + len(rows))
+    p, k, n, gs = len(rows), 256, 128, 64
+    x = rng.standard_normal((p, k)).astype(np.float32)
+    data, scale = _pool(rng, p, k, n, bits, gs)
+    w = rng.random(p).astype(np.float32)
+    w[rows == num_rows] = 0.0
+    want = jops.grouped_dequant_combine(
+        jnp.asarray(x), jnp.asarray(data), jnp.asarray(scale), jnp.asarray(rows),
+        jnp.asarray(w), bits=bits, group_size=gs, num_rows=num_rows, mode=mode)
+    got = ops.grouped_dequant_combine(
+        _t(x), _t(data), _t(scale), torch.arange(p, dtype=torch.int32), _t(rows),
+        _t(w), bits=bits, group_size=gs, num_rows=num_rows)
+    assert got.shape == (num_rows, n)
+    _close(got, want)
+    for r in range(num_rows):
+        if r not in rows:
+            assert torch.all(got[r] == 0)
+
+
+def test_grouped_dequant_combine_pool_slots_match_gathered():
+    rng = np.random.default_rng(21)
+    k, n, gs, bits = 256, 128, 64, 4
+    data, scale = _pool(rng, 5, k, n, bits, gs)
+    slot = np.asarray([3, 1, 1, 0], np.int32)
+    rows = np.asarray([0, 0, 1, 2], np.int32)
+    w = rng.random(4).astype(np.float32)
+    w[rows == 2] = 0.0
+    x = rng.standard_normal((4, k)).astype(np.float32)
+    want = jops.grouped_dequant_combine(
+        jnp.asarray(x), jnp.asarray(data[slot]), jnp.asarray(scale[slot]),
+        jnp.asarray(rows), jnp.asarray(w), bits=bits, group_size=gs, num_rows=2,
+        mode="xla")
+    got = ops.grouped_dequant_combine(_t(x), _t(data), _t(scale), _t(slot), _t(rows),
+                                      _t(w), bits=bits, group_size=gs, num_rows=2)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("op", ["grouped_dequant_matmul", "grouped_dequant_combine"])
+@pytest.mark.parametrize("bad", [3, -1])
+def test_grouped_dequant_slot_out_of_range_raises(op, bad):
+    """A slot past the pool or negative raises (the kernel aborts there)
+    instead of wrapping around or dropping the pair."""
+    rng = np.random.default_rng(5)
+    k, n, gs, bits = 256, 128, 64, 4
+    data, scale = _pool(rng, 3, k, n, bits, gs)
+    x = _t(rng.standard_normal((2, k)).astype(np.float32))
+    slot = torch.tensor([0, bad], dtype=torch.int32)
+    kw = dict(bits=bits, group_size=gs)
+    with pytest.raises(IndexError, match="slot outside"):
+        if op == "grouped_dequant_matmul":
+            ops.grouped_dequant_matmul(x, _t(data), _t(scale), slot, **kw)
+        else:
+            ops.grouped_dequant_combine(x, _t(data), _t(scale), slot,
+                                        torch.tensor([0, 1], dtype=torch.int32),
+                                        torch.ones(2), num_rows=2, **kw)
+
+
+# --------------------------------------------------------------------------
+# dispatch
+# --------------------------------------------------------------------------
+def test_dispatch_counts_and_device_routing():
+    ops.reset_dispatch_counts()
+    x = torch.randn(2, 64)
+    g = torch.randn(1, 64, 8)
+    ops.gating_topk(x, g, top_k=2)
+    ops.stacked_gating(x, g)
+    assert ops.dispatch_counts() == {"gating_topk.torch": 1, "stacked_gating.torch": 1}
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.gating_topk(x.to("meta"), g.to("meta"), top_k=2)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stacked_gating(x, g.to("meta"))
+    assert ops.dispatch_counts() == {"gating_topk.torch": 1, "stacked_gating.torch": 1}
+    ops.reset_dispatch_counts()
+    assert ops.dispatch_counts() == {}
+
+
+@pytest.mark.parametrize("k,gs,pack,want", [(4096, 64, 2, 512), (14336, 64, 2, 512),
+                                            (6400, 64, 2, 320), (128, 64, 4, 128),
+                                            (192, 64, 1, 192)])
+def test_k_chunk_tiles_whole_groups(k, gs, pack, want):
+    c = ops.k_chunk(k, gs, pack)
+    assert c == want and k % c == 0 and c % gs == 0 and c % pack == 0
+
+
+@pytest.mark.parametrize("p,k,n,want", [(8, 4096, 28672, 512), (2, 4096, 28672, 128),
+                                        (8, 14336, 4096, 256), (2, 14336, 4096, 64)])
+def test_dequant_chunk_fills_the_card(p, k, n, want):
+    """Few pairs get shorter K-chunks, so the pass-1 grid keeps several
+    blocks on each of an H100's 132 SMs."""
+    c = ops.dequant_chunk(p, k, n, 64, 2, 132)
+    assert c == want and k % c == 0 and c % 64 == 0
+    tiles = -(-n // ops.DEQUANT_TILE_N)
+    assert p * tiles * (k // c) >= ops.DEQUANT_BLOCKS_PER_SM * 132
