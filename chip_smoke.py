@@ -11,12 +11,20 @@ stands outside a checkout of the repository.  Phases, each fatal on failure:
   3. kernels — each kernel against its plain PyTorch version at the serving
                path's full Mixtral-8x7B shapes; device time from CUDA-graph
                replays timed with CUDA events; an out-of-range pool slot
-               must abort the dequant kernels (checked in child processes);
+               must abort the dequant kernels, and an out-of-range page id
+               the paged flash-decode kernel (checked in child processes);
+               paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
   4. serve   — HobbitBackend under BatchingServer on full-width Mixtral-8x7B
                (depth cut to 4 layers, seeded random bf16 weights): mixed-
                length greedy requests, with every kernel's launch counted;
   5. parity  — the offload engine with every expert resident at full
-               precision against the dense model, step by step.
+               precision against the dense model, step by step;
+  6. serve-paged — the same server and model on the paged KV layout
+               (``EngineConfig(paged_kv=True)`` defaults): requests sharing
+               a 48-token system prompt, so a partial page is aliased and
+               copied on write; every kernel's launch counted;
+  7. paged parity — the unconstrained engine on paged KV against the same
+               engine on dense KV, step by step.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -289,6 +297,7 @@ def phase_kernels(dev) -> list:
         torch.cuda.empty_cache()
     _other_instantiations(dev, g)
     _slot_faults()
+    rows.append(_paged_decode_row(dev, g))
     return rows
 
 
@@ -394,10 +403,201 @@ def _slot_faults() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: paged flash decode
+# ---------------------------------------------------------------------------
+PAGED_TOL = dict(rtol=1e-4, atol=1e-4)      # float32 sums in another order
+
+
+def _paged_case(dev, g, b, hq, hkv, hd, psz, lengths, *, maxp=None, num_pages=None,
+                dtype=torch.bfloat16):
+    """Seeded q and K/V pages on the card; each slot's table row is a
+    permuted, non-contiguous run of pages (maxp of them)."""
+    maxp = maxp or max(1, -(-max(lengths) // psz))
+    num_pages = num_pages or b * maxp
+    q = torch.randn((b, hq, hd), generator=g, device=dev).to(dtype)
+    pk = torch.randn((num_pages, psz, hkv, hd), generator=g, device=dev).to(dtype)
+    pv = torch.randn((num_pages, psz, hkv, hd), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(num_pages, generator=g, device=dev)
+    table = perm[: b * maxp].reshape(b, maxp).to(torch.int32).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pk, pv, table, ln
+
+
+def _paged_check(name, args, softcap=0.0) -> float:
+    from repro_torch.kernels import ops, ref
+    got = ops.paged_flash_decode(*args, softcap=softcap)
+    want = ref.paged_flash_decode_ref(*args, softcap=softcap)
+    torch.cuda.synchronize()
+    err = _close(name, got, want, **PAGED_TOL)
+    for r, n in enumerate(args[4].tolist()):
+        if n <= 0:
+            check(bool((got[r] == 0).all()), f"{name}: length-0 row {r} is not exact zeros")
+    return err
+
+
+def _sdpa_call(q, pk, pv, table, lengths):
+    """The yardstick: one scaled_dot_product_attention call on a dense view
+    of the same K/V gathered beforehand (the gather is not timed)."""
+    b, hq, hd = q.shape
+    _, psz, hkv, _ = pk.shape
+    s = table.shape[1] * psz
+    kg = pk[table.long()].reshape(b, s, hkv, hd).transpose(1, 2).contiguous()
+    vg = pv[table.long()].reshape(b, s, hkv, hd).transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=q.device)[None, :] < lengths[:, None].long())
+    # no mask where every slot fills its table: SDPA may then take its
+    # fastest (flash) kernel
+    mask = None if bool(mask.all()) else mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    F = torch.nn.functional
+    try:
+        F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
+                                                      enable_gqa=True)
+    except TypeError:       # a torch without enable_gqa: expand the heads first
+        ke = kg.repeat_interleave(hq // hkv, dim=1)
+        ve = vg.repeat_interleave(hq // hkv, dim=1)
+        return lambda: F.scaled_dot_product_attention(q4, ke, ve, attn_mask=mask)
+
+
+def _paged_bytes(q, pk, table, lengths, out) -> int:
+    """K/V bytes of the tokens below each slot's length (at most the table's
+    maxp * psz), read once, plus q, the table and lengths read and the output
+    written.  Rows of a page past the length are never loaded."""
+    _, psz, hkv, hd = pk.shape
+    cap = table.shape[1] * psz
+    tokens = sum(min(cap, max(n, 0)) for n in lengths.tolist())
+    return 2 * tokens * hkv * hd * pk.element_size() + nbytes(q, table, lengths, out)
+
+
+def _paged_decode_row(dev, g) -> dict:
+    """Paged flash decode against its plain version at (a) the serving
+    shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (Mixtral's max_seq_len;
+    exercises the page split), then every compiled variant and the edge
+    cases, then the page-id fault."""
+    from repro_torch.kernels import build, ops, ref
+
+    shapes = {
+        "a": dict(b=4, lengths=[70, 95, 112, 57]),        # serving run's range
+        "b": dict(b=4, lengths=[4096] * 4),
+        "c": dict(b=1, lengths=[32768]),
+    }
+    per, err = {}, 0.0
+    for key, sh in shapes.items():
+        args = _paged_case(dev, g, sh["b"], 32, 8, 128, 64, sh["lengths"])
+        q, pk, pv, table, ln = args
+        err = max(err, _paged_check(f"paged_flash_decode ({key})", args))
+        out = ops.paged_flash_decode(*args)
+        moved = _paged_bytes(q, pk, table, ln, out)
+        bms, by = bound(moved, 4 * 32 * 128 * sum(sh["lengths"]))
+        ms = graph_ms(lambda: ops.paged_flash_decode(*args))
+        call = cuda_ms(lambda: ops.paged_flash_decode(*args))
+        plain = cuda_ms(lambda: ref.paged_flash_decode_ref(*args), warmup=1, iters=5)
+        sdpa = _sdpa_call(*args)
+        lib = graph_ms(sdpa)
+        lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
+        blocks = ops._decode_blocks_per_sm(build.library("flash_decode"), 1, 4, 128,
+                                           table.shape[1])
+        per[key] = dict(b=sh["b"], tokens=sh["lengths"], maxp=table.shape[1],
+                        blocks_per_sm=blocks,
+                        splits=ops.decode_splits(sh["b"], 8, table.shape[1],
+                                                 blocks * ops._sm_count(q.device)),
+                        ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=lib, library_max_abs_diff=lib_err,
+                        gbps=moved / ms / 1e6)
+        print(f"[kernels] paged_flash_decode ({key}) B={sh['b']} tokens={sh['lengths']}: "
+              f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
+              f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA on the "
+              f"pre-gathered view {lib:.4f} ms on the card, max |diff| {lib_err:.1e})",
+              flush=True)
+        del args, q, pk, pv, table, ln, out, sdpa
+        torch.cuda.empty_cache()
+
+    n_checked = 0
+    for kv_dt in (torch.bfloat16, torch.float32):
+        for grp in ops.FLASH_DECODE_GROUPS:
+            for hd in ops.FLASH_DECODE_HEAD_DIMS:
+                args = _paged_case(dev, g, 3, 2 * grp, 2, hd, 16, [0, 37, 64],
+                                   maxp=5, num_pages=16, dtype=kv_dt)
+                err = max(err, _paged_check(f"paged_flash_decode {kv_dt} g={grp} hd={hd}",
+                                            args))
+                n_checked += 1
+    base = _paged_case(dev, g, 4, 32, 8, 128, 64, [1, 64, 128, 0], maxp=3, num_pages=16)
+    err = max(err, _paged_check("paged_flash_decode softcap 5", base, softcap=5.0))
+    err = max(err, _paged_check("paged_flash_decode page-boundary/1/0 lengths", base))
+    q, pk, pv, table, ln = base
+    alias = table.clone()
+    alias[1] = table[0]                                 # rows 0 and 1 share pages
+    err = max(err, _paged_check("paged_flash_decode aliased rows",
+                                (q, pk, pv, alias, ln)))
+    over = torch.tensor([500, 3, 192, 7], dtype=torch.int32, device=dev)  # > maxp*psz
+    err = max(err, _paged_check("paged_flash_decode length past the table",
+                                (q, pk, pv, table, over)))
+    qf = q.float()
+    err = max(err, _paged_check("paged_flash_decode f32 q, bf16 pages", (qf, pk, pv, table, ln)))
+    n_checked += 5
+    print(f"[kernels] paged_flash_decode: {n_checked} further variants (bf16/f32 pages, "
+          f"g {ops.FLASH_DECODE_GROUPS}, hd {ops.FLASH_DECODE_HEAD_DIMS}, softcap 5, "
+          "lengths 0/1/page boundary/past the table, aliased rows) agree with the "
+          "plain version", flush=True)
+    _page_fault()
+    a = per["a"]
+    return dict(name="paged_flash_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:183", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=a["library_ms"],
+                library="scaled_dot_product_attention(enable_gqa=True) on the "
+                        "pre-gathered dense K/V view, gather not timed",
+                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+
+
+_PAGE_FAULT_CHILD = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels import ops
+dev = torch.device("cuda", 0)
+q = torch.ones((2, 8, 128), dtype=torch.bfloat16, device=dev)
+pk = torch.zeros((4, 64, 2, 128), dtype=torch.bfloat16, device=dev)
+table = torch.tensor([[0, 1], [2, int(sys.argv[2])]], dtype=torch.int32, device=dev)
+ln = torch.tensor([70, 70], dtype=torch.int32, device=dev)
+try:
+    ops.paged_flash_decode(q, pk, pk, table, ln)
+    torch.cuda.synchronize()
+except Exception as exc:  # a CUDA error, whichever class this torch gives it
+    print("ABORTED:", type(exc).__name__, str(exc).strip().splitlines()[0],
+          flush=True)
+    os._exit(3)
+print("NOT ABORTED", flush=True)
+os._exit(0)
+"""
+
+
+def _page_fault() -> None:
+    """A page id past the pool must abort the paged flash-decode kernel, as
+    it makes the plain version raise IndexError."""
+    proc = subprocess.Popen([sys.executable, "-c", _PAGE_FAULT_CHILD,
+                             os.path.join(ROOT, "src"), "4"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("paged_flash_decode: page-fault check timed out")
+    tail = out.strip().splitlines()[-1] if out.strip() else ""
+    check(proc.returncode == 3 and tail.startswith("ABORTED"),
+          f"paged_flash_decode with page 4 of 4 did not abort (exit {proc.returncode}): "
+          f"{tail}")
+    print(f"[kernels] paged_flash_decode page 4 of 4: {tail}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path on full-width Mixtral-8x7B (depth cut)
 # ---------------------------------------------------------------------------
 OPS = ("gating_topk", "stacked_gating", "grouped_dequant_matmul",
        "grouped_dequant_combine")
+PAGED_OPS = OPS + ("paged_flash_decode",)
 
 
 class _FiniteLogits:
@@ -538,6 +738,148 @@ def phase_parity(dev, cfg, params) -> None:
           f"{same}/{len(pairs) * b}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the paged KV serving path
+# ---------------------------------------------------------------------------
+SYSTEM_PROMPT = 48      # tokens; not a multiple of the 64-token page
+
+
+class _PeakPages(_FiniteLogits):
+    """Finite-logits wrapper that also keeps the page pool's peak occupancy
+    (kv_page_fraction after each decode step)."""
+
+    peak = 0.0
+
+    def step(self, tokens):
+        lg = super().step(tokens)
+        self.peak = max(self.peak, self.inner.kv.page_fraction)
+        return lg
+
+
+def phase_serve_paged(dev, model, params) -> dict:
+    """HobbitBackend with EngineConfig(paged_kv=True) at its defaults (64-
+    token pages, 64-token prefill chunks, prefix sharing, the dense-
+    equivalent pool) under BatchingServer(max_batch=4).  Request 0 carries
+    the 48-token system prompt alone, so its page is a registered partial
+    page; the others append a seeded 16-48-token body, alias that page and
+    copy it on their first write.  admit_k=1 admits one request per
+    scheduler iteration, so each prompt is in the trie before the next
+    admission matches it (concurrent admissions register nothing for each
+    other)."""
+    from repro_torch.core import EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import BackendConfig, make_backend
+    from repro_torch.serving.batching import BatchingServer, Request
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    backend = make_backend(BackendConfig(kind="hobbit", paged=True, engine=EngineConfig()),
+                           model, params)
+    eng = backend.engine
+    ecfg = eng.ecfg
+    print(f"[serve-paged] engine up in {time.perf_counter() - t0:.1f} s: page size "
+          f"{ecfg.kv_page_size}, prefill chunk {ecfg.prefill_chunk}, prefix sharing "
+          f"{ecfg.prefix_sharing}", flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    sys_p = rng.integers(0, cfg.vocab_size, SYSTEM_PROMPT)
+    n_req, new_tokens, max_batch = 8, 16, 4
+    probe = _PeakPages(backend)
+    srv = BatchingServer(probe, max_batch=max_batch, admit_k=1,
+                         max_len=SYSTEM_PROMPT + 48 + new_tokens + 8)
+    for i in range(n_req):
+        body = rng.integers(0, cfg.vocab_size, 0 if i == 0 else int(rng.integers(16, 49)))
+        srv.submit(Request(rid=i, prompt=np.concatenate([sys_p, body]),
+                           max_new_tokens=new_tokens))
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.dispatch_counts()
+    st = srv.stats()
+    es = eng.stats()
+    srv.close()
+
+    check(len(srv.completed) == n_req, f"{len(srv.completed)}/{n_req} requests done")
+    for r in srv.completed:
+        out = np.asarray(r.output)
+        check(out.shape == (new_tokens,), f"request {r.rid}: {out.shape} tokens")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"request {r.rid}: token ids outside the vocabulary")
+    for op in PAGED_OPS:
+        check(counts.get(f"{op}.cuda", 0) > 0,
+              f"{op}: no CUDA launch on the paged serving path")
+    bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
+    check(not bad, f"plain versions ran on the card: {bad}")
+    check(es["prefix_hit_tokens"] > 0, "no prefix hit on a shared system prompt")
+    check(es["cow_copies"] > 0, "no copy-on-write of the shared partial page")
+    prompt_tokens = sum(len(r.prompt) for r in srv.completed)
+    summary = {
+        "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
+        "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
+        "load_stall_s": es["load_stall_s"], "cache_hit_ratio": es["cache"]["hit_ratio"],
+        "prefix_hit_tokens": es["prefix_hit_tokens"], "prompt_tokens": prompt_tokens,
+        "prefix_hit_ratio": es["prefix_hit_tokens"] / prompt_tokens,
+        "cow_copies": es["cow_copies"], "kv_pages_total": es["kv_pages_total"],
+        "kv_page_fraction_peak": probe.peak,
+        "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
+        "kernel_dispatch": counts,
+    }
+    print(f"[serve-paged] {st['decode_tok_s']:.1f} tok/s, load stall "
+          f"{es['load_stall_s']:.3f} s, prefix hit ratio {summary['prefix_hit_ratio']:.3f} "
+          f"({es['prefix_hit_tokens']} of {prompt_tokens} prompt tokens), "
+          f"{es['cow_copies']} COW copies, kv_page_fraction {probe.peak:.3f} at its peak "
+          f"of {es['kv_pages_total']} pages; {json.dumps(summary)}", flush=True)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the engine on paged KV against the same engine on dense KV
+# ---------------------------------------------------------------------------
+def phase_paged_parity(dev, cfg, params) -> None:
+    """The unconstrained engine of phase 5 on paged KV and on dense KV, the
+    same prompts and teacher-forced tokens: per-step logits within
+    PARITY_ATOL (attention runs in another kernel and another summation
+    order; a wrong page, position or mask moves the logits by O(1))."""
+    from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+    from repro_torch.models import build_model
+    from repro_torch.serving.api import HobbitBackend
+
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    model = build_model(cfg8)
+    n = cfg8.num_layers * cfg8.moe.num_experts
+    rng = np.random.default_rng(SEED + 3)
+    b, s, steps = 2, 100, 4          # 100-token prompts span two 64-token pages
+    prompts = rng.integers(0, cfg8.vocab_size, (b, s))
+    teacher = rng.integers(0, cfg8.vocab_size, (steps, b))
+    runs = {}
+    for paged in (False, True):
+        ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
+                            prefetch=False, paged_kv=paged)
+        hob = HobbitBackend(OffloadEngine(model, params, ecfg))
+        try:
+            hob.start_batch(b, s + steps + 4)
+            lg = [hob.prefill(prompts)] + [hob.step(teacher[t]) for t in range(steps)]
+            counts = hob.stats()["kernel_dispatch"]
+        finally:
+            hob.close()
+        runs[paged] = lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(counts.get("paged_flash_decode.cuda", 0) > 0, "paged parity: kernel not used")
+    worst, same = 0.0, 0
+    for i, (ld, lp) in enumerate(zip(runs[False], runs[True])):
+        check(bool(np.isfinite(lp).all()), f"paged parity step {i}: non-finite logits")
+        err = float(np.abs(ld - lp).max())
+        worst = max(worst, err)
+        same += int((ld.argmax(-1) == lp.argmax(-1)).sum())
+        check(err <= PARITY_ATOL, f"paged parity step {i}: max |dense KV - paged KV| = "
+                                  f"{err:.4f} > {PARITY_ATOL}")
+    print(f"[paged-parity] {steps + 1} steps (prefill + {steps} decode) x {b} rows: max "
+          f"|dense KV - paged KV| = {worst:.4f} <= {PARITY_ATOL}; greedy tokens equal in "
+          f"{same}/{(steps + 1) * b}", flush=True)
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -553,11 +895,24 @@ def main() -> None:
     print(f"[serve] {cfg.name} at full width, {cfg.num_layers} layers, bf16 random "
           f"weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s", flush=True)
     serve = phase_serve(dev, model, params)
-    for r in rows:
-        r["launches"] = serve["kernel_dispatch"][f"{r['name']}.cuda"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity(dev, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = phase_serve_paged(dev, model, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_paged_parity(dev, cfg, params)
+    # launches: the paged flash-decode kernel's from the paged serve, the
+    # others' from the dense-KV serve; both paths' counts beside them
+    for r in rows:
+        key = f"{r['name']}.cuda"
+        by_path = {"serve": serve["kernel_dispatch"].get(key, 0),
+                   "serve_paged": paged["kernel_dispatch"].get(key, 0)}
+        r["launches"] = by_path["serve_paged" if r["name"] == "paged_flash_decode"
+                                else "serve"]
+        r["launches_by_path"] = by_path
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,15 @@ What changes on a card:
   active row on every MoE layer but the last (the adaptive walk, then a
   one-layer prediction when the walk did not reach the next layer).  A
   union-overflow miss waits for its staged copy, and each step ends with
-  one logits readback.
+  one logits readback.  The paged KV layout adds none: its step prologue
+  reads positions that already live on the host, and each chunked-prefill
+  call reads back its logits as the reference does.
+* Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
+  backend: a page pool with a radix prefix trie and copy-on-write, chunked
+  prefill, and decode attention through the paged flash-decode kernel.
 
-Not ported yet (raise NotImplementedError): the paged KV layout, the
-per-expert reference path (``grouped=False``) and the host compute mode.
+Not ported yet (raise NotImplementedError): the per-expert reference path
+(``grouped=False``) and the host compute mode.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from repro_torch.core.simulator import TraceLayer
 from repro_torch.device import to_device, to_host
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
 from repro_torch.models.model import Model, unstack_layers
 from repro_torch.quant.quantize import PACK_FACTOR, expert_nbytes, quantize
 
@@ -89,15 +95,19 @@ class EngineConfig:
     # at startup (budget accounting only); a value also emulates the link
     # (each staged copy occupies its stream for bytes/link seconds)
     link_gbps: Optional[float] = None
-    paged_kv: bool = False           # paged KV: the next slice
+    # paged KV cache: slots draw kv_page_size-token pages from a shared pool
+    # of kv_pages pages (None = the dense equivalent, batch*ceil(max_len/
+    # page)); prompts prefill in prefill_chunk-token chunks, and with
+    # prefix_sharing admissions alias trie-matched prompt prefix pages
+    # (copy-on-write on divergence) — see models/kv_pages.py
+    paged_kv: bool = False
+    kv_page_size: int = 64
+    kv_pages: Optional[int] = None
+    prefill_chunk: int = 64
+    prefix_sharing: bool = True
 
 
 def _check_ported(ecfg: EngineConfig) -> None:
-    if ecfg.paged_kv:
-        raise NotImplementedError(
-            "paged KV (EngineConfig.paged_kv) arrives with the next slice of the "
-            "port: models/kv_pages.py + the paged flash-decode kernel (ROADMAP "
-            "Queue 1, item 3)")
     if not ecfg.grouped:
         raise NotImplementedError(
             "the per-expert reference decode path (grouped=False) is not ported "
@@ -182,6 +192,8 @@ class OffloadEngine:
         self.active = np.ones((1,), bool)
         self.positions = np.zeros((1,), np.int64)
         self.kv_cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.kv_pool: Optional[PagedKVPool] = None     # when ecfg.paged_kv
+        self._admission: Optional[ChunkedPrefill] = None
         self._pending_joins: Dict[int, np.ndarray] = {}
         self._unclaimed_joins: Dict[int, np.ndarray] = {}
 
@@ -295,7 +307,16 @@ class OffloadEngine:
         self.scheduler.flush()          # land any cross-batch in-flight loads
         self.cache.new_sequence()
         self._ensure_pools(batch * self.cfg.moe.top_k)
-        self.kv_cache = self.model.init_cache(batch, max_len, self.device)
+        if self.ecfg.paged_kv:
+            self.kv_cache = None
+            self.kv_pool = self.model.init_cache(
+                batch, max_len, self.device, paged=True,
+                page_size=self.ecfg.kv_page_size, num_pages=self.ecfg.kv_pages,
+                prefix_sharing=self.ecfg.prefix_sharing)
+            self._admission = ChunkedPrefill(self.model, self.params, self.kv_pool,
+                                             chunk=self.ecfg.prefill_chunk)
+        else:
+            self.kv_cache = self.model.init_cache(batch, max_len, self.device)
         self.positions = np.zeros((batch,), np.int64)
         self.active = np.ones((batch,), bool)
         self.trace = []
@@ -306,12 +327,18 @@ class OffloadEngine:
     def prefill_batch(self, prompts) -> np.ndarray:
         """Prefill the whole prompt batch through the dense model (prefill
         touches every expert anyway; the offload cache serves decode) and
-        adopt its KV cache.  Returns last-token logits (B, V)."""
+        adopt its KV cache; paged KV prefills in chunks through the pool,
+        every row reserving max_len.  Returns last-token logits (B, V)."""
         self._check_open()
         prompts = np.asarray(prompts, np.int64)
-        b, _ = prompts.shape
+        b, s = prompts.shape
         if b != self.batch:
             raise ValueError(f"prefill of {b} prompts into a batch of {self.batch}")
+        if self.ecfg.paged_kv:
+            logits = self._admission.run_batch(prompts, self.max_len)
+            self.positions = np.full((b,), s, np.int64)
+            self.active[:] = True
+            return logits
         logits, cache, positions = self.model.prefill(
             self.params, to_device(prompts, self.device), self.max_len)
         self.kv_cache = cache
@@ -341,40 +368,67 @@ class OffloadEngine:
         return to_host(logits[0])[0]
 
     def join_begin(self, slot: int, prompt, reserve_tokens=None):
-        """Start an incremental admission (dense KV: stash the prompt;
-        join_step runs its one-shot prefill)."""
+        """Start an incremental admission.  Paged KV: reserve pages for
+        `reserve_tokens` (default max_len) and queue the prompt for chunked
+        prefill.  Dense KV: stash the prompt; join_step runs its one-shot
+        prefill."""
         self._check_open()
-        del reserve_tokens          # dense slots are pre-allocated to max_len
-        self._pending_joins[slot] = np.asarray(prompt, np.int64).reshape(-1)
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if self.ecfg.paged_kv:
+            self._admission.begin(slot, prompt,
+                                  reserve_tokens=reserve_tokens or self.max_len)
+        else:
+            self._pending_joins[slot] = prompt
 
     def join_step(self) -> Dict[int, np.ndarray]:
-        """Run every pending admission; returns {slot: last-token logits},
-        including logits an earlier blocking join finished but did not
-        claim."""
+        """Advance every pending admission (one prefill chunk under paged
+        KV); completed slots become active.  Returns {slot: last-token
+        logits}, including logits an earlier blocking join finished but did
+        not claim."""
         done: Dict[int, np.ndarray] = dict(self._unclaimed_joins)
         self._unclaimed_joins = {}
+        if self.ecfg.paged_kv:
+            done.update(self._admission.step())
+            for slot in done:
+                self.positions[slot] = int(self.kv_pool.lens[slot])
+                self.active[slot] = True
+                self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+            return done
         for slot, prompt in list(self._pending_joins.items()):
             del self._pending_joins[slot]
             done[slot] = self._join_dense(slot, prompt)
         return done
 
     def can_admit(self, tokens: int, *, prompt=None) -> bool:
-        """Dense KV always admits (slots are pre-allocated to max_len)."""
-        del tokens, prompt
+        """KV-capacity admission gate: paged KV checks unreserved pages
+        (with `prompt`, net of the best prefix-sharing plan); dense KV
+        always admits (slots are pre-allocated to max_len)."""
+        if self.ecfg.paged_kv and self.kv_pool is not None:
+            return self.kv_pool.can_reserve(tokens, prompt=prompt)
         return True
 
     def release(self, slot: int):
-        """Free a slot; retires the request from the fleet heat map."""
+        """Free a slot (paged KV returns its pages to the pool); retires the
+        request from the fleet heat map."""
         self.active[slot] = False
         self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+        if self.ecfg.paged_kv and self.kv_pool is not None:
+            self.kv_pool.release(slot)
         self.fleet.retire_request()
 
     def pause(self, slot: int) -> Dict:
-        """Preempt `slot`: snapshot its KV rows to host and free the slot.
-        The expert cache is shared and left as is."""
+        """Preempt `slot`: snapshot its KV state to host and free the slot
+        (paged KV: the snapshot is taken before the release, so pages
+        aliased by other slots keep their sharers).  The expert cache is
+        shared and left as is."""
         self._check_open()
         pos = int(self.positions[slot])
         self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
+        if self.ecfg.paged_kv and self.kv_pool is not None:
+            snap = self.kv_pool.snapshot_slot(slot)
+            self.kv_pool.release(slot)
+            self.active[slot] = False
+            return {"layout": "paged", "position": pos, "kv": snap}
         rows = [{"k": c["k"][slot].to("cpu", copy=True),
                  "v": c["v"][slot].to("cpu", copy=True)}
                 for c in self.kv_cache]
@@ -383,11 +437,15 @@ class OffloadEngine:
 
     def resume(self, slot: int, snapshot: Dict) -> None:
         """Reinstate a paused request into (a possibly different) `slot`;
-        decode continues logits-identically."""
+        decode continues logits-identically.  Paged KV raises
+        PagePoolExhausted when the pool cannot host the snapshot now."""
         self._check_open()
-        for c, row in zip(self.kv_cache, snapshot["cache"]):
-            c["k"][slot].copy_(row["k"])
-            c["v"][slot].copy_(row["v"])
+        if snapshot["layout"] == "paged":
+            self.kv_pool.restore_slot(slot, snapshot["kv"])
+        else:
+            for c, row in zip(self.kv_cache, snapshot["cache"]):
+                c["k"][slot].copy_(row["k"])
+                c["v"][slot].copy_(row["v"])
         self.positions[slot] = int(snapshot["position"])
         self.active[slot] = True
 
@@ -513,6 +571,11 @@ class OffloadEngine:
         self.cache.advance_token()
         x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
         positions = to_device(self.positions, self.device)
+        if ecfg.paged_kv:
+            # grow each active slot's page chain for this step's token (COW
+            # off shared pages first); one table export per step
+            table = self.kv_pool.prepare_decode(rows, self.positions)
+            active_dev = to_device(self.active, self.device)
 
         row_trace = {r: [] for r in rows}
         for mi, li in enumerate(self.moe_layers):
@@ -521,7 +584,12 @@ class OffloadEngine:
                                               self._layer_period_ema)
             p = self.layer_params[li]
             h = L.apply_norm(p["pre_norm"], x, cfg)
-            x = x + L.attn_decode(p["attn"], h, self.kv_cache[li], positions, cfg)
+            if ecfg.paged_kv:
+                x = x + L.paged_attn_decode(p["attn"], h, self.kv_pool.k[li],
+                                            self.kv_pool.v[li], table, positions,
+                                            active_dev, cfg)
+            else:
+                x = x + L.attn_decode(p["attn"], h, self.kv_cache[li], positions, cfg)
             hs = L.apply_norm(p["ffn_norm"], x, cfg)[:, 0]          # (B, D)
 
             # ---- gating: host sync 1 (hidden state), 2 (router result) ----
@@ -660,6 +728,10 @@ class OffloadEngine:
             # "<op>.<cuda|torch>" -> count: a card run showing .torch counts
             # would be timing the plain versions
             "kernel_dispatch": kops.dispatch_counts(),
+            # KV page-pool pressure (zeros under the dense KV layout)
+            "kv_pages_used": 0, "kv_pages_total": 0, "kv_page_fraction": 0.0,
         }
+        if self.ecfg.paged_kv and self.kv_pool is not None:
+            s.update(self.kv_pool.stats())
         s.update(self.scheduler.stats())
         return s

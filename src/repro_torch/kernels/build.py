@@ -26,14 +26,17 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gating", "dequant")
+SOURCES = ("gating", "dequant", "flash_decode")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of every C entry point (pointers and the stream as void*)
+_F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
+# argument types of every C entry point (pointers and the stream as void*,
+# float scalars as c_float, an int result through an int*)
 SIGNATURES = {
     "gating": {
         "gating_topk_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -44,6 +47,11 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _I, _I, _I, _P),
         "grouped_dequant_combine_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "flash_decode": {
+        "paged_flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+        "paged_flash_decode_blocks_per_sm": (_I, _I, _I, _I, _IP),
     },
 }
 

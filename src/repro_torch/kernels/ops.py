@@ -22,6 +22,7 @@ current stream and never synchronise.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -301,4 +302,104 @@ def grouped_dequant_combine(x, data, scale, slot, rows, weights, *, bits: int,
         x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
         rows.data_ptr(), weights.data_ptr(), part.data_ptr(), out.data_ptr(),
         p, k, n, s, num_rows, bits, group_size, chunk, _stream()))
+    return out
+
+
+# --------------------------------------------------------------------------
+# paged flash decode
+# --------------------------------------------------------------------------
+
+# head dims and GQA group sizes the kernel is instantiated for: those of the
+# ported configs (g 4, hd 128) and of their smoke variants (g 1, hd 64)
+FLASH_DECODE_HEAD_DIMS = (64, 128)
+FLASH_DECODE_GROUPS = (1, 4)
+# the most splits the combine pass takes (kMaxSplits in flash_decode.cu)
+FLASH_DECODE_MAX_SPLITS = 4096
+
+
+def decode_splits(b: int, hkv: int, maxp: int, slots: int) -> int:
+    """Page splits per (slot, kv head): enough pass-1 blocks to fill the
+    card's `slots` resident blocks (blocks per SM x SMs) in one wave, at
+    most one split per page of the table.  Chosen from shapes only, so it
+    costs no synchronisation."""
+    want = -(-slots // (b * hkv))
+    return max(1, min(maxp, want, FLASH_DECODE_MAX_SPLITS))
+
+
+_DECODE_BLOCKS: Dict[tuple, int] = {}
+
+
+def _decode_blocks_per_sm(lib, kv_bf16: int, g: int, hd: int, maxp: int) -> int:
+    """Pass-1 blocks one SM holds for this instantiation and table width,
+    as the CUDA runtime's occupancy calculator reports (cached)."""
+    key = (id(lib), kv_bf16, g, hd, maxp)
+    if key not in _DECODE_BLOCKS:
+        n = ctypes.c_int(0)
+        _raise_on("paged_flash_decode", lib.paged_flash_decode_blocks_per_sm(
+            kv_bf16, g, hd, maxp, ctypes.byref(n)))
+        _DECODE_BLOCKS[key] = max(1, n.value)
+    return _DECODE_BLOCKS[key]
+
+
+def paged_flash_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
+                       table: torch.Tensor, lengths: torch.Tensor, *, scale=None,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention straight out of the paged KV pool.
+
+        q        (B, Hq, hd)        current-token queries (bf16 or f32)
+        pages_k  (P, psz, Hkv, hd)  shared page pool (bf16 or f32; pages_v alike)
+        table    (B, maxp) int32    physical page per logical page
+        lengths  (B,) int32         valid cache tokens per slot
+        ->       (B, Hq, hd) float32; zeros where lengths == 0
+
+    The kernel reads only the pages below ceil(length / psz) and each K/V
+    row once for its whole GQA group.  A page id outside 0..P-1 in the
+    table aborts the kernel (the next synchronisation raises); the plain
+    version raises IndexError."""
+    op = "paged_flash_decode"
+    if _route(op, q, pages_k, pages_v, table, lengths) == "torch":
+        _record(op, "torch")
+        return ref.paged_flash_decode_ref(q, pages_k, pages_v, table, lengths,
+                                          scale=scale, softcap=softcap)
+    _check(op, q.dim() == 3 and pages_k.dim() == 4 and table.dim() == 2
+           and lengths.dim() == 1,
+           "want q (B, Hq, hd), pages (P, psz, Hkv, hd), table (B, maxp), lengths (B,)")
+    b, hq, hd = q.shape
+    num_pages, psz, hkv, hd2 = pages_k.shape
+    maxp = table.shape[1]
+    _check(op, tuple(pages_v.shape) == tuple(pages_k.shape), "pages_k and pages_v differ")
+    _check(op, hd2 == hd, f"pages have hd={hd2}, q has hd={hd}")
+    _check(op, table.shape[0] == b and lengths.shape[0] == b,
+           f"table and lengths must have B={b} rows")
+    _check(op, hq % hkv == 0 and hq // hkv in FLASH_DECODE_GROUPS,
+           f"Hq/Hkv = {hq}/{hkv} must be one of {FLASH_DECODE_GROUPS}")
+    _check(op, hd in FLASH_DECODE_HEAD_DIMS, f"hd={hd} not in {FLASH_DECODE_HEAD_DIMS}")
+    _check(op, pages_k.dtype == pages_v.dtype
+           and pages_k.dtype in (torch.bfloat16, torch.float32),
+           "pages must both be bfloat16 or both float32")
+    _check(op, table.dtype == torch.int32 and lengths.dtype == torch.int32,
+           "table and lengths must be int32")
+    _check(op, b > 0 and num_pages > 0 and maxp > 0, "empty batch, pool or table")
+    _check_contig(op, q=q, pages_k=pages_k, pages_v=pages_v, table=table,
+                  lengths=lengths)
+    qb = _x_flag(op, q)
+    lib = build.library("flash_decode")
+    _check(op, all(t.data_ptr() % 16 == 0 for t in (q, pages_k, pages_v)),
+           "q and pages must be 16-byte aligned")
+    scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
+    out = torch.empty((b, hq, hd), dtype=torch.float32, device=q.device)
+    kvb = int(pages_k.dtype == torch.bfloat16)
+    blocks = _decode_blocks_per_sm(lib, kvb, hq // hkv, hd, maxp)
+    splits = decode_splits(b, hkv, maxp, blocks * _sm_count(q.device))
+    o_part = ml_part = None
+    if splits > 1:
+        o_part = torch.empty((b * hq, splits, hd), dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((b * hq, splits, 2), dtype=torch.float32, device=q.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.paged_flash_decode_launch(
+        q.data_ptr(), qb, pages_k.data_ptr(), pages_v.data_ptr(), kvb,
+        table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), o_part.data_ptr() if o_part is not None else None,
+        ml_part.data_ptr() if ml_part is not None else None,
+        b, hq, hkv, hd, num_pages, psz, maxp, splits, scale, float(softcap), _stream()))
     return out

@@ -78,3 +78,36 @@ def grouped_dequant_combine_ref(x, data, scale, slot, rows, weights, *,
     keep = (rows >= 0) & (rows < num_rows)
     contrib = weights.to(torch.float32)[:, None] * y
     return out.index_add_(0, rows[keep].to(torch.long), contrib[keep])
+
+
+def paged_flash_decode_ref(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
+                           table: torch.Tensor, lengths: torch.Tensor, *, scale=None,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Paged decode attention: gather the slot-contiguous logical K/V view
+    through the page table, repeat the GQA heads, then a masked float32
+    softmax (softcap before the mask, masked logits -1e30).
+    q (B, Hq, hd); pages_k/v (P, psz, Hkv, hd); table (B, maxp) int;
+    lengths (B,) int.  Returns (B, Hq, hd) float32, exact zeros where
+    lengths == 0.  A page id outside 0..P-1 raises IndexError."""
+    b, hq, hd = q.shape
+    num_pages, psz, hkv, _ = pages_k.shape
+    maxp = table.shape[1]
+    t = table.to(torch.long)
+    if bool(((t < 0) | (t >= num_pages)).any()):
+        raise IndexError(f"page id outside 0..{num_pages - 1} in the table")
+    kg = pages_k[t].reshape(b, maxp * psz, hkv, hd)
+    vg = pages_v[t].reshape(b, maxp * psz, hkv, hd)
+    if hkv != hq:
+        kg = kg.repeat_interleave(hq // hkv, dim=2)
+        vg = vg.repeat_interleave(hq // hkv, dim=2)
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    logits = torch.einsum("bhd,bshd->bhs", q.to(torch.float32),
+                          kg.to(torch.float32)) * scale
+    if softcap and softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    pos = torch.arange(maxp * psz, device=q.device)
+    mask = pos[None, None, :] < lengths.reshape(-1, 1, 1)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", w, vg.to(torch.float32))
+    return torch.where((lengths > 0).reshape(-1, 1, 1), out, torch.zeros_like(out))

@@ -12,8 +12,13 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --smoke --device cpu --backend hobbit --prompt-len 8 --new-tokens 8
 
-Prints one JSON report.  ``--paged-kv`` raises until the paged KV slice of
-the port lands.
+  # paged KV with prefix sharing: a shared system prompt aliased across slots
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --layers 4 --backend hobbit --paged-kv --shared-prefix 48 \
+      --serve-requests 8 --max-batch 4
+
+Prints one JSON report; with ``--paged-kv`` it carries the page pool's
+counters under ``"kv"``.
 """
 
 import argparse
@@ -70,12 +75,20 @@ def main(argv=None):
                     help="accepted for flag parity with the JAX launcher; "
                          "PyTorch runs eagerly")
     ap.add_argument("--paged-kv", action="store_true",
-                    help="paged KV cache (not ported yet: raises)")
-    ap.add_argument("--page-size", type=int, default=64)
-    ap.add_argument("--kv-pages", type=int, default=None)
-    ap.add_argument("--prefill-chunk", type=int, default=64)
+                    help="paged KV cache: slots draw pages from a shared pool "
+                         "instead of each allocating max_len up front")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV page (--paged-kv)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="KV pool size in pages (--paged-kv; default: the dense "
+                         "equivalent, batch * ceil(max_len/page))")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="tokens per chunked-prefill call (--paged-kv)")
     ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
-                    default=True)
+                    default=True,
+                    help="radix prefix cache over the page pool (--paged-kv): "
+                         "admissions alias resident prompt-prefix pages, "
+                         "copy-on-write on divergence")
     ap.add_argument("--admit-k", type=int, default=4,
                     help="max requests prefilling concurrently (--serve-requests)")
     ap.add_argument("--sched", choices=["slo", "fifo"], default="slo",
@@ -124,7 +137,9 @@ def main(argv=None):
         ordered=args.ordered, upgrade=args.upgrade, link_gbps=args.link_gbps,
         async_prefetch=args.async_prefetch)
     backend = make_backend(BackendConfig(
-        kind=kind, paged=args.paged_kv,
+        kind=kind, paged=args.paged_kv, page_size=args.page_size,
+        kv_pages=args.kv_pages, prefill_chunk=args.prefill_chunk,
+        prefix_sharing=args.prefix_sharing,
         engine=ecfg if kind == "hobbit" else None), model, params)
 
     rng = np.random.default_rng(0)
@@ -194,6 +209,11 @@ def main(argv=None):
                                                for k, v in sim.items()},
                 "hw_profile": hw.name,
             })
+        if args.paged_kv:
+            bst = backend.stats()
+            report["kv"] = {k: bst[k] for k in (
+                "kv_pages_used", "kv_pages_total", "kv_page_fraction", "kv_page_size",
+                "prefix_hit_tokens", "cow_copies", "aliased_page_fraction")}
     finally:
         backend.close()         # release staging threads before reporting
     print(json.dumps(report))

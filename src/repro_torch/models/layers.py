@@ -1,15 +1,19 @@
 """Layer library of the port: RMSNorm, RoPE, grouped-query attention for
-prefill and for one-token decode against a dense per-slot cache.
+prefill and for one-token decode against a dense per-slot cache or a paged
+KV pool.
 
 PyTorch twin of the JAX package's ``models/layers.py`` for the all-"attn"
 MoE model class (Mixtral / Phi-MoE shapes).  Plain tensor math, written as
 the reference writes it (``mha``): float32 scores and softmax, GQA without
-materialising repeated K/V heads.  There is no kernel here: the reference
-computes dense decode attention with plain ``jnp`` as well.
+materialising repeated K/V heads.  Dense decode and paged prefill-chunk
+attention have no kernel, as in the reference; paged decode attention runs
+``kernels.ops.paged_flash_decode``.
 
 Conventions: activations (B, S, D) in the config dtype; q/k/v (B, S, H, hd);
 decode takes x (B, 1, D) and a cache {"k", "v"} of (B, Smax, Hkv, hd) that is
-updated in place.
+updated in place.  Paged layers take one layer's page buffers of
+(P + 1, psz, Hkv, hd), updated in place; the last row is a write sink that
+no page table names (``models.kv_pages``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 
 NEG_INF = -1e30
 
@@ -145,6 +150,79 @@ def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig):
     out = mha(q, kv_cache["k"], kv_cache["v"], mask, cfg.attn_logit_softcap,
               1.0 / math.sqrt(cfg.resolved_head_dim))
     return out.reshape(b, 1, -1) @ p["wo"]
+
+
+def _paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Slot-contiguous logical K/V view (B, maxp*psz, Hkv, hd) gathered
+    through the page table (B, maxp): logical token t of slot b lives at
+    page table[b, t // psz], offset t % psz."""
+    b, maxp = table.shape
+    _, psz, hkv, hd = pages.shape
+    return pages[table.to(torch.long)].reshape(b, maxp * psz, hkv, hd)
+
+
+def _paged_write(pages: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                 keep: torch.Tensor, rows: torch.Tensor) -> None:
+    """pages[table[b, pos // psz], pos % psz] = rows for every (b, s) with
+    keep[b, s]; the other rows go to the sink page (the last row of
+    `pages`), so nothing is selected on the host.  positions/keep (B, S);
+    rows (B, S, Hkv, hd)."""
+    sink, psz = pages.shape[0] - 1, pages.shape[1]
+    li = (positions // psz).clamp(max=table.shape[1] - 1)
+    page = torch.gather(table, 1, li).to(torch.long)
+    page = torch.where(keep, page, torch.full_like(page, sink))
+    pages[page.reshape(-1), (positions % psz).reshape(-1)] = \
+        rows.reshape(-1, *rows.shape[2:]).to(pages.dtype)
+
+
+def paged_attn_decode(p, x, k_pages, v_pages, table, positions, active,
+                      cfg: ModelConfig):
+    """One-token decode against a paged KV pool.  x (B, 1, D); k_pages /
+    v_pages (P + 1, psz, Hkv, hd) shared across slots, written in place;
+    table (B, maxp) int32; positions (B,) write index; active (B,) bool —
+    inactive slots write to the sink page (their table rows may point at
+    pages a neighbour now owns).  Attention runs through
+    `kops.paged_flash_decode` over tokens [0, position]; inactive rows'
+    outputs are junk the caller ignores.  Returns out (B, 1, D)."""
+    b = x.shape[0]
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, x, positions[:, None], cfg)
+    keep = active[:, None]
+    _paged_write(k_pages, table, positions[:, None], keep, k)
+    _paged_write(v_pages, table, positions[:, None], keep, v)
+    sink = k_pages.shape[0] - 1
+    out = kops.paged_flash_decode(q[:, 0].contiguous(), k_pages[:sink], v_pages[:sink],
+                                  table, (positions + 1).to(torch.int32),
+                                  scale=1.0 / math.sqrt(hd),
+                                  softcap=cfg.attn_logit_softcap)
+    return out.to(q.dtype).reshape(b, 1, hq * hd) @ p["wo"]
+
+
+def paged_attn_prefill_chunk(p, x, k_pages, v_pages, table, start, n,
+                             cfg: ModelConfig, wstart=None):
+    """One prefill chunk against a paged KV pool: write the chunk's K/V into
+    the rows' pages, then attend causally over everything written so far.
+    x (B, C, D); start (B,) absolute position of each row's first token;
+    n (B,) valid tokens per row (pads write to the sink, their outputs are
+    junk); wstart optional (B,) write floor — positions below it attend
+    over the aliased pages but do not write.  Returns out (B, C, D)."""
+    b, c, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    idx = torch.arange(c, device=x.device)
+    positions = start[:, None] + idx[None, :]
+    q, k, v = _qkv(p, x, positions, cfg)
+    keep = idx[None, :] < n[:, None]
+    if wstart is not None:
+        keep = keep & (positions >= wstart[:, None])
+    _paged_write(k_pages, table, positions, keep, k)
+    _paged_write(v_pages, table, positions, keep, v)
+    sink = k_pages.shape[0] - 1
+    kg = _paged_gather(k_pages[:sink], table)
+    vg = _paged_gather(v_pages[:sink], table)
+    kidx = torch.arange(kg.shape[1], device=x.device)
+    mask = kidx[None, None, :] <= positions[:, :, None]           # (B, C, Smax)
+    out = mha(q, kg, vg, mask, cfg.attn_logit_softcap, 1.0 / math.sqrt(hd))
+    return out.reshape(b, c, hq * hd) @ p["wo"]
 
 
 def activate(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

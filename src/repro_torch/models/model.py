@@ -14,7 +14,8 @@ Parameters are a plain dict of tensors with a flat per-layer list::
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
 eagerly, so the port keeps the flat view ``unstack_layers`` gives there).
 The decode cache is a list of per-layer {"k", "v"} (B, max_len, Hkv, hd)
-buffers updated in place.
+buffers updated in place, or a `kv_pages.PagedKVPool` (``init_cache(...,
+paged=True)``) driven by ``decode_step_paged`` / ``prefill_chunk_paged``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import kv_pages as kvp
 from repro_torch.models import layers, moe as moe_lib
 
 
@@ -49,6 +51,35 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: frontends, logit softcap and embedding scaling arrive "
             "with ROADMAP Queue 1, item 7")
+
+
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """True iff the paged KV layout serves this architecture: every layer a
+    full-window "attn" layer, no MLA latent cache, no encoder."""
+    return (cfg.mla is None and cfg.encoder is None
+            and all(k == "attn" for k in cfg.layer_kinds()))
+
+
+def _layer_decode_paged(p, x, kp, vp, table, positions, active, cfg: ModelConfig):
+    """One-token layer step against paged KV; `active` doubles as the MoE
+    token mask so released slots take no dispatch capacity."""
+    h = layers.apply_norm(p["pre_norm"], x, cfg)
+    x = x + layers.paged_attn_decode(p["attn"], h, kp, vp, table, positions, active, cfg)
+    h = layers.apply_norm(p["ffn_norm"], x, cfg)
+    y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=active)
+    return x + y
+
+
+def _layer_chunk_paged(p, x, kp, vp, table, start, n, wstart, valid_flat,
+                       cfg: ModelConfig):
+    """One prefill-chunk layer step against paged KV; valid_flat (B*C,)
+    keeps pad tokens out of the MoE capacity."""
+    h = layers.apply_norm(p["pre_norm"], x, cfg)
+    x = x + layers.paged_attn_prefill_chunk(p["attn"], h, kp, vp, table, start, n, cfg,
+                                            wstart=wstart)
+    h = layers.apply_norm(p["ffn_norm"], x, cfg)
+    y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=valid_flat)
+    return x + y
 
 
 def _generator(seed: Union[int, torch.Generator], device: torch.device):
@@ -123,13 +154,30 @@ class Model:
             kvs.append(kv)
         return x, kvs, aux
 
-    def init_cache(self, batch: int, max_len: int,
-                   device: DeviceLike) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed dense per-slot caches, one {"k", "v"} per layer."""
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike, *,
+                   paged: bool = False, page_size: int = 64,
+                   num_pages: Optional[int] = None, prefix_sharing: bool = True):
+        """Decode cache for every layer.  paged=False: zeroed dense per-slot
+        caches, one {"k", "v"} per layer.  paged=True: a started
+        `kv_pages.PagedKVPool` of `num_pages` pages (default the dense
+        equivalent, batch * ceil(max_len / page_size)) with the radix prefix
+        index on or off (`prefix_sharing`)."""
         cfg = self.cfg
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
         dt = layers.dtype_of(cfg)
         dev = torch.device(device)
+        if paged:
+            if not supports_paged_kv(cfg):
+                raise ValueError(f"paged KV unsupported for arch {cfg.name}: needs "
+                                 "all-'attn' layers, no MLA, no encoder")
+            maxp = kvp.pages_for(max_len, page_size)
+            pool = kvp.PagedKVPool(
+                num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, dtype=dt,
+                num_pages=num_pages or batch * maxp, page_size=page_size,
+                max_pages_per_slot=maxp, prefix_sharing=prefix_sharing, device=dev)
+            pool.start(batch)
+            return pool
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
         return [{"k": torch.zeros(shape, dtype=dt, device=dev),
                  "v": torch.zeros(shape, dtype=dt, device=dev)}
                 for _ in range(cfg.num_layers)]
@@ -162,6 +210,37 @@ class Model:
             y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=active)
             x = x + y
         return self.logits(params, x)[:, 0, :]
+
+    # -------------------- paged decode / chunked prefill --------------------
+    def decode_step_paged(self, params, k_pages, v_pages, table, tokens, positions,
+                          active) -> torch.Tensor:
+        """One decode step against a paged KV pool.  k_pages / v_pages:
+        per-layer (P + 1, psz, Hkv, hd) buffers, written in place; table
+        (B, maxp) int32; tokens (B, 1); positions (B,) write index; active
+        (B,) bool (inactive slots write nothing and take no MoE capacity).
+        Returns logits (B, V)."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        for p, kp, vp in zip(params["layers"], k_pages, v_pages):
+            x = _layer_decode_paged(p, x, kp, vp, table, positions, active, cfg)
+        return self.logits(params, x)[:, 0, :]
+
+    def prefill_chunk_paged(self, params, k_pages, v_pages, table, tokens, start, n,
+                            wstart=None) -> torch.Tensor:
+        """One chunk of chunked prefill against a paged KV pool: tokens
+        (B, C), row b valid for its first n[b] tokens from absolute position
+        start[b]; K/V written into the rows' pages in place (positions below
+        the optional write floor wstart[b] attend but do not write).
+        Returns the last valid token's logits (B, V)."""
+        cfg = self.cfg
+        b, c = tokens.shape
+        x = self.embed(params, tokens)
+        valid_flat = (torch.arange(c, device=x.device)[None, :] < n[:, None]).reshape(-1)
+        for p, kp, vp in zip(params["layers"], k_pages, v_pages):
+            x = _layer_chunk_paged(p, x, kp, vp, table, start, n, wstart, valid_flat, cfg)
+        last = torch.clamp(n - 1, 0, c - 1).to(torch.long)
+        xl = x[torch.arange(b, device=x.device), last][:, None, :]
+        return self.logits(params, xl)[:, 0, :]
 
 
 def unstack_layers(cfg: ModelConfig, params) -> List[Dict[str, Any]]:

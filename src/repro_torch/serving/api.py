@@ -15,9 +15,12 @@ offload engine, so the scheduler and the launcher drive either one.
     stats() -> dict                  backend counters
     close()                          release resources (idempotent)
 
-Only the dense KV layout is ported; ``paged=True`` raises until the paged
-KV slice lands (ROADMAP Queue 1, item 3).  Logits cross to the host as
-float32 numpy arrays, as in the JAX package.
+KV memory comes in two layouts, chosen per backend at construction: dense
+(a (B, max_len) cache per slot, allocated by ``start_batch``) or paged
+(``paged=True`` / ``EngineConfig(paged_kv=True)``: a shared
+`models.kv_pages.PagedKVPool` of page_size-token pages with prefix sharing,
+prompts prefilled in prefill_chunk-token chunks).  Logits cross to the host
+as float32 numpy arrays, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,12 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import to_device, to_host
-from repro_torch.models.model import Model
+from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
+from repro_torch.models.model import Model, supports_paged_kv
 from repro_torch.serving.decode import GenerateResult, sample_token
-
-PAGED_NOT_PORTED = ("the paged KV layout arrives with the next slice of the port "
-                    "(models/kv_pages.py + the paged flash-decode kernel, ROADMAP "
-                    "Queue 1, item 3)")
 
 
 @runtime_checkable
@@ -85,15 +85,29 @@ def _blocking_join(backend, slot: int, prompt) -> np.ndarray:
 
 class DenseBackend:
     """All weights resident on the parameters' device; prefill + decode
-    through the dense model (capacity-dispatched MoE)."""
+    through the dense model (capacity-dispatched MoE).
 
-    def __init__(self, model: Model, params, *, paged: bool = False):
-        if paged:
-            raise NotImplementedError(PAGED_NOT_PORTED)
+    ``paged=True`` swaps the per-slot (B, max_len) cache for a shared
+    `PagedKVPool` (page_size-token pages, a pool of `kv_pages` pages —
+    default the dense equivalent) and prefills prompts in
+    `prefill_chunk`-token chunks."""
+
+    def __init__(self, model: Model, params, *, paged: bool = False, page_size: int = 64,
+                 kv_pages: Optional[int] = None, prefill_chunk: int = 64,
+                 prefix_sharing: bool = True):
+        if paged and not supports_paged_kv(model.cfg):
+            raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout")
         self.model = model
         self.params = params
         self.device = params["embed"].device
+        self.paged = paged
+        self.page_size = page_size
+        self.kv_pages = kv_pages
+        self.prefill_chunk = prefill_chunk
+        self.prefix_sharing = prefix_sharing
         self.cache = None
+        self.kv: Optional[PagedKVPool] = None
+        self._admission: Optional[ChunkedPrefill] = None
         self._pending_joins: dict = {}
         self._unclaimed_joins: dict = {}
         self.batch = 0
@@ -107,10 +121,23 @@ class DenseBackend:
         self.active = np.ones((batch,), bool)
         self._pending_joins = {}
         self._unclaimed_joins = {}
-        self.cache = self.model.init_cache(batch, max_len, self.device)
+        if not self.paged:
+            self.cache = self.model.init_cache(batch, max_len, self.device)
+            return
+        self.kv = self.model.init_cache(batch, max_len, self.device, paged=True,
+                                        page_size=self.page_size, num_pages=self.kv_pages,
+                                        prefix_sharing=self.prefix_sharing)
+        self._admission = ChunkedPrefill(self.model, self.params, self.kv,
+                                         chunk=self.prefill_chunk)
 
     def prefill(self, prompts) -> np.ndarray:
+        """Full-batch prefill; paged: chunked, every row reserving max_len."""
         prompts = np.asarray(prompts, np.int64)
+        if self.paged:
+            logits = self._admission.run_batch(prompts, self.max_len)
+            self.positions = np.full(prompts.shape[:1], prompts.shape[1], np.int64)
+            self.active[:] = True
+            return logits
         logits, self.cache, self.positions = self.model.prefill(
             self.params, to_device(prompts, self.device), self.max_len)
         self.active[:] = True
@@ -121,12 +148,26 @@ class DenseBackend:
 
     def join_begin(self, slot: int, prompt,
                    reserve_tokens: Optional[int] = None) -> None:
-        del reserve_tokens          # dense slots are pre-allocated to max_len
-        self._pending_joins[slot] = np.asarray(prompt, np.int64).reshape(-1)
+        """Paged: reserve pages for `reserve_tokens` (default max_len) and
+        queue the prompt for chunked prefill.  Dense: stash the prompt."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if self.paged:
+            self._admission.begin(slot, prompt,
+                                  reserve_tokens=reserve_tokens or self.max_len)
+        else:
+            self._pending_joins[slot] = prompt
 
     def join_step(self) -> dict:
+        """Advance admissions (paged: one chunk for every pending prompt in
+        one call); completed slots are activated."""
         done: dict = dict(self._unclaimed_joins)
         self._unclaimed_joins = {}
+        if self.paged:
+            done.update(self._admission.step())
+            for slot in done:
+                self.positions[slot] = int(self.kv.lens[slot])
+                self.active[slot] = True
+            return done
         for slot, prompt in list(self._pending_joins.items()):
             del self._pending_joins[slot]
             done[slot] = self._join_dense(slot, prompt)
@@ -143,40 +184,66 @@ class DenseBackend:
         return to_host(logits[0])[0]
 
     def can_admit(self, tokens: int, *, prompt=None) -> bool:
-        del tokens, prompt
+        """Paged: unreserved pages for `tokens`, net of prefix sharing when
+        `prompt` is given.  Dense: always."""
+        if self.paged:
+            return self.kv.can_reserve(tokens, prompt=prompt)
         return True
 
     def pause(self, slot: int) -> dict:
+        if self.paged:
+            snap = self.kv.snapshot_slot(slot)
+            self.kv.release(slot)
+            self.active[slot] = False
+            return {"layout": "paged", "position": int(self.positions[slot]), "kv": snap}
         rows = [{"k": c["k"][slot].to("cpu", copy=True),
                  "v": c["v"][slot].to("cpu", copy=True)} for c in self.cache]
         self.active[slot] = False
         return {"layout": "dense", "position": int(self.positions[slot]), "cache": rows}
 
     def resume(self, slot: int, snapshot: dict) -> None:
-        for c, row in zip(self.cache, snapshot["cache"]):
-            c["k"][slot].copy_(row["k"])
-            c["v"][slot].copy_(row["v"])
+        if snapshot["layout"] == "paged":
+            self.kv.restore_slot(slot, snapshot["kv"])
+        else:
+            for c, row in zip(self.cache, snapshot["cache"]):
+                c["k"][slot].copy_(row["k"])
+                c["v"][slot].copy_(row["v"])
         self.positions[slot] = int(snapshot["position"])
         self.active[slot] = True
 
     def release(self, slot: int) -> None:
         self.active[slot] = False
+        if self.paged and self.kv is not None:
+            self.kv.release(slot)
 
     def step(self, tokens) -> np.ndarray:
         tokens = np.asarray(tokens, np.int64).reshape(-1, 1)
-        logits = self.model.decode_step(
-            self.params, self.cache, to_device(tokens, self.device),
-            to_device(self.positions, self.device),
-            to_device(self.active, self.device))
+        tok_dev = to_device(tokens, self.device)
+        pos_dev = to_device(self.positions, self.device)
+        active_dev = to_device(self.active, self.device)
+        if self.paged:
+            table = self.kv.prepare_decode(np.flatnonzero(self.active), self.positions)
+            logits = self.model.decode_step_paged(self.params, self.kv.k, self.kv.v, table,
+                                                  tok_dev, pos_dev, active_dev)
+        else:
+            logits = self.model.decode_step(self.params, self.cache, tok_dev, pos_dev,
+                                            active_dev)
         # only active slots advance; freed slots idle at their last position
         self.positions = self.positions + self.active.astype(np.int64)
         return to_host(logits)[0]
 
     def stats(self) -> dict:
-        return {"backend": "dense", "batch": self.batch, "max_len": self.max_len,
-                "load_stall_s": 0.0, "overlap_fraction": 0.0,
-                "precision_downgrades": 0, "issue_reorders": 0,
-                "link_utilization": 0.0, "per_stream_bytes": []}
+        """Uniform backend counters; kv_* report page-pool pressure (zeros
+        under the dense layout)."""
+        s = {"backend": "dense", "batch": self.batch, "max_len": self.max_len,
+             "load_stall_s": 0.0, "overlap_fraction": 0.0,
+             "precision_downgrades": 0, "issue_reorders": 0,
+             "link_utilization": 0.0, "per_stream_bytes": [],
+             "kv_pages_used": 0, "kv_pages_total": 0, "kv_page_fraction": 0.0,
+             "prefix_hit_tokens": 0, "cow_copies": 0, "aliased_page_fraction": 0.0}
+        if self.paged and self.kv is not None:
+            s.update(self.kv.stats())
+        return s
 
     def close(self) -> None:
         """Resident weights hold no staging threads: nothing to release."""
@@ -188,6 +255,11 @@ class HobbitBackend:
     def __init__(self, engine):
         self.engine = engine
         self.model = engine.model
+
+    @property
+    def kv(self) -> Optional[PagedKVPool]:
+        """The engine's page pool (None under the dense KV layout)."""
+        return self.engine.kv_pool
 
     def start_batch(self, batch: int, max_len: int) -> None:
         self.engine.start_batch(batch, max_len)
@@ -233,12 +305,21 @@ class HobbitBackend:
 class BackendConfig:
     """Typed backend construction config (mirrored by `launch/serve.py`).
 
-    kind    "dense" (resident weights) or "hobbit" (offload engine)
-    paged   paged KV layout (not ported yet: raises)
-    engine  `core.EngineConfig` for kind="hobbit" (None: defaults)
+    kind            "dense" (resident weights) or "hobbit" (offload engine)
+    paged           paged KV layout (shared page pool) on either backend
+    page_size       tokens per KV page
+    kv_pages        pool size in pages (None: the dense equivalent)
+    prefill_chunk   tokens per chunked-prefill call
+    prefix_sharing  radix prefix cache over the paged pool
+    engine          `core.EngineConfig` for kind="hobbit" (None: defaults);
+                    `paged=True` overrides its paged-KV fields
     """
     kind: str = "dense"
     paged: bool = False
+    page_size: int = 64
+    kv_pages: Optional[int] = None
+    prefill_chunk: int = 64
+    prefix_sharing: bool = True
     engine: Optional[object] = None
 
 
@@ -246,13 +327,19 @@ def make_backend(config, model: Model, params):
     """``make_backend(BackendConfig(...), model, params)``; a bare kind string
     stands for the all-defaults config."""
     cfg = config if isinstance(config, BackendConfig) else BackendConfig(kind=config)
-    if cfg.paged:
-        raise NotImplementedError(PAGED_NOT_PORTED)
     if cfg.kind == "dense":
-        return DenseBackend(model, params)
+        return DenseBackend(model, params, paged=cfg.paged, page_size=cfg.page_size,
+                            kv_pages=cfg.kv_pages, prefill_chunk=cfg.prefill_chunk,
+                            prefix_sharing=cfg.prefix_sharing)
     if cfg.kind == "hobbit":
         from repro_torch.core.engine import EngineConfig, OffloadEngine
-        return HobbitBackend(OffloadEngine(model, params, cfg.engine or EngineConfig()))
+        ecfg = cfg.engine or EngineConfig()
+        if cfg.paged:
+            ecfg = dataclasses.replace(ecfg, paged_kv=True, kv_page_size=cfg.page_size,
+                                       kv_pages=cfg.kv_pages,
+                                       prefill_chunk=cfg.prefill_chunk,
+                                       prefix_sharing=cfg.prefix_sharing)
+        return HobbitBackend(OffloadEngine(model, params, ecfg))
     raise ValueError(f"unknown backend kind: {cfg.kind!r}")
 
 

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.kv_pages import PagePoolExhausted
 from repro_torch.models.model import Model
 from repro_torch.serving.api import DenseBackend, InferenceBackend
 from repro_torch.serving.decode import sample_token
@@ -237,8 +238,16 @@ class BatchingServer:
                 t0 = time.time()
                 if paused is not None:
                     # resume a preempted victim: KV restored from its host
-                    # snapshot, decode continues where it left off
-                    self.backend.resume(slot, paused["snapshot"])
+                    # snapshot, decode continues where it left off.  The
+                    # snapshot may need more pages than can_admit priced
+                    # (aliased prefix pages were copied out private), so a
+                    # failed restore requeues the victim
+                    try:
+                        self.backend.resume(slot, paused["snapshot"])
+                    except PagePoolExhausted:
+                        self.queue.insert(0, req)
+                        free.insert(0, slot)
+                        break           # wait for a retirement to free pages
                     req._paused = None  # type: ignore[attr-defined]
                     active[slot] = req
                     outs[slot] = paused["outs"]

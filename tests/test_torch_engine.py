@@ -163,6 +163,6 @@ def test_default_async_engine_matches_dense_unconstrained():
 
 def test_unported_engine_modes_raise():
     _, _, _, port, tparams = _load("mixtral-smoke")
-    for kw in (dict(paged_kv=True), dict(grouped=False), dict(compute_mode="host")):
+    for kw in (dict(grouped=False), dict(compute_mode="host")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             OffloadEngine(port, tparams, EngineConfig(**kw))

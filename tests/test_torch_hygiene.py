@@ -74,7 +74,7 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; chip_smoke.py runs the kernels")
     for fn in ("gating_topk_ref", "stacked_gating_ref", "grouped_dequant_matmul_ref",
-               "grouped_dequant_combine_ref"):
+               "grouped_dequant_combine_ref", "paged_flash_decode_ref"):
         monkeypatch.setattr(ref, fn, _fail_if_called)
     ops.reset_dispatch_counts()
     with FakeTensorMode():
@@ -92,6 +92,11 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
                                                group_size=64),
             lambda: ops.grouped_dequant_combine(x, data, scale, slot, slot, w, bits=4,
                                                 group_size=64, num_rows=2),
+            lambda: ops.paged_flash_decode(
+                torch.empty(2, 8, 128, device=dev, dtype=torch.bfloat16),
+                torch.empty(3, 64, 2, 128, device=dev, dtype=torch.bfloat16),
+                torch.empty(3, 64, 2, 128, device=dev, dtype=torch.bfloat16),
+                torch.empty(2, 2, device=dev, dtype=torch.int32), slot),
         ]
         for call in calls:
             with pytest.raises(RuntimeError):

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the four serving-path kernels against the JAX
+"""Plain PyTorch versions of the five serving-path kernels against the JAX
 package's ops, in both of its modes: ``mode="pallas"`` (the Pallas kernel
 body in interpret mode) and ``mode="xla"`` (its jnp oracle).  Tolerance
-rtol 1e-5 / atol 1e-4, the tests/test_kernels.py convention.  Inputs are
-made with numpy from a seed and handed to both sides.
+rtol 1e-5 / atol 1e-4, the tests/test_kernels.py convention; the paged
+flash-decode cases use that file's own tolerances (1e-5 for float32 pages,
+3e-2 for bfloat16).  Inputs are made with numpy from a seed and handed to
+both sides.
 
 The CUDA kernels cannot run here (no nvcc, no card); chip_smoke.py holds
 each one against these plain versions on the card.
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import paged_flash_decode_pallas
 from repro_torch.kernels import ops
 
 torch.set_num_threads(2)
@@ -200,6 +204,115 @@ def test_grouped_dequant_slot_out_of_range_raises(op, bad):
             ops.grouped_dequant_combine(x, _t(data), _t(scale), slot,
                                         torch.tensor([0, 1], dtype=torch.int32),
                                         torch.ones(2), num_rows=2, **kw)
+
+
+# --------------------------------------------------------------------------
+# paged flash decode (cases of tests/test_kernels.py's paged section)
+# --------------------------------------------------------------------------
+PAGED_IMPLS = ["pallas", "oracle"]
+
+
+def _paged_inputs(b, hq, hkv, hd, psz, maxp, num_pages, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, hd)).astype(np.float32)
+    pk = rng.normal(size=(num_pages, psz, hkv, hd)).astype(np.float32)
+    pv = rng.normal(size=(num_pages, psz, hkv, hd)).astype(np.float32)
+    table = rng.integers(0, num_pages, (b, maxp)).astype(np.int32)
+    return q, pk, pv, table
+
+
+def _paged_pair(impl, q, pk, pv, table, lengths, dtype=np.float32, softcap=0.0):
+    """(port's plain version, reference) on the same inputs, cast to
+    `dtype` on both sides (float32 -> bfloat16 rounds alike in both)."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    lengths = np.asarray(lengths, np.int32)
+    jargs = [jnp.asarray(a, jdt) for a in (q, pk, pv)] + [jnp.asarray(table),
+                                                          jnp.asarray(lengths)]
+    if impl == "pallas":
+        want = paged_flash_decode_pallas(*jargs, interpret=True, softcap=softcap)
+    else:
+        want = jref.paged_flash_decode_ref(*jargs, softcap=softcap)
+    got = ops.paged_flash_decode(*[_t(a).to(tdt) for a in (q, pk, pv)], _t(table),
+                                 _t(lengths), softcap=softcap)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("impl", PAGED_IMPLS)
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("psz,maxp", [(4, 6), (8, 3)])
+def test_paged_flash_decode_matches_reference(impl, hq, hkv, psz, maxp):
+    q, pk, pv, table = _paged_inputs(3, hq, hkv, 32, psz, maxp, 12, seed=hq * 10 + psz)
+    lengths = np.random.default_rng(1).integers(1, psz * maxp + 1, (3,))
+    got, want = _paged_pair(impl, q, pk, pv, table, lengths)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", PAGED_IMPLS)
+@pytest.mark.parametrize("lengths", [[0, 0], [1, 0], [4, 8], [12, 1]])
+def test_paged_flash_decode_edge_lengths(impl, lengths):
+    """Length 0 gives exact zeros; page-boundary and one-token lengths."""
+    q, pk, pv, table = _paged_inputs(2, 4, 2, 16, 4, 3, 8, seed=3)
+    got, want = _paged_pair(impl, q, pk, pv, table, lengths)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.isfinite(got).all()
+    for r, n in enumerate(lengths):
+        if n == 0:
+            np.testing.assert_array_equal(got[r], 0.0)
+
+
+@pytest.mark.parametrize("impl", PAGED_IMPLS)
+def test_paged_flash_decode_junk_table_rows_isolated(impl):
+    """A row whose table aliases a neighbour's pages changes only its own
+    output."""
+    q, pk, pv, table = _paged_inputs(3, 4, 2, 16, 4, 3, 8, seed=5)
+    lengths = [7, 12, 3]
+    base, _ = _paged_pair(impl, q, pk, pv, table, lengths)
+    junk = table.copy()
+    junk[1] = table[0, 0]
+    got, want = _paged_pair(impl, q, pk, pv, junk, lengths)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[[0, 2]], base[[0, 2]])
+
+
+@pytest.mark.parametrize("impl", PAGED_IMPLS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_dtypes(impl, dtype):
+    q, pk, pv, table = _paged_inputs(2, 4, 2, 32, 4, 4, 8, seed=7)
+    got, want = _paged_pair(impl, q, pk, pv, table, [5, 16], dtype=dtype)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", PAGED_IMPLS)
+def test_paged_flash_decode_softcap(impl):
+    """Softcap applies before the mask, as in the reference."""
+    q, pk, pv, table = _paged_inputs(2, 4, 4, 16, 4, 3, 8, seed=9)
+    got, want = _paged_pair(impl, q, pk, pv, table, [5, 11], softcap=5.0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    uncapped, _ = _paged_pair(impl, q, pk, pv, table, [5, 11])
+    assert np.abs(got - uncapped).max() > 1e-6
+
+
+@pytest.mark.parametrize("bad", [8, -1])
+def test_paged_flash_decode_page_out_of_range_raises(bad):
+    """A page id outside the pool raises (the kernel aborts there) instead
+    of wrapping around or reading past the pool."""
+    q, pk, pv, table = _paged_inputs(2, 4, 2, 16, 4, 3, 8, seed=11)
+    table[1, 2] = bad
+    with pytest.raises(IndexError, match="page id outside"):
+        ops.paged_flash_decode(_t(q), _t(pk), _t(pv), _t(table),
+                               torch.tensor([3, 5], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("b,hkv,maxp,want", [(4, 8, 2, 2), (4, 8, 64, 33), (1, 8, 512, 132),
+                                             (64, 8, 512, 3)])
+def test_decode_splits_fill_the_card(b, hkv, maxp, want):
+    """Small B * Hkv gets more page splits (at most one per page), so the
+    pass-1 grid fills an H100's 132 SMs at 8 resident blocks each."""
+    s = ops.decode_splits(b, hkv, maxp, 8 * 132)
+    assert s == want and 1 <= s <= maxp
 
 
 # --------------------------------------------------------------------------

@@ -130,6 +130,16 @@ def test_serve_launcher_prints_report_on_cpu(mode):
 
 
 def test_serve_launcher_paged_kv_raises():
-    res = _serve_cli("--backend", "hobbit", "--paged-kv", "--new-tokens", "2")
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
+    """The name dates from when --paged-kv raised NotImplementedError.  The
+    flag now serves through the page pool and reports its counters; a
+    shared prefix longer than a page is aliased across requests."""
+    res = _serve_cli("--backend", "hobbit", "--paged-kv", "--serve-requests", "3",
+                     "--max-batch", "2", "--admit-k", "1", "--page-size", "4",
+                     "--shared-prefix", "9", "--prompt-len", "5", "--new-tokens", "4")
+    assert res.returncode == 0, res.stderr[-2000:]
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["paged_kv"] and report["serving"]["requests"] == 3
+    kv = report["kv"]
+    assert kv["kv_pages_total"] > 0 and kv["kv_page_size"] == 4
+    assert kv["prefix_hit_tokens"] >= 8
+    assert report["kernel_dispatch"].get("paged_flash_decode.torch", 0) > 0
