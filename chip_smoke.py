@@ -4,7 +4,8 @@
 
 Needs one CUDA card (an H100 is the target) and the CUDA toolkit; it exits
 non-zero without printing a result when either is missing, or when this file
-stands outside a checkout of the repository.  Phases, each fatal on failure:
+stands outside a checkout of the repository.  Phases, each fatal on failure
+and each printing its seconds:
 
   1. device  — card name and power limit, TF32 off for float32 products;
   2. build   — the Hopper kernels from ``src/repro_torch/kernels/csrc``;
@@ -14,6 +15,14 @@ stands outside a checkout of the repository.  Phases, each fatal on failure:
                must abort the dequant kernels, and an out-of-range page id
                the paged flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
+  3c. dequant_matmul — the dense dequant-matmul kernel at Granite-3.0-2B's
+               FFN shapes (decode M = 1 / 4, prefill M = 64 / 256; 4-bit
+               codes, group 128, bf16 x), then bits 8/2, float32 x, ragged
+               M and N, leading dims;
+  3d. flash_decode — the contiguous flash-decode kernel at (a) Granite's
+               serving shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (the
+               paged kernel's shapes), then length 0 and 1, S off the tile,
+               g = 1, float32 K/V; SDPA on the same cache as the yardstick;
   4. serve   — HobbitBackend under BatchingServer on full-width Mixtral-8x7B
                (depth cut to 4 layers, seeded random bf16 weights): mixed-
                length greedy requests, with every kernel's launch counted;
@@ -24,7 +33,17 @@ stands outside a checkout of the repository.  Phases, each fatal on failure:
                a 48-token system prompt, so a partial page is aliased and
                copied on write; every kernel's launch counted;
   7. paged parity — the unconstrained engine on paged KV against the same
-               engine on dense KV, step by step.
+               engine on dense KV, step by step;
+  8. serve-dense — Granite-3.0-2B at full width and depth (40 layers,
+               seeded random bf16 weights) through DenseBackend(paged=True)
+               under BatchingServer, once with bf16 FFN weights and once
+               with them quantized by ``quantize_tree`` (4 bits), every
+               dense-FFN product then in the dequant-matmul kernel; then 3
+               decode steps of the quantized model under torch.profiler
+               (the device's busy share and its top kernels);
+  9. dense parity — the quantized Granite at full width cut to 4 layers on
+               the card (kernels) against the same weights on the CPU (plain
+               versions), step by step.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +74,7 @@ F32_FLOPS = 67e12
 SEED = 0
 ARCH = "mixtral-8x7b"
 LAYERS = 4
+GRANITE = "granite-3-2b"
 
 
 def fail(msg: str) -> None:
@@ -121,6 +141,23 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+class phase:
+    """Context manager printing a phase's seconds when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"[{self.name}] phase done in {time.perf_counter() - self.t0:.1f} s",
+                  flush=True)
+        return False
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device
 # ---------------------------------------------------------------------------
@@ -151,8 +188,9 @@ def phase_build() -> None:
     spent = build.build()
     for name in build.SOURCES:
         build.library(name)
+    each = ", ".join(f"{n} {t:.1f} s" for n, t in sorted(build.source_build_s.items()))
     print(f"[build] {len(build.SOURCES)} libraries for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {spent:.1f} s, parallel)",
+          f"{time.perf_counter() - t0:.1f} s (nvcc {spent:.1f} s, parallel: {each})",
           flush=True)
 
 
@@ -299,6 +337,19 @@ def phase_kernels(dev) -> list:
     _slot_faults()
     rows.append(_paged_decode_row(dev, g))
     return rows
+
+
+def phase_kernels_dense(dev) -> list:
+    """Phases 3c and 3d: the dense dequant-matmul and the contiguous
+    flash-decode kernels."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    with phase("kernels-3c"):
+        dq = _dequant_matmul_row(dev, g)
+    torch.cuda.empty_cache()
+    with phase("kernels-3d"):
+        fd = _flash_decode_row(dev, g)
+    torch.cuda.empty_cache()
+    return [dq, fd]
 
 
 def _other_instantiations(dev, g) -> None:
@@ -593,6 +644,223 @@ def _page_fault() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: dense dequant-matmul at Granite-3.0-2B's FFN shapes
+# ---------------------------------------------------------------------------
+# float32 sums over K <= 8192 taken in another order than torch.matmul's
+DQ_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _dq_case(dev, g, m, k, n, *, bits=4, group=128, lead=(), x_dtype=torch.bfloat16):
+    """A seeded weight quantized on the card (quantize_tree's default group
+    128) and x of shape (*lead, m, k)."""
+    from repro_torch.quant.quantize import quantize
+    w = torch.randn((k, n), generator=g, device=dev) * 0.02
+    x = torch.randn((*lead, m, k), generator=g, device=dev).to(x_dtype)
+    return x, quantize(w, bits=bits, group_size=group)
+
+
+def _dq_check(name, x, q) -> float:
+    from repro_torch.kernels import ops, ref
+    got = ops.dequant_matmul(x, q)
+    want = ref.dequant_matmul_ref(x, q)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return _close(name, got, want, **DQ_TOL)
+
+
+def _dequant_matmul_row(dev, g) -> dict:
+    """The kernel against its plain version at Granite's wi (2048 -> 16384,
+    SwiGLU) and wo (8192 -> 2048) for decode (M 1, 4) and chunked prefill (M
+    64, 256 = 4 slots x 64 tokens), 4-bit codes, bf16 x; then every compiled
+    variant at small shapes.  Beside it, torch.matmul on the pre-dequantized
+    bf16 weight, for information only (it reads 4x the bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.quantize import dequantize
+
+    cfg = get_config(GRANITE)
+    mats = {"wi": (cfg.d_model, 2 * cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
+    per, err = {}, 0.0
+    for name, (k, n) in mats.items():
+        for m in (1, 4, 64, 256):
+            x, q = _dq_case(dev, g, m, k, n)
+            err = max(err, _dq_check(f"dequant_matmul {name} M={m}", x, q))
+            wb = dequantize(q, dtype=torch.bfloat16)
+            out = ops.dequant_matmul(x, q)
+            ms = graph_ms(lambda: ops.dequant_matmul(x, q))
+            call = cuda_ms(lambda: ops.dequant_matmul(x, q))
+            plain = cuda_ms(lambda: ref.dequant_matmul_ref(x, q), warmup=1, iters=5)
+            mm = graph_ms(lambda: torch.matmul(x, wb))
+            moved = nbytes(x, q.data, q.scale, out)
+            bms, by = bound(moved, 2 * m * k * n)
+            per[f"{name} M={m}"] = dict(
+                m=m, k=k, n=n, bits=4, group=128,
+                splits=ops.dequant_mm_splits(m, k, n, 4, 128, ops._sm_count(x.device)),
+                ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                gbps=moved / ms / 1e6, tflops=2 * m * k * n / ms / 1e9,
+                matmul_bf16_ms=mm)
+            print(f"[kernels] dequant_matmul {name} M={m} K={k} N={n}: {ms:.4f} ms on the "
+                  f"card ({moved / ms / 1e6:.0f} GB/s, {2 * m * k * n / ms / 1e9:.1f} "
+                  f"TFLOP/s; bound {bms:.4f} ms by {by}), {call:.4f} ms per call (plain "
+                  f"{plain:.3f} ms per call; torch.matmul on the dequantized bf16 weight "
+                  f"{mm:.4f} ms, information only)", flush=True)
+            del x, q, wb, out
+        torch.cuda.empty_cache()
+
+    n_checked = 0
+    for bits in (8, 4, 2):
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for m in (3, 24):                               # both row tiles
+                x, q = _dq_case(dev, g, m, 512, 256, bits=bits, group=64, x_dtype=x_dtype)
+                err = max(err, _dq_check(f"dequant_matmul bits={bits} {x_dtype} M={m}", x, q))
+                n_checked += 1
+    cases = {"ragged M=5": dict(m=5, k=2048, n=16384),
+             "ragged N=96": dict(m=4, k=384, n=96),
+             "ragged M=7 N=100 group 32": dict(m=7, k=256, n=100, group=32),
+             "leading dims (2, 3)": dict(m=3, k=2048, n=256, lead=(2,)),
+             "M=1 bits 8 wo": dict(m=1, k=8192, n=2048, bits=8)}
+    for name, kw in cases.items():
+        x, q = _dq_case(dev, g, kw.pop("m"), kw.pop("k"), kw.pop("n"), **kw)
+        err = max(err, _dq_check(f"dequant_matmul {name}", x, q))
+        n_checked += 1
+    print(f"[kernels] dequant_matmul: {n_checked} further variants (bits 8/4/2, bf16/f32 "
+          "x, row tiles 4/16, ragged M and N, group 32/64, leading dims) agree with the "
+          "plain version", flush=True)
+    a = per["wi M=4"]
+    return dict(name="dequant_matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                replaces="src/repro/kernels/dequant_matmul.py:90", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+                library="none: no single PyTorch call dequantizes and multiplies; "
+                        "torch.matmul on the pre-dequantized bf16 weight (4x the bytes) "
+                        "is under shapes as matmul_bf16_ms, for information",
+                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: flash decode over a contiguous cache
+# ---------------------------------------------------------------------------
+FLASH_TOL = dict(rtol=1e-4, atol=1e-4)      # float32 sums in another order
+
+
+def _flash_case(dev, g, b, s, hq, hkv, hd, lengths, dtype=torch.bfloat16):
+    q = torch.randn((b, hq, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _flash_plain(q, k, v, lengths):
+    """What ops.flash_decode runs on the CPU: repeat the kv heads, then the
+    masked float32 softmax."""
+    from repro_torch.kernels import ref
+    g = q.shape[1] // k.shape[2]
+    return ref.flash_decode_ref(q, k.repeat_interleave(g, dim=2),
+                                v.repeat_interleave(g, dim=2), lengths)
+
+
+def _flash_check(name, args) -> float:
+    from repro_torch.kernels import ops
+    got = ops.flash_decode(*args)
+    want = _flash_plain(*args)
+    torch.cuda.synchronize()
+    return _close(name, got, want, **FLASH_TOL)
+
+
+def _flash_bytes(q, k, lengths, out) -> int:
+    """K/V bytes of the rows each slot reads (min(length, S); all S for a
+    length <= 0, whose weights are uniform), read once, plus q, lengths and
+    the output."""
+    _, s, hkv, hd = k.shape
+    rows = sum(s if n <= 0 else min(n, s) for n in lengths.tolist())
+    return 2 * rows * hkv * hd * k.element_size() + nbytes(q, lengths, out)
+
+
+def _flash_decode_row(dev, g) -> dict:
+    """The contiguous kernel against its plain version at (a) Granite's
+    serving shape (B 4, 57-112 of 128 rows, Hq 32 / Hkv 8 / hd 64), (b) 4 x
+    4096 and (c) 1 x 32768 rows at hd 128 (the paged kernel's (b) and (c)),
+    then the edge cases and every compiled variant.  Yardstick: SDPA with
+    enable_gqa on a (B, H, S, hd) view transposed beforehand (not timed)."""
+    from repro_torch.kernels import ops
+
+    shapes = {
+        "a": dict(b=4, s=128, hd=64, lengths=[70, 95, 112, 57]),
+        "b": dict(b=4, s=4096, hd=128, lengths=[4096] * 4),
+        "c": dict(b=1, s=32768, hd=128, lengths=[32768]),
+    }
+    F = torch.nn.functional
+    per, err = {}, 0.0
+    for key, sh in shapes.items():
+        args = _flash_case(dev, g, sh["b"], sh["s"], 32, 8, sh["hd"], sh["lengths"])
+        q, k, v, ln = args
+        err = max(err, _flash_check(f"flash_decode ({key})", args))
+        out = ops.flash_decode(*args)
+        moved = _flash_bytes(q, k, ln, out)
+        rows = sum(min(n, sh["s"]) for n in sh["lengths"])
+        bms, by = bound(moved, 4 * 32 * sh["hd"] * rows)
+        ms = graph_ms(lambda: ops.flash_decode(*args))
+        call = cuda_ms(lambda: ops.flash_decode(*args))
+        plain = cuda_ms(lambda: _flash_plain(*args), warmup=1, iters=5)
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = torch.arange(sh["s"], device=dev)[None, :] < ln[:, None].long()
+        mask = None if bool(mask.all()) else mask[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib = graph_ms(sdpa)
+        lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
+        per[key] = dict(b=sh["b"], s=sh["s"], hd=sh["hd"], tokens=sh["lengths"], ms=ms,
+                        call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=lib, library_max_abs_diff=lib_err,
+                        gbps=moved / ms / 1e6)
+        print(f"[kernels] flash_decode ({key}) B={sh['b']} S={sh['s']} hd={sh['hd']}: "
+              f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
+              f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA "
+              f"{lib:.4f} ms on the card, max |diff| {lib_err:.1e})", flush=True)
+        del args, q, k, v, ln, out, kt, vt
+        torch.cuda.empty_cache()
+
+    n_checked = 0
+    for kv_dt in (torch.bfloat16, torch.float32):
+        for grp in ops.FLASH_DECODE_GROUPS:
+            for hd in ops.FLASH_DECODE_HEAD_DIMS:
+                args = _flash_case(dev, g, 3, 300, 2 * grp, 2, hd, [0, 37, 300], dtype=kv_dt)
+                err = max(err, _flash_check(f"flash_decode {kv_dt} g={grp} hd={hd}", args))
+                n_checked += 1
+    edge = {
+        "length 0 (mean of V) and 1 in a 4096-row cache": (4, 4096, [0, 1, 4096, 2049]),
+        "S = 300 off the 32-row tile, past-S and negative lengths": (4, 300, [300, 299, 1000, -3]),
+    }
+    for name, (b, s, lens) in edge.items():
+        args = _flash_case(dev, g, b, s, 32, 8, 64, lens)
+        err = max(err, _flash_check(f"flash_decode {name}", args))
+        n_checked += 1
+    q, k, v, ln = _flash_case(dev, g, 2, 256, 8, 8, 128, [0, 200])
+    got = ops.flash_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    err = max(err, _close("flash_decode length-0 row is the mean of V", got[0],
+                          v[0].float().mean(0), **FLASH_TOL))
+    err = max(err, _flash_check("flash_decode f32 q, bf16 K/V", (q.float(), k, v, ln)))
+    n_checked += 2
+    print(f"[kernels] flash_decode: {n_checked} further variants (bf16/f32 K/V, g "
+          f"{ops.FLASH_DECODE_GROUPS}, hd {ops.FLASH_DECODE_HEAD_DIMS}, lengths 0/1/past "
+          "S/negative, S off the tile, f32 q) agree with the plain version", flush=True)
+    a = per["a"]
+    return dict(name="flash_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode_contig.cu",
+                replaces="src/repro/kernels/flash_decode.py:75", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=a["library_ms"],
+                library="scaled_dot_product_attention(enable_gqa=True) on a (B, H, S, hd) "
+                        "view transposed beforehand, not timed",
+                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path on full-width Mixtral-8x7B (depth cut)
 # ---------------------------------------------------------------------------
 OPS = ("gating_topk", "stacked_gating", "grouped_dequant_matmul",
@@ -880,11 +1148,192 @@ def phase_paged_parity(dev, cfg, params) -> None:
           f"{same}/{(steps + 1) * b}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Granite-3.0-2B at full width and depth through DenseBackend
+# ---------------------------------------------------------------------------
+DENSE_OPS = ("paged_flash_decode",)
+DENSE_Q_OPS = ("paged_flash_decode", "dequant_matmul")
+
+
+def _ffn_path(path, leaf) -> bool:
+    del leaf
+    return "ffn" in path
+
+
+def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
+    """DenseBackend(paged=True) at its defaults (64-token pages, 64-token
+    prefill chunks, prefix sharing, the dense-equivalent pool) under
+    BatchingServer(max_batch=4): 6 greedy requests, prompts of 32-64 seeded
+    tokens (the same for every call), 16 new tokens each."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import BackendConfig, make_backend
+    from repro_torch.serving.batching import BatchingServer, Request
+
+    cfg = model.cfg
+    backend = make_backend(BackendConfig(kind="dense", paged=True), model, params)
+    rng = np.random.default_rng(SEED + 4)
+    n_req, new_tokens, max_batch = 6, 16, 4
+    srv = BatchingServer(_FiniteLogits(backend), max_batch=max_batch,
+                         max_len=64 + new_tokens + 8)
+    for i in range(n_req):
+        plen = int(rng.integers(32, 65))
+        srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
+                           max_new_tokens=new_tokens))
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.dispatch_counts()
+    st = srv.stats()
+    srv.close()
+
+    check(len(srv.completed) == n_req, f"{label}: {len(srv.completed)}/{n_req} requests done")
+    outputs = {}
+    for r in srv.completed:
+        out = np.asarray(r.output)
+        check(out.shape == (new_tokens,), f"{label} request {r.rid}: {out.shape} tokens")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"{label} request {r.rid}: token ids outside the vocabulary")
+        outputs[r.rid] = out
+    for op in must_launch:
+        check(counts.get(f"{op}.cuda", 0) > 0, f"{label}: {op} never launched")
+    bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
+    check(not bad, f"{label}: plain versions ran on the card: {bad}")
+    summary = {
+        "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
+        "layers": cfg.num_layers, "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
+        "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
+        "kernel_dispatch": counts,
+    }
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers: wall {wall:.2f} s, "
+          f"{st['decode_tok_s']:.1f} decode tok/s; {json.dumps(summary)}", flush=True)
+    summary["outputs"] = outputs
+    return summary
+
+
+def _decode_window(model, params, steps: int = 3) -> dict:
+    """Where a decode step's time goes: DenseBackend(paged=True) with 4
+    slots holding 48-token prompts, `steps` steps under torch.profiler;
+    the kernels' device time (the summed time of every kernel event) over
+    the steps' wall time gives the device's busy share; the top kernels by
+    device time beside it.  Reports "not measured" when the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.api import DenseBackend
+
+    be = DenseBackend(model, params, paged=True)
+    be.start_batch(4, 48 + steps + 8)
+    rng = np.random.default_rng(SEED + 7)
+    be.prefill(rng.integers(0, model.cfg.vocab_size, (4, 48)))
+    tokens = rng.integers(0, model.cfg.vocab_size, (steps, 4))
+    be.step(tokens[0])                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            be.step(tokens[t])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: the CPU-side ops and runtime calls that launched
+    # them carry the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    if busy_us <= 0:
+        return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured"}
+    return {"step_ms": wall / steps * 1e3, "device_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
+                                        for e in top}}
+
+
+def _tree_to(tree, device):
+    """A parameter tree (dicts, lists, tensors, QTensors) on `device`."""
+    from repro_torch.quant.quantize import QTensor
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, data=tree.data.to(device),
+                                   scale=tree.scale.to(device))
+    return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the quantized Granite on the card against the CPU
+# ---------------------------------------------------------------------------
+DENSE_PARITY_ATOL = 0.1
+
+
+def phase_dense_parity(dev) -> dict:
+    """Granite-3.0-2B at full width, depth cut to 4 layers, seeded bf16
+    weights with 4-bit FFN weights (quantize_tree), through
+    DenseBackend(paged=True) on the card (kernels) and on the CPU (plain
+    versions): a 100-token prefill (two pages) and 4 teacher-forced decode
+    steps for 2 rows.  Both sides compute in bf16 with float32 products and
+    round in different places (cuBLAS and the CPU's GEMMs, the kernels' sum
+    orders); per-step logits must agree within DENSE_PARITY_ATOL = 0.1, as
+    in phases 5 and 7."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.quant.quantize import QTensor, quantize_tree
+    from repro_torch.serving.api import DenseBackend
+
+    cfg = dataclasses.replace(granite_full(), num_layers=4).validate()
+    model = build_model(cfg)
+    params = quantize_tree(model.init(SEED + 5, device=dev), bits=4, predicate=_ffn_path)
+    check(all(isinstance(lp["ffn"][w], QTensor) for lp in params["layers"]
+              for w in ("wi", "wo")), "dense parity: FFN weights not quantized")
+    rng = np.random.default_rng(SEED + 6)
+    b, s, steps = 2, 100, 4
+    prompts = rng.integers(0, cfg.vocab_size, (b, s))
+    teacher = rng.integers(0, cfg.vocab_size, (steps, b))
+    runs, counts = {}, {}
+    for where, p in (("cuda", params), ("cpu", _tree_to(params, "cpu"))):
+        be = DenseBackend(model, p, paged=True)
+        be.start_batch(b, s + steps + 4)
+        ops.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        runs[where] = [be.prefill(prompts)] + [be.step(teacher[t]) for t in range(steps)]
+        counts[where] = ops.dispatch_counts()
+        print(f"[dense-parity] {where}: prefill + {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts[where]}", flush=True)
+    for op in DENSE_Q_OPS:
+        check(counts["cuda"].get(f"{op}.cuda", 0) > 0, f"dense parity: {op} not launched")
+    worst, same = 0.0, 0
+    for i, (lc, lh) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        check(bool(np.isfinite(lc).all()), f"dense parity step {i}: non-finite logits")
+        e = float(np.abs(lc - lh).max())
+        worst = max(worst, e)
+        same += int((lc.argmax(-1) == lh.argmax(-1)).sum())
+        check(e <= DENSE_PARITY_ATOL, f"dense parity step {i}: max |card - CPU| = "
+                                      f"{e:.4f} > {DENSE_PARITY_ATOL}")
+    spread = float(np.std(runs["cpu"][0]))
+    print(f"[dense-parity] {steps + 1} steps (prefill + {steps} decode) x {b} rows: max "
+          f"|card - CPU| = {worst:.4f} <= {DENSE_PARITY_ATOL} (logit std {spread:.3f}); "
+          f"greedy tokens equal in {same}/{(steps + 1) * b}", flush=True)
+    return {"max_abs_diff": worst, "logit_std": spread, "argmax_equal": same,
+            "compared": (steps + 1) * b}
+
+
+def granite_full():
+    from repro_torch.configs import get_config
+    return get_config(GRANITE)
+
+
 def main() -> None:
-    phase_device()
+    with phase("device"):
+        phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    rows = phase_kernels(dev)
+    with phase("build"):
+        phase_build()
+    with phase("kernels"):
+        rows = phase_kernels(dev)
+    rows += phase_kernels_dense(dev)
 
     from repro_torch.models import build_model
     cfg = mixtral_cut()
@@ -894,24 +1343,69 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} at full width, {cfg.num_layers} layers, bf16 random "
           f"weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s", flush=True)
-    serve = phase_serve(dev, model, params)
+    with phase("serve"):
+        serve = phase_serve(dev, model, params)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_parity(dev, cfg, params)
+    with phase("parity"):
+        phase_parity(dev, cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
-    paged = phase_serve_paged(dev, model, params)
+    with phase("serve-paged"):
+        paged = phase_serve_paged(dev, model, params)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_paged_parity(dev, cfg, params)
-    # launches: the paged flash-decode kernel's from the paged serve, the
-    # others' from the dense-KV serve; both paths' counts beside them
+    with phase("paged-parity"):
+        phase_paged_parity(dev, cfg, params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.quant.quantize import quantize_tree
+    gcfg = granite_full()
+    gmodel = build_model(gcfg)
+    t0 = time.perf_counter()
+    gparams = gmodel.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"[serve-dense] {gcfg.name} at full width and depth ({gcfg.num_layers} layers), "
+          f"bf16 random weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("serve-dense"):
+        dense = phase_serve_dense(dev, gmodel, gparams, "serve-dense", DENSE_OPS)
+    t0 = time.perf_counter()
+    qparams = quantize_tree(gparams, bits=4, predicate=_ffn_path)
+    torch.cuda.synchronize()
+    print(f"[serve-dense-q4] FFN weights of {gcfg.num_layers} layers quantized to 4 bits "
+          f"(group 128) on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("serve-dense-q4"):
+        dense_q = phase_serve_dense(dev, gmodel, qparams, "serve-dense-q4", DENSE_Q_OPS)
+    with phase("decode-window"):
+        window = _decode_window(gmodel, qparams)
+    print(f"[serve-dense-q4] decode window (4 slots, 3 steps under torch.profiler, apart "
+          f"from the run above): {json.dumps(window)}", flush=True)
+    dense_q["decode_window"] = window
+    agree = float(np.mean([np.mean(dense["outputs"][r] == dense_q["outputs"][r])
+                           for r in dense["outputs"]]))
+    print(f"[serve-dense-q4] greedy tokens equal to the bf16 run's in {agree:.3f} of "
+          "positions (4-bit FFN weights change the function)", flush=True)
+    del gmodel, gparams, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("dense-parity"):
+        phase_dense_parity(dev)
+
+    # launches: each kernel's from its main path (the grouped and gating
+    # kernels' from the dense-KV serve, the paged flash decode's from the
+    # paged serve, the dequant-matmul's from the quantized Granite serve; no
+    # serving path runs the contiguous flash decode); every path beside them
+    main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
+                 "flash_decode": None}
+    paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
+             "serve_dense_q4": dense_q}
     for r in rows:
         key = f"{r['name']}.cuda"
-        by_path = {"serve": serve["kernel_dispatch"].get(key, 0),
-                   "serve_paged": paged["kernel_dispatch"].get(key, 0)}
-        r["launches"] = by_path["serve_paged" if r["name"] == "paged_flash_decode"
-                                else "serve"]
+        by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()}
+        path = main_path.get(r["name"], "serve")
+        r["launches"] = by_path[path] if path else 0
         r["launches_by_path"] = by_path
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -123,7 +123,8 @@ class OffloadEngine:
         _check_ported(ecfg)
         cfg = model.cfg
         if cfg.moe is None:
-            raise ValueError("OffloadEngine requires a MoE model")
+            raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has dense "
+                             "FFN layers (serve it with DenseBackend)")
         self.model = model
         self.cfg = cfg
         self.ecfg = ecfg

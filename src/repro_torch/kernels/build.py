@@ -2,10 +2,11 @@
 
 Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` on its own into a shared library for ``sm_90a``, then loaded with
-``ctypes``.  The build happens at first use into ``build/repro_torch_kernels/``
+``ctypes``; device code that two sources share lives in a ``csrc/*.cuh``
+header.  The build happens at first use into ``build/repro_torch_kernels/``
 at the root of the checkout (listed in ``.gitignore``); a library's file name
-carries the hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused.  All missing libraries are compiled in
+carries the hash of its source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  All missing libraries are compiled in
 parallel, one ``nvcc`` process per source.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -26,7 +27,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gating", "dequant", "flash_decode")
+SOURCES = ("gating", "dequant", "dequant_matmul", "flash_decode", "flash_decode_contig")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
@@ -48,16 +49,25 @@ SIGNATURES = {
         "grouped_dequant_combine_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
+    "dequant_matmul": {
+        "dequant_matmul_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
     "flash_decode": {
         "paged_flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
         "paged_flash_decode_blocks_per_sm": (_I, _I, _I, _I, _IP),
+    },
+    "flash_decode_contig": {
+        "flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_decode_blocks_per_sm": (_I, _I, _I, _IP),
     },
 }
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 last_build_s = 0.0          # seconds the last build() spent in nvcc
+source_build_s: Dict[str, float] = {}   # per source: seconds until its nvcc ended
 
 
 def nvcc_path() -> str:
@@ -80,6 +90,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -101,11 +113,21 @@ def build(names=SOURCES) -> float:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs: Dict[str, str] = {}
+
+    def wait(n, proc):
+        logs[n], _ = proc.communicate()
+        source_build_s[n] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(n, proc)) for n, _, _, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     errors = []
     for n, out, tmp, proc in procs:
-        log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{logs[n]}")
             continue
         os.replace(tmp, out)
     last_build_s = time.perf_counter() - t0

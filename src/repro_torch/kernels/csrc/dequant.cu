@@ -16,9 +16,9 @@
 //
 // What the design does about it:
 //   * Only packed bytes leave device memory.  Codes are unpacked (two's
-//     complement low bits, decoded without int -> float conversions) and
-//     scaled in registers; the pool tensors are read in place through the
-//     per-pair `slot` index, so no expert copy is gathered.
+//     complement low bits, decoded without int -> float conversions, in
+//     dequant.cuh) and scaled in registers; the pool tensors are read in
+//     place through the per-pair `slot` index, so no expert copy is gathered.
 //   * A thread owns 16 consecutive output columns and reads them with one
 //     16-byte load per packed row; a warp reads 512 contiguous bytes.
 //   * The block's K-chunk of x is staged in shared memory as float32 (a
@@ -30,9 +30,7 @@
 //     columns, lanes over chunks, a fixed shuffle tree) and, for the
 //     combine, each output row's pairs in pair order.  No atomics, so the result is the same on
 //     every run.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dequant.cuh"
 
 namespace {
 
@@ -40,23 +38,6 @@ constexpr int kThreads = 128;           // threads per pass-1 block
 constexpr int kCols = 16;               // output columns per thread
 constexpr int kTileN = kThreads * kCols;
 constexpr int kReduceThreads = 256;     // pass-2 threads per block
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// The two's-complement field of BITS bits at bit `sh` of `w`, as an exact
-// float: flipping its sign bit gives offset binary (value + 2^(BITS-1));
-// placed in the mantissa of 2^23 and minus 2^23 + 2^(BITS-1) that is the
-// value again.  One shift, one LOP3 and one FADD, all full-rate, where an
-// int -> float conversion would run at a quarter of the rate and bound the
-// kernel on instructions rather than bytes.
-template <int BITS>
-__device__ __forceinline__ float decode(uint32_t w, int sh) {
-  constexpr uint32_t kMask = (1u << BITS) - 1;
-  constexpr uint32_t kOff = 1u << (BITS - 1);
-  const uint32_t u = ((w >> sh) & kMask) ^ (0x4B000000u | kOff);
-  return __uint_as_float(u) - (8388608.0f + (float)kOff);
-}
 
 // Pass 1: part[p, c, n] = sum over K-chunk c of x[p, k] * dequant(...)[k, n].
 template <int BITS, typename XT>

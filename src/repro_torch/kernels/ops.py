@@ -28,7 +28,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.quant.quantize import PACK_FACTOR
+from repro_torch.quant.quantize import PACK_FACTOR, QTensor
 
 _DISPATCH_COUNTS: Dict[str, int] = {}
 
@@ -194,6 +194,92 @@ def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# dense dequant-matmul
+# --------------------------------------------------------------------------
+
+# output columns of one dequant-matmul block (kTileN in dequant_matmul.cu)
+DEQUANT_MM_TILE_N = 128
+# largest quant group the kernel stages at once (kStageK)
+DEQUANT_MM_MAX_GROUP = 512
+# blocks per SM the K-split aims for when one row tile leaves the card idle
+DEQUANT_MM_BLOCKS_PER_SM = 8
+
+
+def dequant_mm_rows(m: int) -> int:
+    """Row tile of the dequant-matmul kernel: 4 for decode (M <= 4 live
+    rows), else 16 (prefill, every decoded weight used by 16 rows)."""
+    return 4 if m <= 4 else 16
+
+
+def dequant_mm_splits(m: int, k: int, n: int, bits: int, group_size: int,
+                      sm_count: int) -> int:
+    """K-splits of the dequant-matmul grid: enough (row tile x column tile x
+    split) blocks for DEQUANT_MM_BLOCKS_PER_SM per SM, each split whole
+    quant groups, and the float32 partials (written once, read once) kept
+    under a quarter of the codes' bytes.  From shapes only: no
+    synchronisation."""
+    groups = k // group_size
+    blocks = -(-m // dequant_mm_rows(m)) * -(-n // DEQUANT_MM_TILE_N)
+    want = -(-DEQUANT_MM_BLOCKS_PER_SM * sm_count // blocks)
+    cap = k * bits // 8 // (4 * 2 * 4 * m)        # partial bytes <= code bytes / 4
+    want = max(1, min(groups, want, cap))
+    per = -(-groups // want)
+    return -(-groups // per)
+
+
+def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
+    """y = x @ dequant(q), float32.
+
+        x  (..., K)   activations (bf16 or f32), any leading dims
+        q  QTensor    data (K//pack, N) int8, scale (K//group, N) f32
+        -> (..., N) float32
+
+    The kernel masks ragged M and N (N a multiple of 4 on the card) where
+    the JAX package pads; K is a multiple of the group by the layout."""
+    op = "dequant_matmul"
+    if _route(op, x, q.data, q.scale) == "torch":
+        _record(op, "torch")
+        return ref.dequant_matmul_ref(x, q)
+    _check(op, q.bits in PACK_FACTOR, f"bits={q.bits} not in {sorted(PACK_FACTOR)}")
+    pack = PACK_FACTOR[q.bits]
+    _check(op, q.data.dim() == 2 and q.scale.dim() == 2,
+           "want a 2-D QTensor: data (K//pack, N), scale (K//group, N)")
+    k = x.shape[-1]
+    kp, n = q.data.shape
+    gs = q.group_size
+    _check(op, kp * pack == k and q.orig_k == k, f"q holds K={kp * pack}, x has K={k}")
+    _check(op, 0 < gs <= DEQUANT_MM_MAX_GROUP and k % gs == 0 and gs % pack == 0,
+           f"group_size={gs} does not tile K={k} in packed bytes (at most "
+           f"{DEQUANT_MM_MAX_GROUP})")
+    _check(op, tuple(q.scale.shape) == (k // gs, n),
+           f"scale shape {tuple(q.scale.shape)} != {(k // gs, n)}")
+    _check(op, q.data.dtype == torch.int8, "data must be int8")
+    _check(op, q.scale.dtype == torch.float32, "scale must be float32")
+    _check(op, n % 4 == 0, f"N={n} must be a multiple of 4 (4-byte code loads)")
+    x2 = x.reshape(-1, k)
+    _check_contig(op, x=x2, data=q.data, scale=q.scale)
+    xb = _x_flag(op, x2)
+    lib = build.library("dequant_matmul")
+    _check(op, q.data.data_ptr() % 4 == 0 and q.scale.data_ptr() % 16 == 0,
+           "data must be 4-byte and scale 16-byte aligned")
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n)
+    bm = dequant_mm_rows(m)
+    splits = dequant_mm_splits(m, k, n, q.bits, gs, _sm_count(x.device))
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.dequant_matmul_launch(
+        x2.data_ptr(), xb, q.data.data_ptr(), q.scale.data_ptr(),
+        part.data_ptr() if part is not None else None, out.data_ptr(),
+        m, k, n, q.bits, gs, bm, splits, _stream()))
+    return out.reshape(*x.shape[:-1], n)
+
+
+# --------------------------------------------------------------------------
 # grouped dequant GEMV (+ gated combine)
 # --------------------------------------------------------------------------
 
@@ -309,12 +395,20 @@ def grouped_dequant_combine(x, data, scale, slot, rows, weights, *, bits: int,
 # paged flash decode
 # --------------------------------------------------------------------------
 
-# head dims and GQA group sizes the kernel is instantiated for: those of the
-# ported configs (g 4, hd 128) and of their smoke variants (g 1, hd 64)
+# head dims and GQA group sizes the kernels are instantiated for: those of
+# the ported configs (g 4 with hd 128 and 64) and of their smoke variants (g 1)
 FLASH_DECODE_HEAD_DIMS = (64, 128)
 FLASH_DECODE_GROUPS = (1, 4)
 # the most splits the combine pass takes (kMaxSplits in flash_decode.cu)
 FLASH_DECODE_MAX_SPLITS = 4096
+
+
+def _check_decode_heads(op: str, hq: int, hkv: int, hd: int, k, v) -> None:
+    _check(op, hq % hkv == 0 and hq // hkv in FLASH_DECODE_GROUPS,
+           f"Hq/Hkv = {hq}/{hkv} must be one of {FLASH_DECODE_GROUPS}")
+    _check(op, hd in FLASH_DECODE_HEAD_DIMS, f"hd={hd} not in {FLASH_DECODE_HEAD_DIMS}")
+    _check(op, k.dtype == v.dtype and k.dtype in (torch.bfloat16, torch.float32),
+           "K and V must both be bfloat16 or both float32")
 
 
 def decode_splits(b: int, hkv: int, maxp: int, slots: int) -> int:
@@ -329,16 +423,21 @@ def decode_splits(b: int, hkv: int, maxp: int, slots: int) -> int:
 _DECODE_BLOCKS: Dict[tuple, int] = {}
 
 
-def _decode_blocks_per_sm(lib, kv_bf16: int, g: int, hd: int, maxp: int) -> int:
-    """Pass-1 blocks one SM holds for this instantiation and table width,
-    as the CUDA runtime's occupancy calculator reports (cached)."""
-    key = (id(lib), kv_bf16, g, hd, maxp)
+def _blocks_per_sm(op: str, query, *args) -> int:
+    """Pass-1 blocks one SM holds, as `query(*args, &n)` (the CUDA runtime's
+    occupancy calculator for one instantiation) reports; cached."""
+    key = (op, id(query), *args)
     if key not in _DECODE_BLOCKS:
         n = ctypes.c_int(0)
-        _raise_on("paged_flash_decode", lib.paged_flash_decode_blocks_per_sm(
-            kv_bf16, g, hd, maxp, ctypes.byref(n)))
+        _raise_on(op, query(*args, ctypes.byref(n)))
         _DECODE_BLOCKS[key] = max(1, n.value)
     return _DECODE_BLOCKS[key]
+
+
+def _decode_blocks_per_sm(lib, kv_bf16: int, g: int, hd: int, maxp: int) -> int:
+    """Paged pass-1 blocks per SM for this instantiation and table width."""
+    return _blocks_per_sm("paged_flash_decode", lib.paged_flash_decode_blocks_per_sm,
+                          kv_bf16, g, hd, maxp)
 
 
 def paged_flash_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
@@ -371,12 +470,7 @@ def paged_flash_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Te
     _check(op, hd2 == hd, f"pages have hd={hd2}, q has hd={hd}")
     _check(op, table.shape[0] == b and lengths.shape[0] == b,
            f"table and lengths must have B={b} rows")
-    _check(op, hq % hkv == 0 and hq // hkv in FLASH_DECODE_GROUPS,
-           f"Hq/Hkv = {hq}/{hkv} must be one of {FLASH_DECODE_GROUPS}")
-    _check(op, hd in FLASH_DECODE_HEAD_DIMS, f"hd={hd} not in {FLASH_DECODE_HEAD_DIMS}")
-    _check(op, pages_k.dtype == pages_v.dtype
-           and pages_k.dtype in (torch.bfloat16, torch.float32),
-           "pages must both be bfloat16 or both float32")
+    _check_decode_heads(op, hq, hkv, hd, pages_k, pages_v)
     _check(op, table.dtype == torch.int32 and lengths.dtype == torch.int32,
            "table and lengths must be int32")
     _check(op, b > 0 and num_pages > 0 and maxp > 0, "empty batch, pool or table")
@@ -402,4 +496,68 @@ def paged_flash_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Te
         out.data_ptr(), o_part.data_ptr() if o_part is not None else None,
         ml_part.data_ptr() if ml_part is not None else None,
         b, hq, hkv, hd, num_pages, psz, maxp, splits, scale, float(softcap), _stream()))
+    return out
+
+
+# --------------------------------------------------------------------------
+# flash decode over a contiguous cache
+# --------------------------------------------------------------------------
+
+# tokens of one split unit of the contiguous kernel (the paged kernel's page)
+FLASH_DECODE_UNIT = 64
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token decode attention over a contiguous cache.
+
+        q        (B, Hq, hd)       current-token queries (bf16 or f32)
+        k, v     (B, S, Hkv, hd)   cache (bf16 or f32); query head h reads
+                                   kv head h // (Hq // Hkv)
+        lengths  (B,) int32        valid cache rows per slot
+        ->       (B, Hq, hd) float32
+
+    A length <= 0 masks every row, and the JAX oracle's softmax then weighs
+    all S rows alike: the result is the mean of V over S (the Pallas kernel
+    takes that mean over S padded to its block instead).  The plain version
+    repeats the kv heads, as the JAX package's wrapper does; the kernel reads
+    each K/V row in place, once for its GQA group, only below the length."""
+    op = "flash_decode"
+    if _route(op, q, k, v, lengths) == "torch":
+        _record(op, "torch")
+        hq, hkv = q.shape[1], k.shape[2]
+        if hkv != hq:
+            k = k.repeat_interleave(hq // hkv, dim=2)
+            v = v.repeat_interleave(hq // hkv, dim=2)
+        return ref.flash_decode_ref(q, k, v, lengths)
+    _check(op, q.dim() == 3 and k.dim() == 4 and lengths.dim() == 1,
+           "want q (B, Hq, hd), k and v (B, S, Hkv, hd), lengths (B,)")
+    b, hq, hd = q.shape
+    bk, s, hkv, hd2 = k.shape
+    _check(op, tuple(v.shape) == tuple(k.shape), "k and v differ")
+    _check(op, bk == b and lengths.shape[0] == b and hd2 == hd,
+           f"k/v {tuple(k.shape)} and lengths do not fit q {tuple(q.shape)}")
+    _check_decode_heads(op, hq, hkv, hd, k, v)
+    _check(op, lengths.dtype == torch.int32, "lengths must be int32")
+    _check(op, b > 0 and s > 0, "empty batch or cache")
+    _check_contig(op, q=q, k=k, v=v, lengths=lengths)
+    qb = _x_flag(op, q)
+    lib = build.library("flash_decode_contig")
+    _check(op, all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+           "q, k and v must be 16-byte aligned")
+    out = torch.empty((b, hq, hd), dtype=torch.float32, device=q.device)
+    kvb = int(k.dtype == torch.bfloat16)
+    blocks = _blocks_per_sm(op, lib.flash_decode_blocks_per_sm, kvb, hq // hkv, hd)
+    units = -(-s // FLASH_DECODE_UNIT)
+    splits = decode_splits(b, hkv, units, blocks * _sm_count(q.device))
+    o_part = ml_part = None
+    if splits > 1:
+        o_part = torch.empty((b * hq, splits, hd), dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((b * hq, splits, 2), dtype=torch.float32, device=q.device)
+    _record(op, "cuda")
+    _raise_on(op, lib.flash_decode_launch(
+        q.data_ptr(), qb, k.data_ptr(), v.data_ptr(), kvb, lengths.data_ptr(),
+        out.data_ptr(), o_part.data_ptr() if o_part is not None else None,
+        ml_part.data_ptr() if ml_part is not None else None,
+        b, s, hq, hkv, hd, FLASH_DECODE_UNIT, splits, 1.0 / (hd ** 0.5), _stream()))
     return out

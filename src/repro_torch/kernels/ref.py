@@ -14,6 +14,13 @@ import torch
 from repro_torch.quant.quantize import QTensor, dequantize
 
 
+def dequant_matmul_ref(x: torch.Tensor, q: QTensor) -> torch.Tensor:
+    """y = x @ dequant(q) in float32 through the dense weight.  x (..., K);
+    q a K x N QTensor.  Returns (..., N) float32."""
+    w = dequantize(q, dtype=torch.float32)
+    return x.to(torch.float32) @ w
+
+
 def stacked_gating_ref(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     """logits[p] = x @ gates[p] in float32.  x (B, D); gates (P, D, E)."""
     return torch.einsum("bd,pde->pbe", x.to(torch.float32), gates.to(torch.float32))
@@ -78,6 +85,25 @@ def grouped_dequant_combine_ref(x, data, scale, slot, rows, weights, *,
     keep = (rows >= 0) & (rows < num_rows)
     contrib = weights.to(torch.float32)[:, None] * y
     return out.index_add_(0, rows[keep].to(torch.long), contrib[keep])
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, scale=None) -> torch.Tensor:
+    """Single-token decode attention over a contiguous cache: a masked
+    float32 softmax (masked logits -1e30).  q (B, H, hd); k/v (B, S, H, hd)
+    with the kv heads already expanded to H; lengths (B,).  A row with
+    length <= 0 masks every position, so its weights are uniform over all S
+    rows (the mean of V), as in the JAX oracle.  Returns (B, H, hd)
+    float32."""
+    hd = q.shape[-1]
+    s = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    logits = torch.einsum("bhd,bshd->bhs", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    mask = torch.arange(s, device=q.device)[None, None, :] < lengths.reshape(-1, 1, 1)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", w, v.to(torch.float32))
 
 
 def paged_flash_decode_ref(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,

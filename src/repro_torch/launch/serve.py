@@ -13,9 +13,13 @@ configs):
       --smoke --device cpu --backend hobbit --prompt-len 8 --new-tokens 8
 
   # paged KV with prefix sharing: a shared system prompt aliased across slots
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
-      --layers 4 --backend hobbit --paged-kv --shared-prefix 48 \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --layers 4 --backend hobbit --paged-kv --shared-prefix 48 \\
       --serve-requests 8 --max-batch 4
+
+  # the dense Granite-3.0-2B, full depth, resident weights on paged KV
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --backend dense --paged-kv --serve-requests 6 --max-batch 4
 
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
@@ -32,6 +36,7 @@ from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
 from repro_torch.core.simulator import HARDWARE, HobbitSimConfig, simulate_systems
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.kernels import ops as kops
 from repro_torch.quant.quantize import expert_nbytes
 from repro_torch.serving.api import BackendConfig, generate, make_backend
 from repro_torch.serving.batching import BatchingServer, Request
@@ -41,9 +46,9 @@ from repro_torch.weights import from_jax_params, load_checkpoint
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a MoE model through the unified InferenceBackend "
+        description="Serve a model through the unified InferenceBackend "
                     "API of the PyTorch port: --backend dense keeps all weights "
-                    "resident; --backend hobbit decodes through the "
+                    "resident; --backend hobbit decodes a MoE model through the "
                     "mixed-precision expert-offloading engine.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -123,13 +128,14 @@ def main(argv=None):
         cfg = dataclasses.replace(smoke_variant(cfg), dtype="float32")
     elif args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers).validate()
+    if kind == "hobbit" and cfg.moe is None:
+        raise SystemExit(f"--backend hobbit requires a MoE arch; {cfg.name} is dense "
+                         "(use --backend dense)")
     model = build_model(cfg)
     if args.ckpt_dir:
         params = from_jax_params(cfg, load_checkpoint(args.ckpt_dir), device=dev)
     else:
         params = model.init(args.seed, device=dev)
-    if kind == "hobbit" and cfg.moe is None:
-        raise SystemExit("--backend hobbit requires a MoE arch")
 
     ecfg = EngineConfig(
         hi_slots=args.hi_slots, lo_slots=args.lo_slots,
@@ -209,6 +215,8 @@ def main(argv=None):
                                                for k, v in sim.items()},
                 "hw_profile": hw.name,
             })
+        else:
+            report["kernel_dispatch"] = kops.dispatch_counts()
         if args.paged_kv:
             bst = backend.stats()
             report["kv"] = {k: bst[k] for k in (

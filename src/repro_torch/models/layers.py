@@ -1,13 +1,14 @@
 """Layer library of the port: RMSNorm, RoPE, grouped-query attention for
 prefill and for one-token decode against a dense per-slot cache or a paged
-KV pool.
+KV pool, and the dense FFN.
 
 PyTorch twin of the JAX package's ``models/layers.py`` for the all-"attn"
-MoE model class (Mixtral / Phi-MoE shapes).  Plain tensor math, written as
-the reference writes it (``mha``): float32 scores and softmax, GQA without
-materialising repeated K/V heads.  Dense decode and paged prefill-chunk
-attention have no kernel, as in the reference; paged decode attention runs
-``kernels.ops.paged_flash_decode``.
+model class (Mixtral / Phi-MoE and Granite shapes).  Plain tensor math,
+written as the reference writes it (``mha``): float32 scores and softmax,
+GQA without materialising repeated K/V heads.  Dense decode and paged
+prefill-chunk attention have no kernel, as in the reference; paged decode
+attention runs ``kernels.ops.paged_flash_decode``, and an FFN weight that
+is a `QTensor` runs ``kernels.ops.dequant_matmul``.
 
 Conventions: activations (B, S, D) in the config dtype; q/k/v (B, S, H, hd);
 decode takes x (B, 1, D) and a cache {"k", "v"} of (B, Smax, Hkv, hd) that is
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.quant.quantize import QTensor
 
 NEG_INF = -1e30
 
@@ -227,12 +229,40 @@ def paged_attn_prefill_chunk(p, x, k_pages, v_pages, table, start, n,
 
 def activate(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """FFN activation in the reference's precision: SwiGLU (silu of the
-    first half in float32, times the second half) or GELU (tanh form)."""
+    first half in float32, times the second half), GELU (tanh form) or
+    squared ReLU, the last two taken in float32 and cast back."""
     if cfg.ffn_activation == "swiglu":
         g, u = torch.chunk(z, 2, dim=-1)
         return F.silu(g.to(torch.float32)).to(z.dtype) * u
     if cfg.ffn_activation == "gelu":
         return F.gelu(z.to(torch.float32), approximate="tanh").to(z.dtype)
-    raise NotImplementedError(
-        f"ffn_activation={cfg.ffn_activation!r} arrives with the remaining "
-        "model classes (ROADMAP Queue 1, item 7)")
+    if cfg.ffn_activation == "sq_relu":
+        return torch.square(F.relu(z.to(torch.float32))).to(z.dtype)
+    raise ValueError(f"unknown ffn_activation {cfg.ffn_activation!r}")
+
+
+# --------------------------------------------------------------------------
+# dense FFN (MoE lives in moe.py)
+# --------------------------------------------------------------------------
+
+def ffn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+    """{"wi": (D, 2F) for SwiGLU else (D, F), "wo": (F, D)} in the config
+    dtype."""
+    d, f = cfg.d_model, cfg.d_ff
+    dt = dtype_of(cfg)
+    wi_cols = 2 * f if cfg.ffn_activation == "swiglu" else f
+    return {"wi": dense_init((d, wi_cols), dt, gen, device),
+            "wo": dense_init((f, d), dt, gen, device)}
+
+
+def _matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w; a `QTensor` weight goes through the dequant-matmul kernel
+    (float32 out, cast back to x's dtype as the reference casts)."""
+    if isinstance(w, QTensor):
+        return kops.dequant_matmul(x, w).to(x.dtype)
+    return x @ w
+
+
+def ffn_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense FFN: wi, the activation, wo.  x (..., D) -> (..., D)."""
+    return _matmul(activate(_matmul(x, p["wi"]), cfg), p["wo"])

@@ -1,21 +1,25 @@
 """Model assembly of the port: config -> init / prefill / decode_step / logits.
 
-Covers the HOBBIT engine's model class: decoder-only, every layer a
-full-window "attn" layer with a MoE FFN (Mixtral / Phi-MoE shapes).  Other
-layer kinds raise NotImplementedError naming the ROADMAP slice that brings
-them.
+Covers decoder-only models whose every layer is a full-window "attn" layer
+with RMSNorm and either a MoE FFN in every layer (Mixtral / Phi-MoE, the
+HOBBIT engine's model class) or a dense FFN in every layer (Granite).
+Other configurations raise NotImplementedError naming the ROADMAP item
+that brings them.
 
 Parameters are a plain dict of tensors with a flat per-layer list::
 
     {"embed": (V_pad, D), "final_norm": {"scale": (D,)},
      "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "ffn_norm",
-                 "ffn": {"router": (D, E), "experts": {"wi", "wo"}}}, ...]}
+                 "ffn": {"router": (D, E), "experts": {"wi", "wo"}}   (MoE)
+                     or {"wi", "wo"}}, ...]}                          (dense)
 
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
-eagerly, so the port keeps the flat view ``unstack_layers`` gives there).
-The decode cache is a list of per-layer {"k", "v"} (B, max_len, Hkv, hd)
-buffers updated in place, or a `kv_pages.PagedKVPool` (``init_cache(...,
-paged=True)``) driven by ``decode_step_paged`` / ``prefill_chunk_paged``.
+eagerly, so the port keeps the flat view ``unstack_layers`` gives there).  A
+dense FFN weight may be a `QTensor` (``quant.quantize_tree``); its products
+then run the dequant-matmul kernel.  The decode cache is a list of per-layer
+{"k", "v"} (B, max_len, Hkv, hd) buffers updated in place, or a
+`kv_pages.PagedKVPool` (``init_cache(..., paged=True)``) driven by
+``decode_step_paged`` / ``prefill_chunk_paged``.
 """
 
 from __future__ import annotations
@@ -40,17 +44,23 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only all-'attn' decoder layers are ported so far; "
             "sliding-window, MLA, SSM, hybrid and encoder models arrive with "
             "ROADMAP Queue 1, item 7 (remaining model classes)")
-    if not all(cfg.layer_is_moe()) or cfg.moe is None:
+    moe = cfg.layer_is_moe()
+    if any(moe) and not all(moe):
         raise NotImplementedError(
-            f"{cfg.name}: dense-FFN layers arrive with ROADMAP Queue 1, item 7 "
-            "(remaining model classes)")
-    if cfg.moe.num_shared_experts:
+            f"{cfg.name}: models mixing dense and MoE FFN layers arrive with "
+            "ROADMAP Queue 1, item 7 (remaining model classes)")
+    if all(moe) and cfg.moe.num_shared_experts:
         raise NotImplementedError(
             f"{cfg.name}: shared experts arrive with ROADMAP Queue 1, item 7")
-    if cfg.frontend is not None or cfg.final_logit_softcap or cfg.scale_embedding:
+    if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: frontends, logit softcap and embedding scaling arrive "
-            "with ROADMAP Queue 1, item 7")
+            f"{cfg.name}: norm_type={cfg.norm_type!r} (Nemotron-4-15B's layernorm) "
+            "arrives with ROADMAP Queue 1, item 7")
+    if cfg.frontend is not None or cfg.final_logit_softcap or cfg.scale_embedding \
+            or cfg.sandwich_norm or cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: frontends, logit softcap, embedding scaling, sandwich "
+            "norms and qk-norm arrive with ROADMAP Queue 1, item 7")
 
 
 def supports_paged_kv(cfg: ModelConfig) -> bool:
@@ -60,13 +70,22 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
             and all(k == "attn" for k in cfg.layer_kinds()))
 
 
+def _ffn(p, h, cfg: ModelConfig, token_mask=None):
+    """The layer's FFN on normed h: (y, aux loss).  MoE layers (a router in
+    `p`) take the live-token mask (dead slots and pads take no dispatch
+    capacity); dense layers have no aux loss."""
+    if "router" in p:
+        return moe_lib.moe_forward(p, h, cfg, token_mask=token_mask)
+    return layers.ffn_forward(p, h, cfg), None
+
+
 def _layer_decode_paged(p, x, kp, vp, table, positions, active, cfg: ModelConfig):
     """One-token layer step against paged KV; `active` doubles as the MoE
     token mask so released slots take no dispatch capacity."""
     h = layers.apply_norm(p["pre_norm"], x, cfg)
     x = x + layers.paged_attn_decode(p["attn"], h, kp, vp, table, positions, active, cfg)
     h = layers.apply_norm(p["ffn_norm"], x, cfg)
-    y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=active)
+    y, _ = _ffn(p["ffn"], h, cfg, token_mask=active)
     return x + y
 
 
@@ -78,7 +97,7 @@ def _layer_chunk_paged(p, x, kp, vp, table, start, n, wstart, valid_flat,
     x = x + layers.paged_attn_prefill_chunk(p["attn"], h, kp, vp, table, start, n, cfg,
                                             wstart=wstart)
     h = layers.apply_norm(p["ffn_norm"], x, cfg)
-    y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=valid_flat)
+    y, _ = _ffn(p["ffn"], h, cfg, token_mask=valid_flat)
     return x + y
 
 
@@ -113,12 +132,13 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.dense_init((cfg.d_model, self.v_pad), dt,
                                                   gen, dev)
-        for _ in range(cfg.num_layers):
+        for is_moe in cfg.layer_is_moe():
             params["layers"].append({
                 "pre_norm": layers.norm_init(cfg, dev),
                 "attn": layers.attn_init(cfg, gen, dev),
                 "ffn_norm": layers.norm_init(cfg, dev),
-                "ffn": moe_lib.moe_init(cfg, gen, dev),
+                "ffn": (moe_lib.moe_init(cfg, gen, dev) if is_moe
+                        else layers.ffn_init(cfg, gen, dev)),
             })
         return params
 
@@ -148,9 +168,10 @@ class Model:
             out, kv = layers.attn_forward(p["attn"], h, positions, cfg)
             x = x + out
             h = layers.apply_norm(p["ffn_norm"], x, cfg)
-            y, a = moe_lib.moe_forward(p["ffn"], h, cfg)
+            y, a = _ffn(p["ffn"], h, cfg)
             x = x + y
-            aux = aux + a
+            if a is not None:
+                aux = aux + a
             kvs.append(kv)
         return x, kvs, aux
 
@@ -207,7 +228,7 @@ class Model:
             h = layers.apply_norm(p["pre_norm"], x, cfg)
             x = x + layers.attn_decode(p["attn"], h, c, positions, cfg)
             h = layers.apply_norm(p["ffn_norm"], x, cfg)
-            y, _ = moe_lib.moe_forward(p["ffn"], h, cfg, token_mask=active)
+            y, _ = _ffn(p["ffn"], h, cfg, token_mask=active)
             x = x + y
         return self.logits(params, x)[:, 0, :]
 

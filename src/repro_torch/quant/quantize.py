@@ -16,7 +16,7 @@ quantizes expert by expert on the card).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -150,6 +150,47 @@ def dequantize(q: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     g = k // q.group_size
     w = codes.reshape(*lead, g, q.group_size, n) * q.scale.unsqueeze(-2)
     return w.reshape(*lead, k, n).to(dtype)
+
+
+def quantize_tree(tree, bits: int = 8, group_size: int = DEFAULT_GROUP,
+                  predicate: Optional[Callable[[Tuple[str, ...], torch.Tensor], bool]] = None):
+    """Quantize every >=2-D float tensor leaf of a nested dict / list / tuple
+    tree (optionally filtered by path); the tree's structure is kept.
+
+    A leaf is left as it is when it is not a tensor (a `QTensor` included),
+    has fewer than 2 dims, is not floating point, is rejected by
+    ``predicate(path, leaf)``, or has a contraction dim (dim -2) that
+    `group_size` does not divide — the last without a word, as in the JAX
+    package.  `path` is the leaf's position as a tuple of strings (dict keys,
+    list and tuple indices as decimal strings); the JAX package passes a JAX
+    key path instead, so a predicate that tests ``"ffn" in str(path)`` reads
+    the same on both."""
+
+    def _q(path: Tuple[str, ...], leaf: Any):
+        if isinstance(leaf, dict):
+            return {k: _q(path + (str(k),), v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return type(leaf)(_q(path + (str(i),), v) for i, v in enumerate(leaf))
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2:
+            return leaf
+        if not leaf.is_floating_point():
+            return leaf
+        if predicate is not None and not predicate(path, leaf):
+            return leaf
+        if leaf.shape[-2] % group_size != 0:
+            return leaf
+        return quantize(leaf, bits=bits, group_size=group_size)
+
+    return _q((), tree)
+
+
+def quantization_error(w: torch.Tensor, bits: int, group_size: int = DEFAULT_GROUP) -> float:
+    """Relative Frobenius reconstruction error (for tests / calibration)."""
+    wr = dequantize(quantize(w, bits=bits, group_size=group_size))
+    wf = w.to(torch.float32)
+    num = torch.linalg.norm(wf - wr)
+    den = torch.linalg.norm(wf) + 1e-12
+    return float(num / den)
 
 
 def expert_nbytes(d_model: int, d_ff: int, bits: int, n_matrices: int = 3,

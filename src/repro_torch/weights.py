@@ -8,7 +8,10 @@ nested tree (lists for integer path components) of float arrays.
 
 ``from_jax_params(cfg, tree)`` turns that tree — or the reference's live
 parameters mapped to numpy — into the port's flat per-layer layout, so the
-port and the reference compute the same function.
+port and the reference compute the same function.  A quantized leaf (the
+reference's ``quantize_tree`` output: an object with ``data``, ``scale``,
+``bits``, ``group_size`` and ``orig_k``, its arrays stacked over the scanned
+blocks) becomes one `QTensor` per layer.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import dtype_of
+from repro_torch.quant.quantize import QTensor
 
 _BF16 = "__bf16__"
 
@@ -100,9 +104,16 @@ def _flat_layers(cfg: ModelConfig, tree) -> List[Dict[str, Any]]:
     return out
 
 
+def _is_quantized(node) -> bool:
+    return all(hasattr(node, a) for a in ("data", "scale", "bits", "group_size", "orig_k"))
+
+
 def _index_tree(node, i: int):
     if isinstance(node, dict):
         return {k: _index_tree(v, i) for k, v in node.items()}
+    if _is_quantized(node):
+        return QTensor(np.asarray(node.data)[i], np.asarray(node.scale)[i], int(node.bits),
+                       int(node.group_size), int(node.orig_k))
     return np.asarray(node)[i]
 
 
@@ -110,6 +121,11 @@ def _to_torch(node, dtype: torch.dtype, device: torch.device, f32_keys=()):
     if isinstance(node, dict):
         return {k: _to_torch(v, torch.float32 if k in f32_keys else dtype, device,
                              f32_keys) for k, v in node.items()}
+    if _is_quantized(node):
+        # int8 codes and float32 scales as they are, whatever the config dtype
+        data = torch.from_numpy(np.array(node.data, dtype=np.int8)).to(device)
+        scale = torch.from_numpy(np.array(_as_f32(node.scale))).to(device)
+        return QTensor(data, scale, int(node.bits), int(node.group_size), int(node.orig_k))
     return torch.from_numpy(np.array(_as_f32(node))).to(device=device, dtype=dtype)
 
 

@@ -14,6 +14,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.kernels import ops, ref
+from repro_torch.quant.quantize import QTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -74,7 +75,8 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; chip_smoke.py runs the kernels")
     for fn in ("gating_topk_ref", "stacked_gating_ref", "grouped_dequant_matmul_ref",
-               "grouped_dequant_combine_ref", "paged_flash_decode_ref"):
+               "grouped_dequant_combine_ref", "paged_flash_decode_ref", "dequant_matmul_ref",
+               "flash_decode_ref"):
         monkeypatch.setattr(ref, fn, _fail_if_called)
     ops.reset_dispatch_counts()
     with FakeTensorMode():
@@ -97,6 +99,11 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
                 torch.empty(3, 64, 2, 128, device=dev, dtype=torch.bfloat16),
                 torch.empty(3, 64, 2, 128, device=dev, dtype=torch.bfloat16),
                 torch.empty(2, 2, device=dev, dtype=torch.int32), slot),
+            lambda: ops.dequant_matmul(x, QTensor(data[0], scale[0], 4, 64, 128)),
+            lambda: ops.flash_decode(
+                torch.empty(2, 8, 128, device=dev, dtype=torch.bfloat16),
+                torch.empty(2, 64, 2, 128, device=dev, dtype=torch.bfloat16),
+                torch.empty(2, 64, 2, 128, device=dev, dtype=torch.bfloat16), slot),
         ]
         for call in calls:
             with pytest.raises(RuntimeError):

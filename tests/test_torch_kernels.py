@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the five serving-path kernels against the JAX
-package's ops, in both of its modes: ``mode="pallas"`` (the Pallas kernel
-body in interpret mode) and ``mode="xla"`` (its jnp oracle).  Tolerance
-rtol 1e-5 / atol 1e-4, the tests/test_kernels.py convention; the paged
-flash-decode cases use that file's own tolerances (1e-5 for float32 pages,
-3e-2 for bfloat16).  Inputs are made with numpy from a seed and handed to
-both sides.
+"""Plain PyTorch versions of the seven kernels against the JAX package's
+ops, in both of its modes: ``mode="pallas"`` (the Pallas kernel body in
+interpret mode) and ``mode="xla"`` (its jnp oracle).  Tolerance rtol 1e-5 /
+atol 1e-4, the tests/test_kernels.py convention (atol 1e-3 where that file
+accumulates over K = 1024); the flash-decode cases use that file's own
+tolerances (1e-5 for float32 K/V, 3e-2 for bfloat16).  Inputs are made with
+numpy from a seed and handed to both sides.
 
 The CUDA kernels cannot run here (no nvcc, no card); chip_smoke.py holds
 each one against these plain versions on the card.
@@ -18,7 +18,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_decode import paged_flash_decode_pallas
+from repro.quant.quantize import quantize as jquantize
 from repro_torch.kernels import ops
+from repro_torch.quant.quantize import QTensor
 
 torch.set_num_threads(2)
 RTOL, ATOL = 1e-5, 1e-4
@@ -84,6 +86,81 @@ def test_stacked_gating_matches_reference(mode, p, e):
     got = ops.stacked_gating(_t(x), _t(gates))
     assert got.shape == (p, 1, e) and got.dtype == torch.float32
     _close(got, want)
+
+
+# --------------------------------------------------------------------------
+# dense dequant-matmul (cases of tests/test_kernels.py's dequant section)
+# --------------------------------------------------------------------------
+def _dq_pair(mode, x, bits, group, w_shape, seed, x_dtype="float32"):
+    """(port's plain version, reference) for x @ dequant(quantize(w)): one
+    JAX QTensor, its arrays handed to the port's QTensor."""
+    w = np.random.default_rng(seed).normal(size=w_shape).astype(np.float32)
+    jq = jquantize(jnp.asarray(w), bits=bits, group_size=group)
+    q = QTensor(_t(np.array(jq.data)), _t(np.array(jq.scale)), bits, group, jq.orig_k)
+    jdt = jnp.bfloat16 if x_dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if x_dtype == "bfloat16" else torch.float32
+    want = jops.dequant_matmul(jnp.asarray(x, jdt), jq, mode=mode)
+    got = ops.dequant_matmul(_t(x).to(tdt), q)
+    assert got.dtype == torch.float32 and got.shape == tuple(want.shape)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m,k,n", [(8, 256, 128), (16, 512, 256), (8, 256, 384)])
+def test_dequant_matmul_matches_reference(mode, bits, m, k, n):
+    x = np.random.default_rng(m + k).normal(size=(m, k)).astype(np.float32)
+    got, want = _dq_pair(mode, x, bits, 128, (k, n), seed=bits)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,group", [(8, 64), (4, 128), (2, 32)])
+def test_dequant_matmul_dtypes_and_groups(mode, x_dtype, bits, group):
+    """bf16 x rounds alike on both sides before the float32 product."""
+    x = np.random.default_rng(3).normal(size=(8, 256)).astype(np.float32)
+    got, want = _dq_pair(mode, x, bits, group, (256, 128), seed=3, x_dtype=x_dtype)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dequant_matmul_multi_kstep_accumulation(mode):
+    x = np.random.default_rng(5).normal(size=(8, 1024)).astype(np.float32)
+    got, want = _dq_pair(mode, x, 4, 128, (1024, 128), seed=5)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k,n,bits", [(5, 384, 96, 8), (1, 256, 100, 4), (7, 128, 36, 2)])
+def test_dequant_matmul_ragged_shapes(mode, m, k, n, bits):
+    """M, N and K off the Pallas blocks: the reference pads, the port's
+    kernel masks the edge."""
+    x = np.random.default_rng(7).normal(size=(m, k)).astype(np.float32)
+    got, want = _dq_pair(mode, x, bits, 128 if k % 128 == 0 else 64, (k, n), seed=7)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dequant_matmul_leading_batch_dims(mode):
+    x = np.random.default_rng(9).normal(size=(2, 3, 256)).astype(np.float32)
+    got, want = _dq_pair(mode, x, 4, 128, (256, 128), seed=9)
+    assert got.shape == (2, 3, 128)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,bits,want", [(4, 2048, 16384, 4, 8), (4, 8192, 2048, 4, 32),
+                                             (1, 8192, 2048, 4, 64), (64, 2048, 16384, 4, 1),
+                                             (64, 8192, 2048, 4, 2), (256, 8192, 2048, 4, 1)])
+def test_dequant_mm_splits_fill_the_card(m, k, n, bits, want):
+    """Granite's FFN shapes at group 128 on 132 SMs: decode (M <= 4) splits K
+    in whole groups until the grid holds ~8 blocks per SM, with the float32
+    partials under a quarter of the code bytes; prefill rarely splits."""
+    s = ops.dequant_mm_splits(m, k, n, bits, 128, 132)
+    assert s == want and 1 <= s <= k // 128
+    per = -(-(k // 128) // s)
+    assert (s - 1) * per < k // 128              # no empty split
+    assert ops.dequant_mm_rows(m) == (4 if m <= 4 else 16)
 
 
 # --------------------------------------------------------------------------
@@ -313,6 +390,79 @@ def test_decode_splits_fill_the_card(b, hkv, maxp, want):
     pass-1 grid fills an H100's 132 SMs at 8 resident blocks each."""
     s = ops.decode_splits(b, hkv, maxp, 8 * 132)
     assert s == want and 1 <= s <= maxp
+
+
+# --------------------------------------------------------------------------
+# flash decode over a contiguous cache (cases of tests/test_kernels.py)
+# --------------------------------------------------------------------------
+def _fd_inputs(b, s, hq, hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, hd)).astype(np.float32))
+
+
+def _fd_pair(mode, q, k, v, lengths, dtype="float32", block_s=128):
+    """(port's plain version, reference ops.flash_decode) on the same
+    inputs; the reference repeats the kv heads itself."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    lengths = np.asarray(lengths, np.int32)
+    want = jops.flash_decode(*[jnp.asarray(a, jdt) for a in (q, k, v)], jnp.asarray(lengths),
+                             mode=mode, block_s=block_s)
+    got = ops.flash_decode(*[_t(a).to(tdt) for a in (q, k, v)], _t(lengths))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,s,h,hd", [(2, 512, 4, 64), (1, 256, 2, 128), (3, 1024, 8, 64)])
+def test_flash_decode_matches_reference(mode, b, s, h, hd):
+    q, k, v = _fd_inputs(b, s, h, h, hd, seed=b * 100 + s)
+    lengths = np.random.default_rng(b * 100 + s).integers(1, s + 1, (b,))
+    got, want = _fd_pair(mode, q, k, v, lengths)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_dtypes(mode, dtype):
+    q, k, v = _fd_inputs(2, 512, 4, 4, 64, seed=42)
+    got, want = _fd_pair(mode, q, k, v, [100, 512], dtype=dtype)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_flash_decode_gqa_and_ragged_cache(mode):
+    """GQA (8 query heads on 2 kv heads) and S = 300 off the 128-row block."""
+    q, k, v = _fd_inputs(2, 300, 8, 2, 64, seed=7)
+    got, want = _fd_pair(mode, q, k, v, [300, 17])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_flash_decode_length_one_in_a_long_cache(mode):
+    q, k, v = _fd_inputs(1, 512, 2, 2, 64, seed=9)
+    got, want = _fd_pair(mode, q, k, v, [1])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[0], v[0, 0], rtol=1e-6, atol=1e-6)   # g = 1
+
+
+@pytest.mark.parametrize("s", [256, 300])
+def test_flash_decode_length_zero_is_the_mean_of_v(s):
+    """Length 0 masks every row: the JAX oracle's softmax weighs all S rows
+    alike, and the port follows it (the Pallas kernel averages over S padded
+    to its block instead, which differs when S = 300)."""
+    q, k, v = _fd_inputs(2, s, 4, 2, 64, seed=11)
+    got, want = _fd_pair("xla", q, k, v, [0, 5])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0], np.repeat(v[0].mean(0), 2, axis=0), atol=1e-5)
+    want_ref = jref.flash_decode_ref(*[jnp.asarray(a) for a in
+                                       (q, np.repeat(k, 2, 2), np.repeat(v, 2, 2))],
+                                     jnp.asarray([0, 5], jnp.int32))
+    np.testing.assert_allclose(got, np.asarray(want_ref), rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------
