@@ -67,10 +67,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# float32 rate outside the tensor cores (the kernels run float32 FMAs)
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the float32
+# rate outside the tensor cores (float32 FMAs) and the dense bf16
+# tensor-core rate (the flash-decode kernels' bf16 K/V products)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SEED = 0
 ARCH = "mixtral-8x7b"
 LAYERS = 4
@@ -129,11 +131,11 @@ def graph_ms(fn, *, launches: int = 20, replays: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and float32
-    operations over the card's float32 peak."""
+def bound(nbytes: int, flops: int, peak: float = F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations over the card's peak for their type (float32 by default)."""
     t_b = nbytes / HBM_BPS * 1e3
-    t_o = flops / F32_FLOPS * 1e3
+    t_o = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -539,7 +541,7 @@ def _paged_decode_row(dev, g) -> dict:
         err = max(err, _paged_check(f"paged_flash_decode ({key})", args))
         out = ops.paged_flash_decode(*args)
         moved = _paged_bytes(q, pk, table, ln, out)
-        bms, by = bound(moved, 4 * 32 * 128 * sum(sh["lengths"]))
+        bms, by = bound(moved, 4 * 32 * 128 * sum(sh["lengths"]), BF16_FLOPS)
         ms = graph_ms(lambda: ops.paged_flash_decode(*args))
         call = cuda_ms(lambda: ops.paged_flash_decode(*args))
         plain = cuda_ms(lambda: ref.paged_flash_decode_ref(*args), warmup=1, iters=5)
@@ -548,18 +550,19 @@ def _paged_decode_row(dev, g) -> dict:
         lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
         blocks = ops._decode_blocks_per_sm(build.library("flash_decode"), 1, 4, 128,
                                            table.shape[1])
+        splits = ops.decode_splits(sh["b"], 8, table.shape[1],
+                                   blocks * ops._sm_count(q.device))
+        stages = ops.decode_stages(1, 128)
         per[key] = dict(b=sh["b"], tokens=sh["lengths"], maxp=table.shape[1],
-                        blocks_per_sm=blocks,
-                        splits=ops.decode_splits(sh["b"], 8, table.shape[1],
-                                                 blocks * ops._sm_count(q.device)),
-                        ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                        blocks_per_sm=blocks, splits=splits, stages=stages, ms=ms,
+                        call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=lib, library_max_abs_diff=lib_err,
                         gbps=moved / ms / 1e6)
         print(f"[kernels] paged_flash_decode ({key}) B={sh['b']} tokens={sh['lengths']}: "
               f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
               f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA on the "
-              f"pre-gathered view {lib:.4f} ms on the card, max |diff| {lib_err:.1e})",
-              flush=True)
+              f"pre-gathered view {lib:.4f} ms on the card, max |diff| {lib_err:.1e}); "
+              f"{blocks} blocks/SM, {splits} splits, {stages} stages", flush=True)
         del args, q, pk, pv, table, ln, out, sdpa
         torch.cuda.empty_cache()
 
@@ -586,10 +589,21 @@ def _paged_decode_row(dev, g) -> dict:
     qf = q.float()
     err = max(err, _paged_check("paged_flash_decode f32 q, bf16 pages", (qf, pk, pv, table, ln)))
     n_checked += 5
+    for psz in (16, 128):       # a 64-token tile spans 4 pages / half a page
+        args = _paged_case(dev, g, 4, 32, 8, 128, psz, [63, 64, 65, 129], maxp=-(-129 // psz),
+                           num_pages=4 * -(-129 // psz))
+        err = max(err, _paged_check(f"paged_flash_decode psz {psz}, tile-boundary lengths",
+                                    args))
+        err = max(err, _paged_check(f"paged_flash_decode psz {psz} softcap 5", args,
+                                    softcap=5.0))
+        n_checked += 2
+    err = max(err, _paged_nan_check(dev, g))
+    n_checked += 1
     print(f"[kernels] paged_flash_decode: {n_checked} further variants (bf16/f32 pages, "
           f"g {ops.FLASH_DECODE_GROUPS}, hd {ops.FLASH_DECODE_HEAD_DIMS}, softcap 5, "
-          "lengths 0/1/page boundary/past the table, aliased rows) agree with the "
-          "plain version", flush=True)
+          "lengths 0/1/page boundary/past the table, aliased rows, psz 16/128 with "
+          "lengths 63/64/65 around the 64-token tile, NaN past the lengths) agree with "
+          "the plain version", flush=True)
     _page_fault()
     a = per["a"]
     return dict(name="paged_flash_decode", route="cuda",
@@ -602,6 +616,42 @@ def _paged_decode_row(dev, g) -> dict:
                 shapes=per, tolerance="rtol 1e-4 atol 1e-4")
 
 
+def _paged_nan_check(dev, g) -> float:
+    """Rows past each slot's length and the pages no slot uses hold NaN: the
+    kernel never reads them (a tile's rows past the length repeat a valid
+    row), so its output is finite and matches the plain version.  The plain
+    version weighs masked rows 0 but 0 x NaN is NaN, so it runs on a copy
+    with those rows zero-filled when its output on the poisoned pool is not
+    finite."""
+    from repro_torch.kernels import ops, ref
+    q, pk, pv, table, ln = _paged_case(dev, g, 4, 32, 8, 128, 16, [0, 37, 64, 65], maxp=6,
+                                       num_pages=30)
+    _, psz, _, _ = pk.shape
+    poison = torch.ones(pk.shape[:2], dtype=torch.bool)           # (P, psz) rows
+    rows = table.tolist()
+    for r, n in enumerate(ln.tolist()):
+        for t in range(n):
+            poison[rows[r][t // psz], t % psz] = False
+    poison = poison.to(dev)
+    pk = pk.masked_fill(poison[:, :, None, None], float("nan"))
+    pv = pv.masked_fill(poison[:, :, None, None], float("nan"))
+    got = ops.paged_flash_decode(q, pk, pv, table, ln)
+    want = ref.paged_flash_decode_ref(q, pk, pv, table, ln)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "paged_flash_decode: NaN past the lengths "
+                                           "reached the output")
+    note = "on the poisoned pool"
+    if not bool(torch.isfinite(want).all()):
+        want = ref.paged_flash_decode_ref(q, pk.nan_to_num(0.0), pv.nan_to_num(0.0), table, ln)
+        note = "on a zero-filled copy (on the poisoned pool it gives NaN)"
+    err = _close("paged_flash_decode NaN past the lengths", got, want, **PAGED_TOL)
+    check(bool((got[0] == 0).all()), "paged_flash_decode: length-0 row with NaN pages")
+    print(f"[kernels] paged_flash_decode NaN-poisoned pool ({int(poison.sum())} of "
+          f"{poison.numel()} rows): finite, max abs err {err:.1e} against the plain "
+          f"version {note}", flush=True)
+    return err
+
+
 _PAGE_FAULT_CHILD = r"""
 import os, sys
 sys.path.insert(0, sys.argv[1])
@@ -610,7 +660,8 @@ from repro_torch.kernels import ops
 dev = torch.device("cuda", 0)
 q = torch.ones((2, 8, 128), dtype=torch.bfloat16, device=dev)
 pk = torch.zeros((4, 64, 2, 128), dtype=torch.bfloat16, device=dev)
-table = torch.tensor([[0, 1], [2, int(sys.argv[2])]], dtype=torch.int32, device=dev)
+row1 = [int(x) for x in sys.argv[2].split(",")]
+table = torch.tensor([[0, 1, 0], row1], dtype=torch.int32, device=dev)
 ln = torch.tensor([70, 70], dtype=torch.int32, device=dev)
 try:
     ops.paged_flash_decode(q, pk, pk, table, ln)
@@ -626,21 +677,27 @@ os._exit(0)
 
 def _page_fault() -> None:
     """A page id past the pool must abort the paged flash-decode kernel, as
-    it makes the plain version raise IndexError."""
-    proc = subprocess.Popen([sys.executable, "-c", _PAGE_FAULT_CHILD,
-                             os.path.join(ROOT, "src"), "4"],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        out, _ = proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        fail("paged_flash_decode: page-fault check timed out")
-    tail = out.strip().splitlines()[-1] if out.strip() else ""
-    check(proc.returncode == 3 and tail.startswith("ABORTED"),
-          f"paged_flash_decode with page 4 of 4 did not abort (exit {proc.returncode}): "
-          f"{tail}")
-    print(f"[kernels] paged_flash_decode page 4 of 4: {tail}", flush=True)
+    it makes the plain version raise IndexError: in a page the slot reads
+    (table row [2, 4, 0], 70 tokens in 64-token pages) and in one it does not
+    read ([2, 3, 4]), which the block that owns that share of the row checks."""
+    cases = ("2,4,0", "2,3,4")
+    procs = [(row, subprocess.Popen([sys.executable, "-c", _PAGE_FAULT_CHILD,
+                                     os.path.join(ROOT, "src"), row],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for row in cases]
+    for row, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail("paged_flash_decode: page-fault check timed out")
+        tail = out.strip().splitlines()[-1] if out.strip() else ""
+        check(proc.returncode == 3 and tail.startswith("ABORTED"),
+              f"paged_flash_decode with table row [{row}] in a pool of 4 pages did not "
+              f"abort (exit {proc.returncode}): {tail}")
+        print(f"[kernels] paged_flash_decode table row [{row}], pool of 4 pages: {tail}",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -768,6 +825,33 @@ def _flash_check(name, args) -> float:
     return _close(name, got, want, **FLASH_TOL)
 
 
+def _flash_nan_check(dev, g) -> float:
+    """Cache rows past each slot's length hold NaN (slots of length <= 0
+    weigh every row and keep theirs): the kernel never reads them, so its
+    output is finite and matches the plain version, which runs on a
+    zero-filled copy when 0 x NaN makes its own output NaN."""
+    from repro_torch.kernels import ops
+    q, k, v, ln = _flash_case(dev, g, 5, 320, 32, 8, 128, [1, 63, 65, 300, 0])
+    pos = torch.arange(k.shape[1], device=dev)[None, :]
+    poison = (pos >= ln[:, None]) & (ln[:, None] > 0)
+    k = k.masked_fill(poison[:, :, None, None], float("nan"))
+    v = v.masked_fill(poison[:, :, None, None], float("nan"))
+    got = ops.flash_decode(q, k, v, ln)
+    want = _flash_plain(q, k, v, ln)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "flash_decode: NaN past the lengths reached "
+                                           "the output")
+    note = "on the poisoned cache"
+    if not bool(torch.isfinite(want).all()):
+        want = _flash_plain(q, k.nan_to_num(0.0), v.nan_to_num(0.0), ln)
+        note = "on a zero-filled copy (on the poisoned cache it gives NaN)"
+    err = _close("flash_decode NaN past the lengths", got, want, **FLASH_TOL)
+    print(f"[kernels] flash_decode NaN-poisoned cache ({int(poison.sum())} of "
+          f"{poison.numel()} rows): finite, max abs err {err:.1e} against the plain "
+          f"version {note}", flush=True)
+    return err
+
+
 def _flash_bytes(q, k, lengths, out) -> int:
     """K/V bytes of the rows each slot reads (min(length, S); all S for a
     length <= 0, whose weights are uniform), read once, plus q, lengths and
@@ -783,7 +867,7 @@ def _flash_decode_row(dev, g) -> dict:
     4096 and (c) 1 x 32768 rows at hd 128 (the paged kernel's (b) and (c)),
     then the edge cases and every compiled variant.  Yardstick: SDPA with
     enable_gqa on a (B, H, S, hd) view transposed beforehand (not timed)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     shapes = {
         "a": dict(b=4, s=128, hd=64, lengths=[70, 95, 112, 57]),
@@ -799,7 +883,7 @@ def _flash_decode_row(dev, g) -> dict:
         out = ops.flash_decode(*args)
         moved = _flash_bytes(q, k, ln, out)
         rows = sum(min(n, sh["s"]) for n in sh["lengths"])
-        bms, by = bound(moved, 4 * 32 * sh["hd"] * rows)
+        bms, by = bound(moved, 4 * 32 * sh["hd"] * rows, BF16_FLOPS)
         ms = graph_ms(lambda: ops.flash_decode(*args))
         call = cuda_ms(lambda: ops.flash_decode(*args))
         plain = cuda_ms(lambda: _flash_plain(*args), warmup=1, iters=5)
@@ -813,14 +897,22 @@ def _flash_decode_row(dev, g) -> dict:
                                                   enable_gqa=True)
         lib = graph_ms(sdpa)
         lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
-        per[key] = dict(b=sh["b"], s=sh["s"], hd=sh["hd"], tokens=sh["lengths"], ms=ms,
+        blocks = ops._blocks_per_sm("flash_decode",
+                                    build.library("flash_decode_contig").flash_decode_blocks_per_sm,
+                                    1, 4, sh["hd"])
+        splits = ops.decode_splits(sh["b"], 8, -(-sh["s"] // ops.FLASH_DECODE_UNIT),
+                                   blocks * ops._sm_count(q.device))
+        stages = ops.decode_stages(1, sh["hd"])
+        per[key] = dict(b=sh["b"], s=sh["s"], hd=sh["hd"], tokens=sh["lengths"],
+                        blocks_per_sm=blocks, splits=splits, stages=stages, ms=ms,
                         call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=lib, library_max_abs_diff=lib_err,
                         gbps=moved / ms / 1e6)
         print(f"[kernels] flash_decode ({key}) B={sh['b']} S={sh['s']} hd={sh['hd']}: "
               f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
               f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA "
-              f"{lib:.4f} ms on the card, max |diff| {lib_err:.1e})", flush=True)
+              f"{lib:.4f} ms on the card, max |diff| {lib_err:.1e}); {blocks} blocks/SM, "
+              f"{splits} splits, {stages} stages", flush=True)
         del args, q, k, v, ln, out, kt, vt
         torch.cuda.empty_cache()
 
@@ -839,6 +931,10 @@ def _flash_decode_row(dev, g) -> dict:
         args = _flash_case(dev, g, b, s, 32, 8, 64, lens)
         err = max(err, _flash_check(f"flash_decode {name}", args))
         n_checked += 1
+    args = _flash_case(dev, g, 4, 200, 32, 8, 128, [63, 64, 65, 129])
+    err = max(err, _flash_check("flash_decode hd 128, lengths around the 64-token tile", args))
+    err = max(err, _flash_nan_check(dev, g))
+    n_checked += 2
     q, k, v, ln = _flash_case(dev, g, 2, 256, 8, 8, 128, [0, 200])
     got = ops.flash_decode(q, k, v, ln)
     torch.cuda.synchronize()
@@ -848,7 +944,8 @@ def _flash_decode_row(dev, g) -> dict:
     n_checked += 2
     print(f"[kernels] flash_decode: {n_checked} further variants (bf16/f32 K/V, g "
           f"{ops.FLASH_DECODE_GROUPS}, hd {ops.FLASH_DECODE_HEAD_DIMS}, lengths 0/1/past "
-          "S/negative, S off the tile, f32 q) agree with the plain version", flush=True)
+          "S/negative and 63/64/65 around the 64-token tile, S off the tile, f32 q, NaN "
+          "past the lengths) agree with the plain version", flush=True)
     a = per["a"]
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_decode_contig.cu",

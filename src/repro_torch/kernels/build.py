@@ -56,6 +56,7 @@ SIGNATURES = {
         "paged_flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
         "paged_flash_decode_blocks_per_sm": (_I, _I, _I, _I, _IP),
+        "flash_decode_stages": (_I, _I, _IP),
     },
     "flash_decode_contig": {
         "flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P,

@@ -52,3 +52,10 @@ extern "C" int paged_flash_decode_blocks_per_sm(int kv_bf16, int g, int hd, int 
   if (maxp <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<Blocks>(kv_bf16, g, hd, maxp, blocks);
 }
+
+// Ring stages of the pass-1 kernel for (kv_bf16, hd), shared by the paged
+// and the contiguous kernels (1: float32 K/V, one tile buffer).
+extern "C" int flash_decode_stages(int kv_bf16, int hd, int* stages) {
+  if (stages == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<Stages>(kv_bf16, 1, hd, stages);
+}

@@ -440,6 +440,16 @@ def _decode_blocks_per_sm(lib, kv_bf16: int, g: int, hd: int, maxp: int) -> int:
                           kv_bf16, g, hd, maxp)
 
 
+def decode_stages(kv_bf16: int, hd: int) -> int:
+    """Ring stages of the flash-decode pass-1 kernel for bf16 (or float32)
+    K/V at head dim `hd`, shared by the paged and the contiguous kernels; 1
+    for float32 K/V (a single tile buffer)."""
+    n = ctypes.c_int(0)
+    _raise_on("flash_decode_stages",
+              build.library("flash_decode").flash_decode_stages(kv_bf16, hd, ctypes.byref(n)))
+    return n.value
+
+
 def paged_flash_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
                        table: torch.Tensor, lengths: torch.Tensor, *, scale=None,
                        softcap: float = 0.0) -> torch.Tensor:

@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_decode import paged_flash_decode_pallas
 from repro.quant.quantize import quantize as jquantize
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.quant.quantize import QTensor
 
 torch.set_num_threads(2)
@@ -463,6 +463,154 @@ def test_flash_decode_length_zero_is_the_mean_of_v(s):
                                        (q, np.repeat(k, 2, 2), np.repeat(v, 2, 2))],
                                      jnp.asarray([0, 5], jnp.int32))
     np.testing.assert_allclose(got, np.asarray(want_ref), rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the Hopper flash-decode kernels' numeric scheme (csrc/flash_decode.cuh)
+# --------------------------------------------------------------------------
+RING_TILE, RING_WARPS = 64, 4          # tokens per ring stage, consumer warps
+RING_TOL = dict(rtol=1e-4, atol=1e-4)  # the card's tolerance for both kernels
+
+
+def _bf16_split(x):
+    """x = hi + lo with hi = bf16(x), lo = bf16(x - hi), as float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _ring_decode_emulation(q, k, v, lengths, *, unit, splits, softcap=0.0,
+                           uniform_empty=False, p_lo=True):
+    """The bf16 ring kernel's arithmetic in plain torch, on a slot-contiguous
+    logical view k, v (B, T, Hkv, hd) of bf16 values: q split hi/lo to bf16
+    (lo = 0 for a bf16 q), float32 dot products; per split (`unit`-token
+    pieces, as the kernel's page split), 64-token tiles in which warp w owns
+    tokens [16w, 16w + 16) and keeps its own online softmax (log2 domain, P
+    split hi/lo to bf16, l summing hi + lo); warps merged in warp order,
+    then the splits with weights from their maximum, o / max(l, 1e-30).
+    With p_lo=False, P is bf16 alone and l sums the float32 p (what a kernel
+    without the split does).
+    A length <= 0 gives zeros, or with uniform_empty every one of the T rows
+    at logit 0 (the contiguous kernel)."""
+    b, hq, hd = q.shape
+    t_all, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qh, ql = _bf16_split(q.float())
+    qh, ql = qh.reshape(b, hkv, g, hd), ql.reshape(b, hkv, g, hd)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / hd ** 0.5
+    out = torch.zeros((b, hkv, g, hd))
+    neg = -1e30
+    for s in range(b):
+        n = int(lengths[s])
+        uniform = n <= 0 and uniform_empty
+        n = t_all if uniform else max(0, min(n, t_all))
+        chunk = -(-(-(-n // unit)) // splits) * unit
+        parts = []
+        for sp in range(splits):
+            t0, t1 = min(sp * chunk, n), min((sp + 1) * chunk, n)
+            m = torch.full((RING_WARPS, hkv, g), neg)
+            lsum = torch.zeros((RING_WARPS, hkv, g))
+            o = torch.zeros((RING_WARPS, hkv, g, hd))
+            for tt in range(t0, t1, RING_TILE):
+                for w in range(RING_WARPS):
+                    r0 = tt + 16 * w
+                    if r0 >= t1:
+                        continue
+                    rows = torch.arange(r0, r0 + 16).clamp(max=t1 - 1)
+                    valid = torch.arange(r0, r0 + 16) < t1
+                    kt = kf[s, rows].permute(1, 0, 2)                 # (hkv, 16, hd)
+                    vt = vf[s, rows].permute(1, 0, 2)
+                    x = (torch.einsum("hgd,htd->hgt", qh[s], kt)
+                         + torch.einsum("hgd,htd->hgt", ql[s], kt)) * scale
+                    if softcap > 0:
+                        x = torch.tanh(x / softcap) * softcap
+                    x = torch.zeros_like(x) if uniform else x * 1.4426950408889634
+                    x = torch.where(valid, x, torch.full_like(x, neg))
+                    mn = torch.maximum(m[w], x.amax(-1))
+                    corr = torch.exp2(m[w] - mn)
+                    p = torch.where(valid, torch.exp2(x - mn[..., None]), torch.zeros_like(x))
+                    ph, pl = _bf16_split(p)
+                    if not p_lo:
+                        pl = torch.zeros_like(pl)
+                    lsum[w] = lsum[w] * corr + ((ph + pl).sum(-1) if p_lo else p.sum(-1))
+                    m[w] = mn
+                    o[w] = (o[w] * corr[..., None] + torch.einsum("hgt,htd->hgd", ph, vt)
+                            + torch.einsum("hgt,htd->hgd", pl, vt))
+            mx = m.amax(0)
+            c = torch.exp2(m - mx)
+            acc, tot = torch.zeros((hkv, g, hd)), torch.zeros((hkv, g))
+            for w in range(RING_WARPS):
+                acc = acc + o[w] * c[w][..., None]
+                tot = tot + lsum[w] * c[w]
+            parts.append((mx, tot, acc))
+        if splits == 1:
+            mx, tot, acc = parts[0]
+            out[s] = acc / tot.clamp(min=1e-30)[..., None]
+            continue
+        big = torch.stack([p[0] for p in parts]).amax(0)
+        acc, tot = torch.zeros((hkv, g, hd)), torch.zeros((hkv, g))
+        for mx, lt, ot in parts:              # in split order
+            c = torch.exp2(mx - big)
+            acc = acc + ot * c[..., None]
+            tot = tot + lt * c
+        out[s] = acc / tot.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hq, hd)
+
+
+def _ring_inputs(length, g, q_dtype, seed, psz=16, hkv=2, hd=64):
+    """Two slots (lengths `length` and length // 2) of bf16 K/V pages in a
+    permuted table, and the same tokens as a contiguous cache."""
+    rng = np.random.default_rng(seed)
+    lengths = [length, length // 2]
+    maxp = -(-length // psz)
+    num_pages = 2 * maxp
+    bf = lambda a: _t(a.astype(np.float32)).to(torch.bfloat16)   # noqa: E731
+    q = _t(rng.normal(size=(2, g * hkv, hd)).astype(np.float32))
+    q = q.to(torch.bfloat16) if q_dtype == "bfloat16" else q
+    pk = bf(rng.normal(size=(num_pages, psz, hkv, hd)))
+    pv = bf(rng.normal(size=(num_pages, psz, hkv, hd)))
+    table = _t(rng.permutation(num_pages).reshape(2, maxp).astype(np.int32))
+    k = pk[table.long()].reshape(2, maxp * psz, hkv, hd)
+    v = pv[table.long()].reshape(2, maxp * psz, hkv, hd)
+    return q, pk, pv, table, k, v, torch.tensor(lengths, dtype=torch.int32)
+
+
+RING_CASES = ([("paged", n, cap, qd, g) for n in (1, 37, 64, 65, 4096) for cap in (0.0, 5.0)
+               for qd in ("bfloat16", "float32") for g in (1, 4)]
+              + [("contiguous", n, 0.0, qd, g) for n in (1, 37, 64, 65, 4096)
+                 for qd in ("bfloat16", "float32") for g in (1, 4)])
+
+
+@pytest.mark.parametrize("kind,length,softcap,q_dtype,g", RING_CASES)
+def test_ring_decode_numeric_scheme_meets_card_tolerance(kind, length, softcap, q_dtype, g):
+    """The bf16 kernels' arithmetic (hi/lo bf16 P and q, per-warp online
+    softmax over 16-token subsets of 64-token tiles, warps then splits merged
+    in order) against the plain versions at the card's rtol/atol 1e-4, with
+    the split the card would pick at 2 blocks per SM on 132 SMs."""
+    q, pk, pv, table, k, v, lengths = _ring_inputs(length, g, q_dtype, seed=length + 7 * g)
+    units = table.shape[1]
+    splits = ops.decode_splits(2, 2, units, 2 * 132)
+    if kind == "paged":
+        want = ref.paged_flash_decode_ref(q, pk, pv, table, lengths, softcap=softcap)
+    else:
+        want = ref.flash_decode_ref(q, k.repeat_interleave(g, dim=2),
+                                    v.repeat_interleave(g, dim=2), lengths)
+    got = _ring_decode_emulation(q, k, v, lengths, unit=16, splits=splits, softcap=softcap,
+                                 uniform_empty=kind == "contiguous")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **RING_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_ring_decode_bf16_p_alone_misses_card_tolerance(g):
+    """Without the lo part, P rounded to bf16 (2^-9) breaks rtol/atol 1e-4 at
+    a short length, where |o| is ~0.1-0.2: the hi/lo split is needed."""
+    q, pk, pv, table, k, v, lengths = _ring_inputs(37, g, "bfloat16", seed=37 + 7 * g)
+    want = ref.paged_flash_decode_ref(q, pk, pv, table, lengths)
+    got = _ring_decode_emulation(q, k, v, lengths, unit=16, splits=1, p_lo=False)
+    err = (got - want).abs()
+    assert bool((err > RING_TOL["atol"] + RING_TOL["rtol"] * want.abs()).any())
+    split = _ring_decode_emulation(q, k, v, lengths, unit=16, splits=1)
+    np.testing.assert_allclose(split.numpy(), want.numpy(), **RING_TOL)
 
 
 # --------------------------------------------------------------------------
