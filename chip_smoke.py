@@ -15,10 +15,11 @@ and each printing its seconds:
                must abort the dequant kernels, and an out-of-range page id
                the paged flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
-  3c. dequant_matmul — the dense dequant-matmul kernel at Granite-3.0-2B's
-               FFN shapes (decode M = 1 / 4, prefill M = 64 / 256; 4-bit
-               codes, group 128, bf16 x), then bits 8/2, float32 x, ragged
-               M and N, leading dims;
+  3c. dequant_matmul — the dense dequant-matmul kernels at Granite-3.0-2B's
+               FFN shapes (decode M = 1 / 4 on the gemv kernel, prefill M =
+               64 / 256 on the tensor-core kernel; 4-bit codes, group 128,
+               bf16 x), then bits 8/2, float32 x, ragged M and N, groups
+               8-512, raw codes, leading dims, each with the kernel it took;
   3d. flash_decode — the contiguous flash-decode kernel at (a) Granite's
                serving shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (the
                paged kernel's shapes), then length 0 and 1, S off the tile,
@@ -707,30 +708,51 @@ def _page_fault() -> None:
 DQ_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _dq_case(dev, g, m, k, n, *, bits=4, group=128, lead=(), x_dtype=torch.bfloat16):
+def _dq_case(dev, g, m, k, n, *, bits=4, group=128, lead=(), x_dtype=torch.bfloat16,
+             raw=False, offset=False):
     """A seeded weight quantized on the card (quantize_tree's default group
-    128) and x of shape (*lead, m, k)."""
-    from repro_torch.quant.quantize import quantize
+    128) and x of shape (*lead, m, k); `raw` replaces the codes by seeded
+    random bytes (every two's-complement code, -8 and -128 included);
+    `offset` puts x, still contiguous, one element into its storage (not
+    16-byte aligned)."""
+    from repro_torch.quant.quantize import QTensor, quantize
     w = torch.randn((k, n), generator=g, device=dev) * 0.02
     x = torch.randn((*lead, m, k), generator=g, device=dev).to(x_dtype)
-    return x, quantize(w, bits=bits, group_size=group)
+    if offset:
+        buf = torch.empty(x.numel() + 1, dtype=x_dtype, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(x.shape)
+    q = quantize(w, bits=bits, group_size=group)
+    if raw:
+        data = torch.randint(-128, 128, tuple(q.data.shape), generator=g, device=dev,
+                             dtype=torch.int8)
+        q = QTensor(data, q.scale, bits, group, k)
+    return x, q
 
 
-def _dq_check(name, x, q) -> float:
+def _dq_check(name, x, q):
+    """(max abs error, the kernel that launched): the kernel is read from the
+    wrapper's per-kernel launch counts around the call."""
     from repro_torch.kernels import ops, ref
+    before = ops.dequant_mm_launches()
     got = ops.dequant_matmul(x, q)
+    after = ops.dequant_mm_launches()
+    ran = [k for k in after if after[k] != before.get(k, 0)]
+    check(len(ran) == 1, f"{name}: launched {ran}, not one dequant-matmul kernel")
     want = ref.dequant_matmul_ref(x, q)
     torch.cuda.synchronize()
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-    return _close(name, got, want, **DQ_TOL)
+    return _close(f"{name} ({ran[0]})", got, want, **DQ_TOL), ran[0]
 
 
 def _dequant_matmul_row(dev, g) -> dict:
     """The kernel against its plain version at Granite's wi (2048 -> 16384,
-    SwiGLU) and wo (8192 -> 2048) for decode (M 1, 4) and chunked prefill (M
-    64, 256 = 4 slots x 64 tokens), 4-bit codes, bf16 x; then every compiled
-    variant at small shapes.  Beside it, torch.matmul on the pre-dequantized
-    bf16 weight, for information only (it reads 4x the bytes)."""
+    SwiGLU) and wo (8192 -> 2048) for decode (M 1, 4: the gemv kernel) and
+    chunked prefill (M 64, 256 = 4 slots x 64 tokens: the tensor-core
+    kernel), 4-bit codes, bf16 x; then every compiled variant and the edges
+    of both kernels at small shapes, each printed with the kernel that ran.
+    Beside it, torch.matmul on the pre-dequantized bf16 weight, the prefill
+    yardstick (it reads 4x the bytes)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import dequantize
@@ -741,7 +763,8 @@ def _dequant_matmul_row(dev, g) -> dict:
     for name, (k, n) in mats.items():
         for m in (1, 4, 64, 256):
             x, q = _dq_case(dev, g, m, k, n)
-            err = max(err, _dq_check(f"dequant_matmul {name} M={m}", x, q))
+            e, kern = _dq_check(f"dequant_matmul {name} M={m}", x, q)
+            err = max(err, e)
             wb = dequantize(q, dtype=torch.bfloat16)
             out = ops.dequant_matmul(x, q)
             ms = graph_ms(lambda: ops.dequant_matmul(x, q))
@@ -749,49 +772,87 @@ def _dequant_matmul_row(dev, g) -> dict:
             plain = cuda_ms(lambda: ref.dequant_matmul_ref(x, q), warmup=1, iters=5)
             mm = graph_ms(lambda: torch.matmul(x, wb))
             moved = nbytes(x, q.data, q.scale, out)
-            bms, by = bound(moved, 2 * m * k * n)
+            peak = BF16_FLOPS if kern == "mma" else F32_FLOPS
+            bms, by = bound(moved, 2 * m * k * n, peak)
+            blocks, regs = ops.dequant_mm_occupancy(kern, 4, 1, 128)
+            splits = ops.dequant_mm_splits(
+                m, k, n, 4, 128, ops._sm_count(x.device), kern,
+                blocks if kern == "mma" else ops.DEQUANT_MM_BLOCKS_PER_SM)
+            rows = ops.DEQUANT_MM_MMA_ROWS if kern == "mma" else ops.DEQUANT_MM_GEMV_ROWS
+            tflops = 2 * m * k * n / ms / 1e9
             per[f"{name} M={m}"] = dict(
-                m=m, k=k, n=n, bits=4, group=128,
-                splits=ops.dequant_mm_splits(m, k, n, 4, 128, ops._sm_count(x.device)),
-                ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                gbps=moved / ms / 1e6, tflops=2 * m * k * n / ms / 1e9,
-                matmul_bf16_ms=mm)
-            print(f"[kernels] dequant_matmul {name} M={m} K={k} N={n}: {ms:.4f} ms on the "
-                  f"card ({moved / ms / 1e6:.0f} GB/s, {2 * m * k * n / ms / 1e9:.1f} "
-                  f"TFLOP/s; bound {bms:.4f} ms by {by}), {call:.4f} ms per call (plain "
-                  f"{plain:.3f} ms per call; torch.matmul on the dequantized bf16 weight "
-                  f"{mm:.4f} ms, information only)", flush=True)
+                m=m, k=k, n=n, bits=4, group=128, kernel=kern,
+                tile=f"{rows}x{ops.DEQUANT_MM_TILE_N}", splits=splits, blocks_per_sm=blocks,
+                regs=regs, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                gbps=moved / ms / 1e6, tflops=tflops, matmul_bf16_ms=mm)
+            print(f"[kernels] dequant_matmul {name} M={m} K={k} N={n}: {kern} kernel, tile "
+                  f"{rows}x{ops.DEQUANT_MM_TILE_N}, {splits} splits, {blocks} blocks/SM, "
+                  f"{regs} registers: {ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, "
+                  f"{tflops:.1f} TFLOP/s; bound {bms:.4f} ms by {by}), {call:.4f} ms per call "
+                  f"(plain {plain:.3f} ms per call; torch.matmul on the dequantized bf16 "
+                  f"weight {mm:.4f} ms, {ms / mm:.2f}x)", flush=True)
             del x, q, wb, out
         torch.cuda.empty_cache()
 
-    n_checked = 0
+    ran = {"gemv": [], "mma": []}
     for bits in (8, 4, 2):
         for x_dtype in (torch.bfloat16, torch.float32):
-            for m in (3, 24):                               # both row tiles
+            for m in (3, 24):                               # decode and prefill
                 x, q = _dq_case(dev, g, m, 512, 256, bits=bits, group=64, x_dtype=x_dtype)
-                err = max(err, _dq_check(f"dequant_matmul bits={bits} {x_dtype} M={m}", x, q))
-                n_checked += 1
-    cases = {"ragged M=5": dict(m=5, k=2048, n=16384),
-             "ragged N=96": dict(m=4, k=384, n=96),
-             "ragged M=7 N=100 group 32": dict(m=7, k=256, n=100, group=32),
-             "leading dims (2, 3)": dict(m=3, k=2048, n=256, lead=(2,)),
-             "M=1 bits 8 wo": dict(m=1, k=8192, n=2048, bits=8)}
-    for name, kw in cases.items():
+                name = f"bits={bits} {str(x_dtype)[6:]} M={m}"
+                e, kern = _dq_check(f"dequant_matmul {name}", x, q)
+                err = max(err, e)
+                ran[kern].append(name)
+    # name: (case, the kernel it must take)
+    cases = {"ragged M=5": (dict(m=5, k=2048, n=16384), "mma"),
+             "M=16": (dict(m=16, k=1024, n=512), "mma"),
+             "M=17": (dict(m=17, k=1024, n=512), "mma"),
+             "M=63": (dict(m=63, k=1024, n=512), "mma"),
+             "M=65": (dict(m=65, k=1024, n=512), "mma"),
+             "M=256 N=640": (dict(m=256, k=1024, n=640), "mma"),
+             "ragged N=100 group 32": (dict(m=24, k=256, n=100, group=32), "mma"),
+             "ragged N=96": (dict(m=24, k=384, n=96), "mma"),
+             "ragged M=7 N=100 group 32": (dict(m=7, k=256, n=100, group=32), "mma"),
+             "group 16": (dict(m=40, k=512, n=256, group=16), "mma"),
+             "group 16 bits 8 N=100": (dict(m=40, k=512, n=100, bits=8, group=16), "mma"),
+             "group 32": (dict(m=40, k=512, n=256, group=32), "mma"),
+             "group 64": (dict(m=40, k=512, n=256, group=64), "mma"),
+             "group 256": (dict(m=40, k=1024, n=256, group=256), "mma"),
+             "group 48": (dict(m=24, k=480, n=256, group=48), "mma"),
+             "bits 8 M=80": (dict(m=80, k=2048, n=384, bits=8), "mma"),
+             "bits 2 M=80": (dict(m=80, k=2048, n=384, bits=2), "mma"),
+             "raw codes bits 8": (dict(m=24, k=512, n=256, bits=8, raw=True), "mma"),
+             "raw codes bits 4": (dict(m=24, k=512, n=256, raw=True), "mma"),
+             "raw codes bits 2": (dict(m=24, k=512, n=256, bits=2, raw=True), "mma"),
+             "split K M=64 wo, bits 8": (dict(m=64, k=8192, n=2048, bits=8), "mma"),
+             "leading dims (2, 3)": (dict(m=3, k=2048, n=256, lead=(2,)), "mma"),
+             "leading dims (2, 40)": (dict(m=40, k=1024, n=256, lead=(2,)), "mma"),
+             "group 8 M=24": (dict(m=24, k=256, n=128, group=8), "gemv"),
+             "group 512 M=24": (dict(m=24, k=1024, n=128, group=512), "gemv"),
+             "raw codes bits 4 M=3": (dict(m=3, k=512, n=256, raw=True), "gemv"),
+             "ragged N=96 M=4": (dict(m=4, k=384, n=96), "gemv"),
+             "M=1 bits 8 wo": (dict(m=1, k=8192, n=2048, bits=8), "gemv"),
+             "f32 x M=64": (dict(m=64, k=1024, n=256, x_dtype=torch.float32), "gemv"),
+             "bf16 x off 16-byte alignment M=24": (dict(m=24, k=512, n=256, offset=True),
+                                                   "gemv")}
+    for name, (kw, want) in cases.items():
         x, q = _dq_case(dev, g, kw.pop("m"), kw.pop("k"), kw.pop("n"), **kw)
-        err = max(err, _dq_check(f"dequant_matmul {name}", x, q))
-        n_checked += 1
-    print(f"[kernels] dequant_matmul: {n_checked} further variants (bits 8/4/2, bf16/f32 "
-          "x, row tiles 4/16, ragged M and N, group 32/64, leading dims) agree with the "
-          "plain version", flush=True)
+        e, kern = _dq_check(f"dequant_matmul {name}", x, q)
+        check(kern == want, f"dequant_matmul {name}: took the {kern} kernel, not {want}")
+        err = max(err, e)
+        ran[kern].append(name)
+    for kern, names in ran.items():
+        print(f"[kernels] dequant_matmul, {kern} kernel: {len(names)} further variants agree "
+              f"with the plain version: {'; '.join(names)}", flush=True)
     a = per["wi M=4"]
     return dict(name="dequant_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
                 replaces="src/repro/kernels/dequant_matmul.py:90", max_abs_err=err,
                 ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
                 bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
-                library="none: no single PyTorch call dequantizes and multiplies; "
-                        "torch.matmul on the pre-dequantized bf16 weight (4x the bytes) "
-                        "is under shapes as matmul_bf16_ms, for information",
+                library="none: no single PyTorch call dequantizes and multiplies; the "
+                        "prefill yardstick is torch.matmul on the pre-dequantized bf16 "
+                        "weight (4x the bytes), under shapes as matmul_bf16_ms",
                 shapes=per, tolerance="rtol 1e-4 atol 1e-4")
 
 
@@ -1282,6 +1343,7 @@ def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.dispatch_counts()
+    dq_kernels = ops.dequant_mm_launches()
     st = srv.stats()
     srv.close()
 
@@ -1297,11 +1359,16 @@ def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
         check(counts.get(f"{op}.cuda", 0) > 0, f"{label}: {op} never launched")
     bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
     check(not bad, f"{label}: plain versions ran on the card: {bad}")
+    if "dequant_matmul" in must_launch:
+        # decode on the gemv kernel, chunked prefill on the tensor-core kernel
+        for kern in ("gemv", "mma"):
+            check(dq_kernels.get(kern, 0) > 0, f"{label}: the {kern} dequant-matmul kernel "
+                                               "never launched")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
         "layers": cfg.num_layers, "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
-        "kernel_dispatch": counts,
+        "kernel_dispatch": counts, "dequant_matmul_kernels": dq_kernels,
     }
     print(f"[{label}] {cfg.name}, {cfg.num_layers} layers: wall {wall:.2f} s, "
           f"{st['decode_tok_s']:.1f} decode tok/s; {json.dumps(summary)}", flush=True)

@@ -8,33 +8,80 @@
 //   and any N that is a multiple of 4: the ragged edge is masked, where the
 //   Pallas wrapper pads x, data and scale to its blocks.
 //
-// What bounds it on the card depends on M.  Decode (M = live rows, 1-4) is a
-// GEMV per column tile: every packed weight byte serves M multiply-adds per
-// code, so device-memory bytes bound it (Granite's FFN up/gate matrix,
-// 2048 x 16384 at 4 bits, is 16.8 MB of codes and 1 MB of scales: ~5.3 us
-// at 3.35 TB/s).  Chunked prefill (M = 64 x slots) reuses each decoded
-// weight across all rows of a block, and float32 FMAs bound it (64 x 2048 x
-// 16384 is 4.3 GFLOP: ~64 us at 67 TFLOP/s).  Tensor-core MMAs are later
-// work.
+// Two kernels, chosen by the wrapper from the shapes (ops.dequant_mm_kernel):
 //
-// What the design does about it:
-//   * A block of 128 threads owns BM rows (4 for M <= 4, else 16) and 128
-//     columns; a lane owns 4 consecutive columns and reads them with one
-//     4-byte load per packed row, so a warp reads 128 contiguous bytes.  The
-//     4 warps take interleaved packed rows of the block's K range and each
-//     loads a batch of rows before it uses them (bytes in flight).
+// "gemv", dequant_mm_kernel: decode (M = live rows, 1-4), and whatever the
+// tensor-core kernel does not take (float32 x, groups that are not a
+// multiple of 16 or above 256); correct at any M.  Every packed weight
+// byte serves at most 4 rows, so device-memory bytes bound it (Granite's
+// FFN up/gate matrix, 2048 x 16384 at 4 bits, is 16.8 MB of codes and 1 MB
+// of scales: ~5.3 us at 3.35 TB/s).
+//   * A block of 128 threads owns 4 rows and 128 columns; a lane owns 4
+//     consecutive columns and reads them with one 4-byte load per packed
+//     row, so a warp reads 128 contiguous bytes.  The 4 warps take
+//     interleaved packed rows of the block's K range and each loads a batch
+//     of rows before it uses them (bytes in flight).
 //   * Each packed word is decoded once, in registers (magic-number decode of
 //     dequant.cuh), scaled by its group's scale (a float4 per lane, reloaded
-//     only when the group changes), and used for all BM rows: x is staged in
-//     shared memory as float32, [k][row], so the BM values of one k are a
+//     only when the group changes), and used for all rows: x is staged in
+//     shared memory as float32, [k][row], so the values of one k are a
 //     broadcast float4 load.  float32 FMAs accumulate.
 //   * The K range runs in stages of whole quant groups (at most 512 k); the
 //     4 warps' partial sums are added in warp order through shared memory.
-//   * Too few blocks at M <= 4 (one row tile): the wrapper splits K over
-//     gridDim.z in whole groups until the grid holds several blocks per SM;
-//     each split writes a float32 partial and a second kernel adds the splits
-//     in split order.  No atomics: the result is the same on every run.
+//
+// "mma", dequant_mma_kernel: chunked prefill (M > 4 rows, bf16 x, group a
+// multiple of 16 up to 256).  Each decoded weight serves 64 rows, so the
+// multiply-adds bound it (64 x 2048 x 16384 is 4.3 GFLOP: 4.3 us at the
+// 989 TFLOP/s of the bf16 tensor cores, 64 us at the 67 TFLOP/s of float32
+// FMAs).  mma.sync runs below the wgmma rate those peaks assume, and the
+// B-fragment decode, 3 instructions per bf16 pair, shares its issue slots.
+//   * Exact on tensor cores: a code of 8, 4 or 2 bits is an integer in
+//     [-128, 127], which bf16 holds exactly, and bf16 x times a bf16 integer
+//     is exact in the float32 accumulator of mma.sync m16n8k16.  The group
+//     scale stays out of the MMA: per quant group a warp accumulates x . code
+//     into a zeroed float32 partial, then adds partial * scale[group, n] to
+//     its output accumulator with one float32 FMA per element.  Folding the
+//     scale into a bf16 weight would round each weight by 2^-9 (~1e-3 on
+//     outputs of magnitude 1, 10x the card's tolerance of 1e-4).
+//   * A block of 256 threads owns 64 rows x 128 columns; warp (wm, wn) of
+//     the 2 x 4 warps owns rows [32 wm, +32) and columns [32 wn, +32): two
+//     m16 tiles by four n8 tiles of accumulators.  124-127 registers, so two
+//     blocks share an SM where their shared memory fits (4 and 2 bits at
+//     group 128; an 8-bit stage, or the 8-16 scale rows of groups 16-32,
+//     leave room for one).
+//   * The K loop runs through a 2-stage cp.async ring, a stage holding 256
+//     k values (two groups of 128) with one block barrier per stage: the x
+//     tile (64 rows, bf16, rows at a +16-byte stride so that ldmatrix is
+//     free of bank conflicts; rows past M zero-filled), the packed code tile
+//     (rows of 128 bytes at a +32-byte stride, in 16-byte pieces, or 4-byte
+//     words when N % 16 != 0) and the groups' scale rows.  Columns past N
+//     are zero-filled and never stored.  Each thread's share of the copies
+//     is worked out once before the loop, so a stage costs it a few
+//     instructions per copy (indices computed per copy cost as many
+//     instructions as the MMAs).
+//   * A fragments by ldmatrix.x4 from the x tile.  B fragments are decoded
+//     in registers straight from the code tile, with no second pass through
+//     shared memory.  The n8 tiles interleave the columns: column c of n8
+//     tile j is the warp's column 4c + j, so a lane reads the 4 columns of
+//     its 4 tiles with one 4-byte load, and its accumulators cover 8
+//     consecutive columns (two float4 scales, two float4 stores per row).
+//     At 4 and 2 bits a lane's two k values of one column sit in one byte:
+//     a byte permute puts them in the two halves of a word, one LOP3 masks
+//     them, flips their sign bits and sets the bf16 exponent of 128, and a
+//     bf16x2 subtraction of 128 + 2^(bits-1) leaves the exact codes.  8-bit
+//     codes do not fit the 7-bit mantissa: they go through float32
+//     (dequant.cuh's decode) and one cvt to bf16x2.
+//   * Too few blocks (Granite's wo, N = 2048, is 16 column tiles at M = 64):
+//     the wrapper splits K over gridDim.z in whole groups until the grid
+//     fills the blocks per SM that the occupancy calculator reports for the
+//     instantiation and group (two blocks of one SM overlap each other's
+//     stage barriers).
+//
+// Splits (both kernels): each split writes a float32 partial and a second
+// kernel adds the splits in split order.  No atomics: the result is the
+// same on every run.
 #include "dequant.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -43,21 +90,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 128;                  // output columns of a block, 4 per lane
 constexpr int kStageK = kWarps * kTileN;     // 512: the most k values of x staged
 constexpr int kSumThreads = 256;
+constexpr int kGemvRows = 4;                 // rows of a gemv block (one float4 of x)
 
-template <int BITS, typename XT, int BM>
+template <int BITS, typename XT>
 __global__ void __launch_bounds__(kThreads) dequant_mm_kernel(
     const XT* __restrict__ x, const int8_t* __restrict__ data,
     const float* __restrict__ scale, int M, int K, int N, int group_size,
     int groups_per_split, float* __restrict__ dst) {
   constexpr int PACK = 8 / BITS;
-  constexpr int kBatch = BM <= 4 ? 8 : 4;    // packed rows loaded before use
+  constexpr int kBatch = 8;                  // packed rows loaded before use
   // x stage [k][row]; after the K loop the warps' sums [warp][row][column]
   // (kWarps * kTileN == kStageK, so both fit)
-  __shared__ __align__(16) float xs[kStageK * BM];
+  __shared__ __align__(16) float xs[kStageK * kGemvRows];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * BM;
+  const int m0 = blockIdx.x * kGemvRows;
   const int n0 = blockIdx.y * kTileN + lane * 4;
   const bool col_ok = n0 < N;                // N % 4 == 0: all 4 columns or none
   const int groups = K / group_size;
@@ -66,9 +114,9 @@ __global__ void __launch_bounds__(kThreads) dequant_mm_kernel(
   const int stage_groups = kStageK / group_size;
   const int rows_per_group = group_size / PACK;
 
-  float acc[BM][4];
+  float acc[kGemvRows][4];
 #pragma unroll
-  for (int m = 0; m < BM; ++m) {
+  for (int m = 0; m < kGemvRows; ++m) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
   }
@@ -77,10 +125,10 @@ __global__ void __launch_bounds__(kThreads) dequant_mm_kernel(
     const int kn = min(stage_groups, g_end - gs) * group_size;   // k values staged
     const int k0 = gs * group_size;
     __syncthreads();                         // the last stage's readers are done
-    for (int i = threadIdx.x; i < kn * BM; i += kThreads) {
+    for (int i = threadIdx.x; i < kn * kGemvRows; i += kThreads) {
       const int m = i / kn;
       const int kk = i - m * kn;
-      xs[kk * BM + m] = m0 + m < M ? to_f32(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
+      xs[kk * kGemvRows + m] = m0 + m < M ? to_f32(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
     }
     __syncthreads();
     if (!col_ok) continue;
@@ -110,17 +158,13 @@ __global__ void __launch_bounds__(kThreads) dequant_mm_kernel(
                                decode<BITS>(w[u], 8 + BITS * i) * s.y,
                                decode<BITS>(w[u], 16 + BITS * i) * s.z,
                                decode<BITS>(w[u], 24 + BITS * i) * s.w};
-          const float4* xr = reinterpret_cast<const float4*>(xs + (r * PACK + i) * BM);
+          // the block's 4 rows at this k: one broadcast float4
+          const float4 xv = *reinterpret_cast<const float4*>(xs + (r * PACK + i) * kGemvRows);
+          const float xm[kGemvRows] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-          for (int q = 0; q < BM / 4; ++q) {
-            const float4 xv = xr[q];
-            const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
+          for (int m = 0; m < kGemvRows; ++m) {
 #pragma unroll
-            for (int mm = 0; mm < 4; ++mm) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[4 * q + mm][j] = fmaf(xm[mm], wv[j], acc[4 * q + mm][j]);
-            }
+            for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xm[m], wv[j], acc[m][j]);
           }
         }
       }
@@ -131,19 +175,19 @@ __global__ void __launch_bounds__(kThreads) dequant_mm_kernel(
   __syncthreads();
   float* red = xs;
 #pragma unroll
-  for (int m = 0; m < BM; ++m)
-    *reinterpret_cast<float4*>(red + (warp * BM + m) * kTileN + lane * 4) =
+  for (int m = 0; m < kGemvRows; ++m)
+    *reinterpret_cast<float4*>(red + (warp * kGemvRows + m) * kTileN + lane * 4) =
         make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   __syncthreads();
   const int n = blockIdx.y * kTileN + threadIdx.x;
   if (n >= N) return;
   float* out = dst + (size_t)blockIdx.z * M * N;
 #pragma unroll
-  for (int m = 0; m < BM; ++m) {
+  for (int m = 0; m < kGemvRows; ++m) {
     if (m0 + m >= M) break;
     float v = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * BM + m) * kTileN + threadIdx.x];
+    for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * kGemvRows + m) * kTileN + threadIdx.x];
     out[(size_t)(m0 + m) * N + n] = v;
   }
 }
@@ -164,72 +208,438 @@ __global__ void __launch_bounds__(kSumThreads) split_sum_kernel(
   out[i] = acc;
 }
 
-template <int BITS, typename XT, int BM>
-void launch_t(const void* x, const void* data, const void* scale, float* dst, int M, int K,
-              int N, int group_size, int groups_per_split, int splits, cudaStream_t s) {
-  const dim3 grid((M + BM - 1) / BM, (N + kTileN - 1) / kTileN, splits);
-  dequant_mm_kernel<BITS, XT, BM><<<grid, kThreads, 0, s>>>(
+
+// ---------------------------------------------------------------------------
+// tensor-core kernel
+// ---------------------------------------------------------------------------
+constexpr int kMmaThreads = 256;             // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kMmaRows = 64;                 // rows of a block
+constexpr int kMmaCols = 128;                // columns of a block
+constexpr int kMmaStages = 2;                // ring stages
+constexpr int kMmaStageK = 256;              // k values a stage holds (whole groups)
+constexpr int kMmaMaxGroup = 256;            // largest group (one per stage)
+constexpr int kCodeRow = kMmaCols + 32;      // code tile row stride in bytes
+
+// Quant groups of one stage, its x row stride and its bytes: x tile, code
+// tile, scale rows.
+__host__ __device__ constexpr int mma_gps(int group) {
+  return group < kMmaStageK ? kMmaStageK / group : 1;
+}
+__host__ __device__ constexpr int mma_x_row(int group) { return 2 * mma_gps(group) * group + 16; }
+__host__ __device__ constexpr int mma_code_bytes(int group, int pack) {
+  return mma_gps(group) * group / pack * kCodeRow;
+}
+__host__ __device__ constexpr int mma_stage_bytes(int group, int pack) {
+  return kMmaRows * mma_x_row(group) + mma_code_bytes(group, pack) +
+         mma_gps(group) * kMmaCols * 4;
+}
+
+// 4 bytes global -> shared, asynchronous; src_bytes = 0 zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// (a & b) ^ c in one LOP3.
+__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// B fragments of one k16 step for the lane's 4 n8 tiles: b[j][0] holds the
+// codes of k 2t, 2t + 1 and b[j][1] those of k 2t + 8, 2t + 9 (t = lane & 3)
+// of column `col + j` of the code tile `ct` (the lane's word of 4 columns),
+// as exact bf16 integers, the lower k in the low half.
+template <int BITS>
+__device__ __forceinline__ void load_b(const unsigned char* ct, int kk, int col, int t,
+                                       uint32_t (&b)[4][2]) {
+  constexpr int PACK = 8 / BITS;
+  if constexpr (BITS == 8) {
+    // one packed row per k: rows 16 kk + 2t, +1 and 16 kk + 2t + 8, +9
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned char* r = ct + (16 * kk + 2 * t + 8 * h) * kCodeRow + col;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(r);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(r + kCodeRow);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(decode<8>(w0, 8 * j), decode<8>(w1, 8 * j));
+        b[j][h] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+  } else {
+    // k 2t, 2t + 1 are fields s, s + 1 of one byte of packed row (16 kk +
+    // 2t) / PACK, s = 2t % PACK; k 2t + 8, 2t + 9 the same fields 8 / PACK
+    // rows further on
+    constexpr uint32_t kMask = ((1u << BITS) - 1) * 0x00010001u;
+    constexpr uint32_t kBase = (0x4300u | (1u << (BITS - 1))) * 0x00010001u;
+    constexpr uint32_t kOff = (0x4300u | 0x80u >> (8 - BITS)) * 0x00010001u;  // 128 + 2^(bits-1)
+    const int sh = (2 * t) % PACK * BITS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned char* r = ct + ((16 * kk + 2 * t) / PACK + 8 / PACK * h) * kCodeRow + col;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(r) >> sh;
+      const uint32_t wh = w >> BITS;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // byte j of w (first field) to the low half, of wh (second) to the
+        // high half; then 128 + offset-binary code in each half
+        const uint32_t v = and_xor(prmt(w, wh, j | (4 + j) << 8), kMask, kBase);
+        b[j][h] = sub_bf16x2(v, kOff);
+      }
+    }
+  }
+}
+
+// Block (row tile, column tile, split) of kMmaThreads threads -> dst rows
+// [64 x, +64), columns [128 y, +128) over the split's quant groups.
+template <int BITS>
+__global__ void __launch_bounds__(kMmaThreads, 2) dequant_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ data,
+    const float* __restrict__ scale, int M, int K, int N, int group_size,
+    int groups_per_split, float* __restrict__ dst) {
+  constexpr int PACK = 8 / BITS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = group_size;
+  const int gps = mma_gps(G);
+  const int x_row = mma_x_row(G);
+  const int x_bytes = kMmaRows * x_row;
+  const int code_bytes = mma_code_bytes(G, PACK);
+  const int stage_bytes = mma_stage_bytes(G, PACK);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;                  // rows [32 wm, +32) of the tile
+  const int wn = warp & 3;                   // columns [32 wn, +32)
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = blockIdx.x * kMmaRows;
+  const int n0 = blockIdx.y * kMmaCols;
+  const int groups = K / G;
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int g_end = min(groups, g_begin + groups_per_split);
+  const int n_stages = g_end > g_begin ? (g_end - g_begin + gps - 1) / gps : 0;
+
+  // stage `slot` <- quant groups [gi, gi + ng).  Each thread's share of the
+  // copies is fixed for the whole K loop: its first x piece, code piece and
+  // the strides to its next ones are computed once here, so a stage costs a
+  // thread a handful of instructions per 16-byte copy.  x rows go in 16-byte
+  // pieces (rows past M zero-filled); code rows in 16-byte pieces when N %
+  // 16 == 0 (aligned rows), else in 4-byte words (columns past N
+  // zero-filled); the scale rows in 16-byte pieces.  Groups whose stage row
+  // is not a power-of-two count of pieces take the general path.
+  const int pieces = gps * G / 8;            // 16-byte pieces of an x row
+  const int psh = __ffs(pieces) - 1;
+  const bool pow2 = pieces == 1 << psh;
+  const int x_rpp = kMmaThreads >> psh;      // x rows per pass of the block
+  const int x_r0 = tid >> psh;
+  const int x_c = tid & (pieces - 1);
+  const __nv_bfloat16* xg = x + (size_t)min(m0 + x_r0, M - 1) * K + 8 * x_c;
+  const bool vec = (N & 15) == 0 && ((uintptr_t)data & 15) == 0;
+  const int c_sh = vec ? 3 : 5;              // log2 of the pieces of a code row
+  const int c_rpp = kMmaThreads >> c_sh;     // code rows per pass
+  const int c_r0 = tid >> c_sh;
+  const int c_off = (tid & ((1 << c_sh) - 1)) << (vec ? 4 : 2);   // bytes into the row
+  const bool c_ok = n0 + c_off < N;
+  const int8_t* cg = c_ok ? data + (size_t)c_r0 * N + n0 + c_off : data;
+  auto load = [&](int gi, int ng, int slot) {
+    const uint32_t xs = smem_u32(smem + slot * stage_bytes);
+    const uint32_t cs = xs + x_bytes;
+    const int k0 = gi * G;
+    const int kn = ng * G;                   // k values of this stage
+    if (pow2) {
+      if (8 * x_c < kn) {
+        for (int r = x_r0; r < kMmaRows; r += x_rpp) {
+          const bool ok = m0 + r < M;
+          cp_async16(xs + r * x_row + 16 * x_c, ok ? xg + (size_t)(r - x_r0) * K + k0 : x,
+                     ok ? 16 : 0);
+        }
+      }
+    } else {
+      const int np = kn / 8;
+      for (int i = tid; i < kMmaRows * np; i += kMmaThreads) {
+        const int r = i / np;
+        const int c = i - r * np;
+        const bool ok = m0 + r < M;
+        cp_async16(xs + r * x_row + 16 * c, x + (size_t)(ok ? m0 + r : 0) * K + k0 + 8 * c,
+                   ok ? 16 : 0);
+      }
+    }
+    const int8_t* cgk = cg + (c_ok ? (size_t)(k0 / PACK) * N : 0);
+    for (int r = c_r0; r < kn / PACK; r += c_rpp) {
+      const uint32_t dst = cs + r * kCodeRow + c_off;
+      const int8_t* src = c_ok ? cgk + (size_t)(r - c_r0) * N : data;
+      if (vec)
+        cp_async16(dst, src, c_ok ? 16 : 0);
+      else
+        cp_async4(dst, src, c_ok ? 4 : 0);
+    }
+    for (int i = tid; i < ng * (kMmaCols / 4); i += kMmaThreads) {   // up to 16 rows
+      const int q = i >> 5;                  // scale row q, 16-byte piece p
+      const int p = i & 31;
+      const bool ok = n0 + 4 * p < N;
+      cp_async16(cs + code_bytes + q * kMmaCols * 4 + 16 * p,
+                 ok ? scale + (size_t)(gi + q) * N + n0 + 4 * p : scale, ok ? 16 : 0);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < n_stages) load(g_begin + s * gps, min(gps, g_end - g_begin - s * gps), s);
+    cp_async_commit();
+  }
+
+  // lane's ldmatrix row and k offset within a 16 x 16 A tile
+  const int a_row = wm * 32 + (lane & 15);
+  const int a_col = (lane >> 4) * 16;        // bytes
+  const int steps = G / 16;                  // k16 steps of a group
+  for (int it = 0; it < n_stages; ++it) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();                         // stage `it` landed; stage it - 1 is free
+    const int nxt = it + kMmaStages - 1;
+    if (nxt < n_stages)
+      load(g_begin + nxt * gps, min(gps, g_end - g_begin - nxt * gps), nxt % kMmaStages);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (it % kMmaStages) * stage_bytes;
+    const unsigned char* ct = st + x_bytes;
+    const int ng = min(gps, g_end - g_begin - it * gps);
+    for (int q = 0; q < ng; ++q) {
+      const uint32_t xs = smem_u32(st) + a_row * x_row + a_col + 2 * q * G;
+      const unsigned char* cq = ct + q * G / PACK * kCodeRow;
+      float part[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mi][j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < steps; ++kk) {
+        uint32_t a[2][4];
+        ldsm_x4(xs + 32 * kk, a[0]);
+        ldsm_x4(xs + 16 * x_row + 32 * kk, a[1]);
+        uint32_t b[4][2];
+        load_b<BITS>(cq, kk, wn * 32 + 4 * g, t, b);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(part[mi][j], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[j][0], b[j][1]);
+      }
+      // c0/c2 of n8 tile j are column 8t + j, c1/c3 column 8t + 4 + j
+      const float* srow = reinterpret_cast<const float*>(ct + code_bytes) + q * kMmaCols +
+                          wn * 32 + 8 * t;
+      const float4 s0 = *reinterpret_cast<const float4*>(srow);
+      const float4 s1 = *reinterpret_cast<const float4*>(srow + 4);
+      const float sc[2][4] = {{s0.x, s0.y, s0.z, s0.w}, {s1.x, s1.y, s1.z, s1.w}};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][j][e] = fmaf(part[mi][j][e], sc[e & 1][j], acc[mi][j][e]);
+    }
+  }
+
+  float* out = dst + (size_t)blockIdx.z * M * N;
+  const int col = n0 + wn * 32 + 8 * t;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {            // rows g, g + 8 of the m16 tile
+      const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
+      if (row >= M) continue;
+      float* o = out + (size_t)row * N + col;
+      if (col < N)
+        *reinterpret_cast<float4*>(o) = make_float4(acc[mi][0][2 * h], acc[mi][1][2 * h],
+                                                    acc[mi][2][2 * h], acc[mi][3][2 * h]);
+      if (col + 4 < N)
+        *reinterpret_cast<float4*>(o + 4) =
+            make_float4(acc[mi][0][2 * h + 1], acc[mi][1][2 * h + 1], acc[mi][2][2 * h + 1],
+                        acc[mi][3][2 * h + 1]);
+    }
+  }
+}
+
+template <int BITS>
+int mma_smem(int group_size) {
+  return kMmaStages * mma_stage_bytes(group_size, 8 / BITS);
+}
+
+// Lets every instantiation take the dynamic shared memory of its largest
+// stage, that of group 16 with 16 scale rows (once per process).
+template <int BITS>
+cudaError_t mma_prepare() {
+  static cudaError_t err = cudaFuncSetAttribute(
+      dequant_mma_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mma_smem<BITS>(16));
+  return err;
+}
+
+template <int BITS>
+cudaError_t launch_mma(const void* x, const void* data, const void* scale, float* dst, int M,
+                       int K, int N, int group_size, int groups_per_split, int splits,
+                       cudaStream_t s) {
+  const cudaError_t err = mma_prepare<BITS>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kMmaRows - 1) / kMmaRows, (N + kMmaCols - 1) / kMmaCols, splits);
+  dequant_mma_kernel<BITS><<<grid, kMmaThreads, mma_smem<BITS>(group_size), s>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)data, (const float*)scale, M, K, N, group_size,
+      groups_per_split, dst);
+  return cudaSuccess;
+}
+
+template <int BITS, typename XT>
+void launch_gemv(const void* x, const void* data, const void* scale, float* dst, int M, int K,
+                 int N, int group_size, int groups_per_split, int splits, cudaStream_t s) {
+  const dim3 grid((M + kGemvRows - 1) / kGemvRows, (N + kTileN - 1) / kTileN, splits);
+  dequant_mm_kernel<BITS, XT><<<grid, kThreads, 0, s>>>(
       (const XT*)x, (const int8_t*)data, (const float*)scale, M, K, N, group_size,
       groups_per_split, dst);
 }
 
-template <int BITS, typename XT>
-void by_rows(int bm, const void* x, const void* data, const void* scale, float* dst, int M,
-             int K, int N, int group_size, int groups_per_split, int splits, cudaStream_t s) {
-  if (bm == 4)
-    launch_t<BITS, XT, 4>(x, data, scale, dst, M, K, N, group_size, groups_per_split, splits, s);
+template <int BITS>
+cudaError_t launch_bits(int kernel, int x_bf16, const void* x, const void* data,
+                        const void* scale, float* dst, int M, int K, int N, int group_size,
+                        int groups_per_split, int splits, cudaStream_t s) {
+  if (kernel == 1)
+    return launch_mma<BITS>(x, data, scale, dst, M, K, N, group_size, groups_per_split, splits,
+                            s);
+  if (x_bf16)
+    launch_gemv<BITS, __nv_bfloat16>(x, data, scale, dst, M, K, N, group_size,
+                                     groups_per_split, splits, s);
   else
-    launch_t<BITS, XT, 16>(x, data, scale, dst, M, K, N, group_size, groups_per_split, splits,
-                           s);
+    launch_gemv<BITS, float>(x, data, scale, dst, M, K, N, group_size, groups_per_split,
+                             splits, s);
+  return cudaSuccess;
 }
 
 template <int BITS>
-void by_x(int x_bf16, int bm, const void* x, const void* data, const void* scale, float* dst,
-          int M, int K, int N, int group_size, int groups_per_split, int splits,
-          cudaStream_t s) {
-  if (x_bf16)
-    by_rows<BITS, __nv_bfloat16>(bm, x, data, scale, dst, M, K, N, group_size,
-                                 groups_per_split, splits, s);
-  else
-    by_rows<BITS, float>(bm, x, data, scale, dst, M, K, N, group_size, groups_per_split,
-                         splits, s);
+cudaError_t occupancy(int kernel, int x_bf16, int group_size, int* blocks, int* regs) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (kernel == 1) {
+    err = mma_prepare<BITS>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, dequant_mma_kernel<BITS>, kMmaThreads, mma_smem<BITS>(group_size));
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, dequant_mma_kernel<BITS>);
+  } else if (x_bf16) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, dequant_mm_kernel<BITS, __nv_bfloat16>, kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr, dequant_mm_kernel<BITS, __nv_bfloat16>);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, dequant_mm_kernel<BITS, float>, kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr, dequant_mm_kernel<BITS, float>);
+  }
+  if (err == cudaSuccess) *regs = attr.numRegs;
+  return err;
+}
+
+int pack_of(int bits) { return bits == 8 ? 1 : bits == 4 ? 2 : bits == 2 ? 4 : 0; }
+
+// The tensor-core kernel's constraints on the shapes (bf16 x checked apart).
+bool mma_ok(int group_size) {
+  return group_size % 16 == 0 && group_size <= kMmaMaxGroup;
 }
 
 }  // namespace
 
 // x (M, K) bf16 or f32; data (K / pack, N) int8; scale (K / group, N) f32;
-// out (M, N) f32; part (splits, M, N) f32 scratch when splits > 1.  `bm`
-// (4 or 16) is the row tile; the K range is cut into `splits` runs of whole
-// quant groups.
+// out (M, N) f32; part (splits, M, N) f32 scratch when splits > 1.
+// `kernel` 0 is the gemv kernel (4-row tiles, any M), 1 the tensor-core
+// kernel (64-row tiles; bf16 x, group % 16 == 0, group <= 256, x 16-byte
+// aligned).  The K range is cut into `splits` runs of whole quant groups.
 extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* data,
                                      const void* scale, void* part, void* out, int M, int K,
-                                     int N, int bits, int group_size, int bm, int splits,
+                                     int N, int bits, int group_size, int kernel, int splits,
                                      void* stream) {
-  const int pack = bits == 8 ? 1 : bits == 4 ? 2 : bits == 2 ? 4 : 0;
+  const int pack = pack_of(bits);
   if (pack == 0 || M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group_size <= 0 ||
       group_size % pack != 0 || group_size > kStageK || K % group_size != 0 ||
-      (bm != 4 && bm != 16) || splits <= 0 || splits > K / group_size ||
-      (splits > 1 && part == nullptr))
+      (kernel != 0 && kernel != 1) ||
+      (kernel == 1 && (!x_bf16 || !mma_ok(group_size) || (uintptr_t)x % 16 != 0)) ||
+      splits <= 0 || splits > K / group_size || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int groups = K / group_size;
   const int per = (groups + splits - 1) / splits;
   float* dst = splits > 1 ? (float*)part : (float*)out;
+  cudaError_t err;
   switch (bits) {
     case 8:
-      by_x<8>(x_bf16, bm, x, data, scale, dst, M, K, N, group_size, per, splits, s);
+      err = launch_bits<8>(kernel, x_bf16, x, data, scale, dst, M, K, N, group_size, per,
+                           splits, s);
       break;
     case 4:
-      by_x<4>(x_bf16, bm, x, data, scale, dst, M, K, N, group_size, per, splits, s);
+      err = launch_bits<4>(kernel, x_bf16, x, data, scale, dst, M, K, N, group_size, per,
+                           splits, s);
       break;
     default:
-      by_x<2>(x_bf16, bm, x, data, scale, dst, M, K, N, group_size, per, splits, s);
+      err = launch_bits<2>(kernel, x_bf16, x, data, scale, dst, M, K, N, group_size, per,
+                           splits, s);
       break;
   }
-  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t quads = (size_t)M * N / 4;
   split_sum_kernel<<<(unsigned)((quads + kSumThreads - 1) / kSumThreads), kSumThreads, 0, s>>>(
       (const float4*)part, splits, quads, (float4*)out);
   return (int)cudaGetLastError();
+}
+
+// Blocks of `kernel` (0 gemv, 1 tensor-core) for (bits, x type, group) that
+// one SM holds at once, as the occupancy calculator reports, and the
+// registers per thread the instantiation was compiled to.
+extern "C" int dequant_matmul_occupancy(int kernel, int bits, int x_bf16, int group_size,
+                                        int* blocks, int* regs) {
+  if (pack_of(bits) == 0 || blocks == nullptr || regs == nullptr ||
+      (kernel == 1 && !mma_ok(group_size)))
+    return (int)cudaErrorInvalidValue;
+  switch (bits) {
+    case 8:
+      return (int)occupancy<8>(kernel, x_bf16, group_size, blocks, regs);
+    case 4:
+      return (int)occupancy<4>(kernel, x_bf16, group_size, blocks, regs);
+    default:
+      return (int)occupancy<2>(kernel, x_bf16, group_size, blocks, regs);
+  }
 }

@@ -93,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -158,10 +160,6 @@ struct Ring {
   static constexpr int kBytes = kBars + 2 * 8 * kStages;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -184,19 +182,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// 16 bytes global -> shared (a shared-space address), asynchronous; src_bytes
-// = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Programmatic dependent launch: pass 1 lets the split combine's grid be
 // scheduled early; the combine waits here until pass 1 is done and visible.
 __device__ __forceinline__ void griddep_launch_dependents() {
@@ -211,41 +196,6 @@ __device__ __forceinline__ void griddep_wait() {
 // (the barrier's expected count includes the arrival).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += A (16 x 16, rows a0/a2 and a1/a3) . B (16 x 8), bf16 in, float32 out.
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Two bf16 in one register, x0 (the lower index) in the low half.
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 x0, __nv_bfloat16 x1) {
-  return (uint32_t)__bfloat16_as_ushort(x0) | ((uint32_t)__bfloat16_as_ushort(x1) << 16);
-}
-
-// x = hi + lo, each bf16 (lo = bf16(x - hi)).
-__device__ __forceinline__ void split2(float x, __nv_bfloat16& hi, __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
 }
 
 // Pass 1 (bf16 K/V): block (b * Hkv + h, split) of kRingThreads threads ->

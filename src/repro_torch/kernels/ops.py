@@ -31,6 +31,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.quant.quantize import PACK_FACTOR, QTensor
 
 _DISPATCH_COUNTS: Dict[str, int] = {}
+_DEQUANT_MM_LAUNCHES: Dict[str, int] = {}
 
 # widest router a gating kernel takes (Phi-MoE has 16 experts, DeepSeek 160)
 MAX_EXPERTS = 256
@@ -56,6 +57,13 @@ def dispatch_counts() -> Dict[str, int]:
 
 def reset_dispatch_counts() -> None:
     _DISPATCH_COUNTS.clear()
+    _DEQUANT_MM_LAUNCHES.clear()
+
+
+def dequant_mm_launches() -> Dict[str, int]:
+    """Launches of each dequant-matmul kernel ("gemv", "mma") since the last
+    ``reset_dispatch_counts``; they add up to ``"dequant_matmul.cuda"``."""
+    return dict(_DEQUANT_MM_LAUNCHES)
 
 
 def _route(op: str, *tensors: torch.Tensor) -> str:
@@ -197,34 +205,75 @@ def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
 # dense dequant-matmul
 # --------------------------------------------------------------------------
 
-# output columns of one dequant-matmul block (kTileN in dequant_matmul.cu)
+# output columns of one dequant-matmul block, both kernels (kTileN, kMmaCols
+# in dequant_matmul.cu)
 DEQUANT_MM_TILE_N = 128
-# largest quant group the kernel stages at once (kStageK)
+# rows of one block: gemv kernel (kGemvRows), tensor-core kernel (kMmaRows)
+DEQUANT_MM_GEMV_ROWS = 4
+DEQUANT_MM_MMA_ROWS = 64
+# largest quant group the gemv kernel stages at once (kStageK), and the
+# largest the tensor-core kernel takes (kMmaMaxGroup: one group per stage)
 DEQUANT_MM_MAX_GROUP = 512
-# blocks per SM the K-split aims for when one row tile leaves the card idle
+DEQUANT_MM_MMA_MAX_GROUP = 256
+# blocks per SM the gemv kernel's K-split aims for when the row and column
+# tiles leave the card idle (bytes in flight)
 DEQUANT_MM_BLOCKS_PER_SM = 8
+_DEQUANT_MM_KERNELS = {"gemv": 0, "mma": 1}
+_DEQUANT_MM_OCCUPANCY: Dict[tuple, tuple] = {}
 
 
-def dequant_mm_rows(m: int) -> int:
-    """Row tile of the dequant-matmul kernel: 4 for decode (M <= 4 live
-    rows), else 16 (prefill, every decoded weight used by 16 rows)."""
-    return 4 if m <= 4 else 16
+def dequant_mm_kernel(m: int, x_dtype: torch.dtype, group_size: int,
+                      x_aligned: bool) -> str:
+    """Which dequant-matmul kernel serves M rows: "mma" (tensor cores,
+    64-row tiles) for chunked prefill, M > 4 rows of 16-byte aligned bf16 x
+    (its copies into shared memory are 16-byte pieces) with quant groups of
+    a multiple of 16 up to DEQUANT_MM_MMA_MAX_GROUP; "gemv" (4-row tiles,
+    float32 FMAs, correct at any M and alignment) for decode and all else."""
+    if (m > 4 and x_dtype == torch.bfloat16 and x_aligned and group_size % 16 == 0
+            and group_size <= DEQUANT_MM_MMA_MAX_GROUP):
+        return "mma"
+    return "gemv"
 
 
 def dequant_mm_splits(m: int, k: int, n: int, bits: int, group_size: int,
-                      sm_count: int) -> int:
-    """K-splits of the dequant-matmul grid: enough (row tile x column tile x
-    split) blocks for DEQUANT_MM_BLOCKS_PER_SM per SM, each split whole
-    quant groups, and the float32 partials (written once, read once) kept
-    under a quarter of the codes' bytes.  From shapes only: no
-    synchronisation."""
+                      sm_count: int, kernel: str, blocks_per_sm: int) -> int:
+    """K-splits of the dequant-matmul grid, each split whole quant groups,
+    aiming at `blocks_per_sm` blocks on each of `sm_count` SMs.  gemv:
+    enough (row tile x column tile x split) blocks for that many per SM
+    (DEQUANT_MM_BLOCKS_PER_SM: bytes in flight), with the float32 partials
+    (written once, read once) kept under a quarter of the codes' bytes.
+    mma: as many splits as keep the grid within one wave of the blocks per
+    SM that the occupancy calculator reports (``dequant_mm_occupancy``;
+    Granite's wo at M = 64 has 16 blocks).  No synchronisation."""
     groups = k // group_size
-    blocks = -(-m // dequant_mm_rows(m)) * -(-n // DEQUANT_MM_TILE_N)
-    want = -(-DEQUANT_MM_BLOCKS_PER_SM * sm_count // blocks)
-    cap = k * bits // 8 // (4 * 2 * 4 * m)        # partial bytes <= code bytes / 4
-    want = max(1, min(groups, want, cap))
+    tiles = -(-n // DEQUANT_MM_TILE_N)
+    if kernel == "mma":
+        blocks = -(-m // DEQUANT_MM_MMA_ROWS) * tiles
+        want = blocks_per_sm * sm_count // blocks
+    else:
+        blocks = -(-m // DEQUANT_MM_GEMV_ROWS) * tiles
+        want = -(-blocks_per_sm * sm_count // blocks)
+        cap = k * bits // 8 // (4 * 2 * 4 * m)    # partial bytes <= code bytes / 4
+        want = min(want, cap)
+    want = max(1, min(groups, want))
     per = -(-groups // want)
     return -(-groups // per)
+
+
+def dequant_mm_occupancy(kernel: str, bits: int, x_bf16: int, group_size: int):
+    """(blocks per SM, registers per thread) of the dequant-matmul kernel
+    instantiation on the current card, from the CUDA runtime's occupancy
+    calculator; cached per card."""
+    key = (torch.cuda.current_device(), kernel, bits, x_bf16, group_size)
+    if key not in _DEQUANT_MM_OCCUPANCY:
+        op = "dequant_matmul"
+        lib = build.library("dequant_matmul")
+        blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+        _raise_on(op, lib.dequant_matmul_occupancy(_DEQUANT_MM_KERNELS[kernel], bits, x_bf16,
+                                                   group_size, ctypes.byref(blocks),
+                                                   ctypes.byref(regs)))
+        _DEQUANT_MM_OCCUPANCY[key] = (max(1, blocks.value), regs.value)
+    return _DEQUANT_MM_OCCUPANCY[key]
 
 
 def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
@@ -234,8 +283,9 @@ def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
         q  QTensor    data (K//pack, N) int8, scale (K//group, N) f32
         -> (..., N) float32
 
-    The kernel masks ragged M and N (N a multiple of 4 on the card) where
-    the JAX package pads; K is a multiple of the group by the layout."""
+    The kernels mask ragged M and N (N a multiple of 4 on the card) where
+    the JAX package pads; K is a multiple of the group by the layout.  On
+    the card ``dequant_mm_kernel`` picks the kernel from the shapes."""
     op = "dequant_matmul"
     if _route(op, x, q.data, q.scale) == "torch":
         _record(op, "torch")
@@ -266,16 +316,19 @@ def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
-    bm = dequant_mm_rows(m)
-    splits = dequant_mm_splits(m, k, n, q.bits, gs, _sm_count(x.device))
+    kernel = dequant_mm_kernel(m, x2.dtype, gs, x2.data_ptr() % 16 == 0)
+    blocks = (dequant_mm_occupancy(kernel, q.bits, 1, gs)[0] if kernel == "mma"
+              else DEQUANT_MM_BLOCKS_PER_SM)
+    splits = dequant_mm_splits(m, k, n, q.bits, gs, _sm_count(x.device), kernel, blocks)
     part = None
     if splits > 1:
         part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     _record(op, "cuda")
+    _DEQUANT_MM_LAUNCHES[kernel] = _DEQUANT_MM_LAUNCHES.get(kernel, 0) + 1
     _raise_on(op, lib.dequant_matmul_launch(
         x2.data_ptr(), xb, q.data.data_ptr(), q.scale.data_ptr(),
         part.data_ptr() if part is not None else None, out.data_ptr(),
-        m, k, n, q.bits, gs, bm, splits, _stream()))
+        m, k, n, q.bits, gs, _DEQUANT_MM_KERNELS[kernel], splits, _stream()))
     return out.reshape(*x.shape[:-1], n)
 
 

@@ -20,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_decode import paged_flash_decode_pallas
 from repro.quant.quantize import quantize as jquantize
 from repro_torch.kernels import ops, ref
-from repro_torch.quant.quantize import QTensor
+from repro_torch.quant.quantize import QTensor, dequantize, quantize, unpack_codes
 
 torch.set_num_threads(2)
 RTOL, ATOL = 1e-5, 1e-4
@@ -150,17 +150,108 @@ def test_dequant_matmul_leading_batch_dims(mode):
 
 
 @pytest.mark.parametrize("m,k,n,bits,want", [(4, 2048, 16384, 4, 8), (4, 8192, 2048, 4, 32),
-                                             (1, 8192, 2048, 4, 64), (64, 2048, 16384, 4, 1),
-                                             (64, 8192, 2048, 4, 2), (256, 8192, 2048, 4, 1)])
+                                             (1, 8192, 2048, 4, 64), (64, 2048, 16384, 4, 2),
+                                             (64, 8192, 2048, 4, 16), (256, 8192, 2048, 4, 4)])
 def test_dequant_mm_splits_fill_the_card(m, k, n, bits, want):
-    """Granite's FFN shapes at group 128 on 132 SMs: decode (M <= 4) splits K
-    in whole groups until the grid holds ~8 blocks per SM, with the float32
-    partials under a quarter of the code bytes; prefill rarely splits."""
-    s = ops.dequant_mm_splits(m, k, n, bits, 128, 132)
+    """Granite's FFN shapes at group 128 on 132 SMs: decode (M <= 4, the gemv
+    kernel) splits K in whole groups until the grid holds ~8 blocks per SM,
+    with the float32 partials under a quarter of the code bytes; prefill
+    (the tensor-core kernel, 64 x 128 tiles) splits until the grid holds
+    the two blocks per SM the card reports for 4-bit codes in groups of
+    128: wo's 16 column tiles 16 ways at M = 64."""
+    kernel = ops.dequant_mm_kernel(m, torch.bfloat16, 128, True)
+    assert kernel == ("gemv" if m <= 4 else "mma")
+    blocks = 2 if kernel == "mma" else ops.DEQUANT_MM_BLOCKS_PER_SM
+    s = ops.dequant_mm_splits(m, k, n, bits, 128, 132, kernel, blocks)
     assert s == want and 1 <= s <= k // 128
     per = -(-(k // 128) // s)
     assert (s - 1) * per < k // 128              # no empty split
-    assert ops.dequant_mm_rows(m) == (4 if m <= 4 else 16)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32, 128])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 4, 5, 64])
+def test_dequant_mm_kernel_choice(m, x_dtype, group):
+    """Tensor cores for M > 4 rows of bf16 x in groups of a multiple of 16;
+    the gemv kernel for decode, float32 x and other groups."""
+    want = "mma" if m > 4 and x_dtype == torch.bfloat16 and group % 16 == 0 else "gemv"
+    assert ops.dequant_mm_kernel(m, x_dtype, group, True) == want
+
+
+@pytest.mark.parametrize("m", [5, 64, 256])
+def test_dequant_mm_kernel_unaligned_bf16_x_takes_gemv(m):
+    """bf16 x off 16-byte alignment (a contiguous view at an odd element
+    offset) cannot feed the tensor-core kernel's 16-byte copies: the gemv
+    kernel, correct at any alignment, serves it."""
+    assert ops.dequant_mm_kernel(m, torch.bfloat16, 128, False) == "gemv"
+
+
+@pytest.mark.parametrize("blocks,want", [(1, 8), (2, 16), (4, 32)])
+def test_dequant_mm_splits_follow_occupancy(blocks, want):
+    """The tensor-core split fills the blocks per SM the occupancy
+    calculator reports: Granite's wo at M = 64 (16 blocks on 132 SMs) splits
+    8 ways at one block per SM (8-bit stages), 16 at two, 32 at four."""
+    s = ops.dequant_mm_splits(64, 8192, 2048, 4, 128, 132, "mma", blocks)
+    assert s == want
+
+
+def _mma_case(bits, k, m, n=256, group=128):
+    rng = np.random.default_rng(bits * 1000 + k + m)
+    w = _t((rng.normal(size=(k, n)) * 0.02).astype(np.float32))
+    x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    return x, quantize(w, bits=bits, group_size=group)
+
+
+def _mma_emulation(x, q, splits):
+    """The tensor-core kernel's arithmetic: bf16 x times integer codes (each
+    product exact in float32) summed per quant group into a float32
+    partial, then partial * scale added to the split's accumulator, groups
+    in order; splits of whole groups added in split order."""
+    codes = unpack_codes(q.data, q.bits).to(torch.float32)
+    xf = x.to(torch.float32)
+    gs = q.group_size
+    groups = x.shape[-1] // gs
+    per = -(-groups // splits)
+    total = None
+    for s0 in range(0, groups, per):
+        acc = torch.zeros((x.shape[0], codes.shape[1]))
+        for gi in range(s0, min(groups, s0 + per)):
+            part = xf[:, gi * gs:(gi + 1) * gs] @ codes[gi * gs:(gi + 1) * gs]
+            acc = acc + part * q.scale[gi]
+        total = acc if total is None else total + acc
+    return total
+
+
+DQ_CARD_TOL = dict(rtol=1e-4, atol=1e-4)      # chip_smoke.py's DQ_TOL
+
+
+@pytest.mark.parametrize("m", [17, 64])
+@pytest.mark.parametrize("k", [2048, 8192])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_dequant_mma_numeric_scheme_meets_card_tolerance(bits, k, m):
+    """Exact bf16 codes on tensor cores with the group scale applied in
+    float32 after each group, at the split the card would pick, against the
+    plain version at the card's rtol/atol 1e-4."""
+    x, q = _mma_case(bits, k, m)
+    assert ops.dequant_mm_kernel(m, x.dtype, q.group_size, True) == "mma"
+    blocks = 1 if bits == 8 else 2           # the card's occupancy at group 128
+    splits = ops.dequant_mm_splits(m, k, 256, bits, 128, 132, "mma", blocks)
+    got = _mma_emulation(x, q, splits)
+    want = ref.dequant_matmul_ref(x, q)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **DQ_CARD_TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_dequant_mma_scale_folded_into_bf16_misses_card_tolerance(bits):
+    """Rounding code * scale to a bf16 weight (2^-9 per weight) breaks
+    rtol/atol 1e-4 on outputs of magnitude ~1: the scale stays out of the
+    MMA."""
+    x, q = _mma_case(bits, 2048, 64)
+    want = ref.dequant_matmul_ref(x, q)
+    folded = x.to(torch.float32) @ dequantize(q, dtype=torch.bfloat16).to(torch.float32)
+    err = (folded - want).abs()
+    assert bool((err > DQ_CARD_TOL["atol"] + DQ_CARD_TOL["rtol"] * want.abs()).any())
+    np.testing.assert_allclose(_mma_emulation(x, q, 1).numpy(), want.numpy(), **DQ_CARD_TOL)
 
 
 # --------------------------------------------------------------------------
