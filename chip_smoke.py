@@ -16,10 +16,14 @@ and each printing its seconds:
                the paged flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
   3c. dequant_matmul — the dense dequant-matmul kernels at Granite-3.0-2B's
-               FFN shapes (decode M = 1 / 4 on the gemv kernel, prefill M =
-               64 / 256 on the tensor-core kernel; 4-bit codes, group 128,
-               bf16 x), then bits 8/2, float32 x, ragged M and N, groups
-               8-512, raw codes, leading dims, each with the kernel it took;
+               FFN shapes (decode M = 1-4 on the tensor-core decode kernel,
+               timed beside the gemv kernel; prefill M = 64 / 256 on the
+               tensor-core prefill kernel; 4-bit codes, group 128, bf16 x;
+               weights cold in L2), two calls bit-identical, the decode
+               kernel at every cluster size, then bits 8/2, float32 x,
+               ragged M and N, groups 8-512, raw codes, leading dims,
+               unaligned x and codes, clusters, each with the kernel it
+               took;
   3d. flash_decode — the contiguous flash-decode kernel at (a) Granite's
                serving shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (the
                paged kernel's shapes), then length 0 and 1, S off the tile,
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -706,15 +711,17 @@ def _page_fault() -> None:
 # ---------------------------------------------------------------------------
 # float32 sums over K <= 8192 taken in another order than torch.matmul's
 DQ_TOL = dict(rtol=1e-4, atol=1e-4)
+# bytes the timed launches of one shape cycle through (twice the 50 MB L2)
+L2_CYCLE_BYTES = 100 * 2**20
 
 
 def _dq_case(dev, g, m, k, n, *, bits=4, group=128, lead=(), x_dtype=torch.bfloat16,
-             raw=False, offset=False):
+             raw=False, offset=False, codes_offset=False):
     """A seeded weight quantized on the card (quantize_tree's default group
     128) and x of shape (*lead, m, k); `raw` replaces the codes by seeded
     random bytes (every two's-complement code, -8 and -128 included);
     `offset` puts x, still contiguous, one element into its storage (not
-    16-byte aligned)."""
+    16-byte aligned); `codes_offset` puts the codes 4 bytes into theirs."""
     from repro_torch.quant.quantize import QTensor, quantize
     w = torch.randn((k, n), generator=g, device=dev) * 0.02
     x = torch.randn((*lead, m, k), generator=g, device=dev).to(x_dtype)
@@ -727,15 +734,25 @@ def _dq_case(dev, g, m, k, n, *, bits=4, group=128, lead=(), x_dtype=torch.bfloa
         data = torch.randint(-128, 128, tuple(q.data.shape), generator=g, device=dev,
                              dtype=torch.int8)
         q = QTensor(data, q.scale, bits, group, k)
+    if codes_offset:
+        buf = torch.empty(q.data.numel() + 4, dtype=torch.int8, device=dev)
+        buf[4:].copy_(q.data.reshape(-1))
+        q = QTensor(buf[4:].view(q.data.shape), q.scale, bits, group, k)
     return x, q
 
 
 def _dq_check(name, x, q):
     """(max abs error, the kernel that launched): the kernel is read from the
     wrapper's per-kernel launch counts around the call."""
+    return _dq_check_on(None, name, x, q)
+
+
+def _dq_check_on(kernel, name, x, q):
+    """`_dq_check` through the named kernel (``ops._dequant_matmul_on``), or
+    through the wrapper's choice when `kernel` is None."""
     from repro_torch.kernels import ops, ref
     before = ops.dequant_mm_launches()
-    got = ops.dequant_matmul(x, q)
+    got = ops.dequant_matmul(x, q) if kernel is None else ops._dequant_matmul_on(kernel, x, q)
     after = ops.dequant_mm_launches()
     ran = [k for k in after if after[k] != before.get(k, 0)]
     check(len(ran) == 1, f"{name}: launched {ran}, not one dequant-matmul kernel")
@@ -745,56 +762,128 @@ def _dq_check(name, x, q):
     return _close(f"{name} ({ran[0]})", got, want, **DQ_TOL), ran[0]
 
 
+def _cycling(fns):
+    """One callable that calls each of `fns` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _copies(q, nbytes_each: int):
+    """Copies of q (same codes, other addresses), enough that cycling
+    through them moves over twice the card's 50 MB L2 cache: a decode step
+    reads each layer's weights once, cold, and so does each timed launch."""
+    from repro_torch.quant.quantize import QTensor
+    n = max(2, -(-L2_CYCLE_BYTES // nbytes_each))
+    return [q] + [QTensor(q.data.clone(), q.scale.clone(), q.bits, q.group_size, q.orig_k)
+                  for _ in range(n - 1)]
+
+
+def _dq_plan(kern, x, q):
+    """(tile, splits or cluster size, blocks per SM, registers) of the
+    kernel the wrapper launches for x @ q."""
+    from repro_torch.kernels import ops
+    blocks, regs = ops.dequant_mm_occupancy(kern, q.bits, int(x.dtype == torch.bfloat16),
+                                            q.group_size)
+    splits = ops._dequant_mm_splits_for(kern, x.reshape(-1, x.shape[-1]), q)
+    rows = {"mma": ops.DEQUANT_MM_MMA_ROWS, "mmv": ops.DEQUANT_MM_MMV_ROWS,
+            "gemv": ops.DEQUANT_MM_GEMV_ROWS}[kern]
+    return f"{rows}x{ops.DEQUANT_MM_TILE_N}", splits, blocks, regs
+
+
 def _dequant_matmul_row(dev, g) -> dict:
-    """The kernel against its plain version at Granite's wi (2048 -> 16384,
-    SwiGLU) and wo (8192 -> 2048) for decode (M 1, 4: the gemv kernel) and
-    chunked prefill (M 64, 256 = 4 slots x 64 tokens: the tensor-core
-    kernel), 4-bit codes, bf16 x; then every compiled variant and the edges
-    of both kernels at small shapes, each printed with the kernel that ran.
-    Beside it, torch.matmul on the pre-dequantized bf16 weight, the prefill
-    yardstick (it reads 4x the bytes)."""
+    """The kernels against their plain version at Granite's wi (2048 ->
+    16384, SwiGLU) and wo (8192 -> 2048), 4-bit codes, group 128, bf16 x:
+    decode M = 1-4 on the tensor-core decode kernel ("mmv") and chunked
+    prefill M = 64, 256 (4 slots x 64 tokens) on the tensor-core prefill
+    kernel ("mma").  Each shape is timed with its weight cold in L2, as a
+    decode step finds it (launches cycle through copies of the weight); at
+    the decode shapes the gemv kernel (``ops._dequant_matmul_on``) beside
+    it in the same run, and two calls must give bit-identical outputs.
+    Beside every shape torch.matmul on the pre-dequantized bf16 weight,
+    the yardstick (it reads 4x the bytes); at the decode shapes also both
+    kernels with one weight, warm in L2 after its first launch.  The decode
+    kernel at M = 1 at every cluster size (wo 1-8, wi 1-2), checked and
+    timed cold, beside the size the wrapper picks.  Then every compiled
+    variant and the edges of the three kernels at small shapes, each
+    printed with the kernel that ran."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import dequantize
 
     cfg = get_config(GRANITE)
     mats = {"wi": (cfg.d_model, 2 * cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
-    per, err = {}, 0.0
+    per, err, same = {}, 0.0, []
     for name, (k, n) in mats.items():
-        for m in (1, 4, 64, 256):
+        for m in (1, 2, 3, 4, 64, 256):
             x, q = _dq_case(dev, g, m, k, n)
             e, kern = _dq_check(f"dequant_matmul {name} M={m}", x, q)
             err = max(err, e)
-            wb = dequantize(q, dtype=torch.bfloat16)
             out = ops.dequant_matmul(x, q)
-            ms = graph_ms(lambda: ops.dequant_matmul(x, q))
+            again = ops.dequant_matmul(x, q)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"dequant_matmul {name} M={m}: two calls differ")
+            same.append(f"{name} M={m}")
+            qs = _copies(q, nbytes(q.data, q.scale))
+            ms = graph_ms(_cycling([lambda c=c: ops.dequant_matmul(x, c) for c in qs]))
             call = cuda_ms(lambda: ops.dequant_matmul(x, q))
             plain = cuda_ms(lambda: ref.dequant_matmul_ref(x, q), warmup=1, iters=5)
-            mm = graph_ms(lambda: torch.matmul(x, wb))
+            wb = dequantize(q, dtype=torch.bfloat16)
+            wbs = [wb] + [wb.clone() for _ in range(-(-L2_CYCLE_BYTES // nbytes(wb)) - 1)]
+            mm = graph_ms(_cycling([lambda w=w: torch.matmul(x, w) for w in wbs]))
+            gemv = warm = gemv_warm = None
+            if kern == "mmv":
+                e2, _ = _dq_check_on("gemv", f"dequant_matmul {name} M={m}", x, q)
+                err = max(err, e2)
+                gemv = graph_ms(_cycling([lambda c=c: ops._dequant_matmul_on("gemv", x, c)
+                                          for c in qs]))
+                # one weight, warm in L2 after its first launch
+                warm = graph_ms(lambda: ops.dequant_matmul(x, q))
+                gemv_warm = graph_ms(lambda: ops._dequant_matmul_on("gemv", x, q))
             moved = nbytes(x, q.data, q.scale, out)
-            peak = BF16_FLOPS if kern == "mma" else F32_FLOPS
+            peak = BF16_FLOPS if kern in ("mma", "mmv") else F32_FLOPS
             bms, by = bound(moved, 2 * m * k * n, peak)
-            blocks, regs = ops.dequant_mm_occupancy(kern, 4, 1, 128)
-            splits = ops.dequant_mm_splits(
-                m, k, n, 4, 128, ops._sm_count(x.device), kern,
-                blocks if kern == "mma" else ops.DEQUANT_MM_BLOCKS_PER_SM)
-            rows = ops.DEQUANT_MM_MMA_ROWS if kern == "mma" else ops.DEQUANT_MM_GEMV_ROWS
+            tile, splits, blocks, regs = _dq_plan(kern, x, q)
             tflops = 2 * m * k * n / ms / 1e9
             per[f"{name} M={m}"] = dict(
-                m=m, k=k, n=n, bits=4, group=128, kernel=kern,
-                tile=f"{rows}x{ops.DEQUANT_MM_TILE_N}", splits=splits, blocks_per_sm=blocks,
-                regs=regs, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                gbps=moved / ms / 1e6, tflops=tflops, matmul_bf16_ms=mm)
+                m=m, k=k, n=n, bits=4, group=128, kernel=kern, tile=tile,
+                **({"cluster": splits} if kern == "mmv" else {"splits": splits}),
+                blocks_per_sm=blocks, regs=regs, ms=ms, call_ms=call, plain_ms=plain,
+                bound_ms=bms, bound_by=by, gbps=moved / ms / 1e6, tflops=tflops,
+                gemv_ms=gemv, matmul_bf16_ms=mm, l2_warm_ms=warm, gemv_l2_warm_ms=gemv_warm)
+            split = f"cluster of {splits}" if kern == "mmv" else f"{splits} splits"
+            vs_gemv = (f", gemv kernel {gemv:.4f} ms ({gemv / ms:.2f}x); L2 warm {warm:.4f} ms, "
+                       f"gemv {gemv_warm:.4f} ms" if gemv else "")
             print(f"[kernels] dequant_matmul {name} M={m} K={k} N={n}: {kern} kernel, tile "
-                  f"{rows}x{ops.DEQUANT_MM_TILE_N}, {splits} splits, {blocks} blocks/SM, "
-                  f"{regs} registers: {ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, "
-                  f"{tflops:.1f} TFLOP/s; bound {bms:.4f} ms by {by}), {call:.4f} ms per call "
-                  f"(plain {plain:.3f} ms per call; torch.matmul on the dequantized bf16 "
+                  f"{tile}, {split}, {blocks} blocks/SM, {regs} registers: {ms:.4f} ms on the "
+                  f"card, L2 cold ({moved / ms / 1e6:.0f} GB/s, {tflops:.1f} TFLOP/s; bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.0%} of it){vs_gemv}; {call:.4f} ms per "
+                  f"call (plain {plain:.3f} ms per call; torch.matmul on the dequantized bf16 "
                   f"weight {mm:.4f} ms, {ms / mm:.2f}x)", flush=True)
-            del x, q, wb, out
+            del x, q, qs, wb, wbs, out, again
         torch.cuda.empty_cache()
+    print(f"[kernels] dequant_matmul mmv kernel, 4 bits: clusters the card runs at once with "
+          f"one block per SM, by cluster size: {ops.dequant_mmv_fit(4)}", flush=True)
+    sweep = {}
+    for name, sizes in (("wo", range(1, 9)), ("wi", (1, 2))):
+        k, n = mats[name]
+        x, q = _dq_case(dev, g, 1, k, n)
+        want = ref.dequant_matmul_ref(x, q)
+        qs = _copies(q, nbytes(q.data, q.scale))
+        sweep[name] = {}
+        for c in sizes:
+            got = ops._dequant_matmul_on("mmv", x, q, c)
+            torch.cuda.synchronize()
+            err = max(err, _close(f"dequant_matmul {name} M=1 cluster {c} (mmv)", got, want,
+                                  **DQ_TOL))
+            sweep[name][c] = graph_ms(_cycling(
+                [lambda w=w, c=c: ops._dequant_matmul_on("mmv", x, w, c) for w in qs]))
+        chosen = ops._dequant_mm_splits_for("mmv", x.reshape(-1, k), q)
+        print(f"[kernels] dequant_matmul {name} M=1, mmv kernel by cluster size, ms on the card "
+              f"(L2 cold): {' '.join(f'{c}: {t:.4f}' for c, t in sweep[name].items())}; the "
+              f"wrapper picks {chosen}", flush=True)
+        del x, q, qs, want, got
 
-    ran = {"gemv": [], "mma": []}
+    ran = {"gemv": [], "mma": [], "mmv": []}
     for bits in (8, 4, 2):
         for x_dtype in (torch.bfloat16, torch.float32):
             for m in (3, 24):                               # decode and prefill
@@ -827,23 +916,60 @@ def _dequant_matmul_row(dev, g) -> dict:
              "split K M=64 wo, bits 8": (dict(m=64, k=8192, n=2048, bits=8), "mma"),
              "leading dims (2, 3)": (dict(m=3, k=2048, n=256, lead=(2,)), "mma"),
              "leading dims (2, 40)": (dict(m=40, k=1024, n=256, lead=(2,)), "mma"),
+             "bits 8 wo M=3": (dict(m=3, k=8192, n=2048, bits=8), "mmv"),
+             "bits 2 wo M=2": (dict(m=2, k=8192, n=2048, bits=2), "mmv"),
+             "bits 8 wi M=1": (dict(m=1, k=2048, n=16384, bits=8), "mmv"),
+             "bits 2 wi M=4": (dict(m=4, k=2048, n=16384, bits=2), "mmv"),
+             "group 16 M=4": (dict(m=4, k=512, n=256, group=16), "mmv"),
+             "group 16 bits 8 M=3": (dict(m=3, k=512, n=256, bits=8, group=16), "mmv"),
+             "group 32 M=1": (dict(m=1, k=512, n=256, group=32), "mmv"),
+             "group 64 M=3": (dict(m=3, k=1024, n=384, group=64), "mmv"),
+             "group 256 M=4": (dict(m=4, k=1024, n=256, group=256), "mmv"),
+             "group 48 M=2": (dict(m=2, k=480, n=256, group=48), "mmv"),
+             "ragged N=96 M=4": (dict(m=4, k=384, n=96), "mmv"),
+             "ragged N=272 M=2": (dict(m=2, k=512, n=272), "mmv"),
+             "raw codes bits 8 M=4": (dict(m=4, k=512, n=256, bits=8, raw=True), "mmv"),
+             "raw codes bits 4 M=3": (dict(m=3, k=512, n=256, raw=True), "mmv"),
+             "raw codes bits 2 M=1": (dict(m=1, k=512, n=256, bits=2, raw=True), "mmv"),
+             "M=1 bits 8 wo": (dict(m=1, k=8192, n=2048, bits=8), "mmv"),
+             "leading dims (2, 2)": (dict(m=2, k=2048, n=256, lead=(2,)), "mmv"),
+             "leading dims (2, 2, 1)": (dict(m=1, k=1024, n=256, lead=(2, 2)), "mmv"),
+             "K of a single group M=4": (dict(m=4, k=128, n=512), "mmv"),
+             "K of a single group 256 M=2": (dict(m=2, k=256, n=1024, group=256), "mmv"),
+             "10 groups over a cluster of 6": (dict(m=2, k=1280, n=2048), "mmv"),
+             "32 groups over a cluster of 6": (dict(m=3, k=8192, n=2048, group=256), "mmv"),
+             "3 groups over a cluster of 3": (dict(m=4, k=384, n=512), "mmv"),
              "group 8 M=24": (dict(m=24, k=256, n=128, group=8), "gemv"),
              "group 512 M=24": (dict(m=24, k=1024, n=128, group=512), "gemv"),
-             "raw codes bits 4 M=3": (dict(m=3, k=512, n=256, raw=True), "gemv"),
-             "ragged N=96 M=4": (dict(m=4, k=384, n=96), "gemv"),
-             "M=1 bits 8 wo": (dict(m=1, k=8192, n=2048, bits=8), "gemv"),
+             "group 8 M=3": (dict(m=3, k=256, n=128, group=8), "gemv"),
+             "group 512 M=1": (dict(m=1, k=1024, n=128, group=512), "gemv"),
              "f32 x M=64": (dict(m=64, k=1024, n=256, x_dtype=torch.float32), "gemv"),
+             "f32 x M=4 wo": (dict(m=4, k=8192, n=2048, x_dtype=torch.float32), "gemv"),
              "bf16 x off 16-byte alignment M=24": (dict(m=24, k=512, n=256, offset=True),
-                                                   "gemv")}
+                                                   "gemv"),
+             "bf16 x off 16-byte alignment M=4": (dict(m=4, k=512, n=256, offset=True),
+                                                  "gemv"),
+             "ragged N=100 M=3 group 32": (dict(m=3, k=256, n=100, group=32), "gemv"),
+             "ragged N=100 M=1 bits 2 group 16": (dict(m=1, k=256, n=100, bits=2, group=16),
+                                                  "gemv"),
+             "codes off 16-byte alignment M=2": (dict(m=2, k=512, n=256, codes_offset=True),
+                                                 "gemv")}
     for name, (kw, want) in cases.items():
         x, q = _dq_case(dev, g, kw.pop("m"), kw.pop("k"), kw.pop("n"), **kw)
         e, kern = _dq_check(f"dequant_matmul {name}", x, q)
         check(kern == want, f"dequant_matmul {name}: took the {kern} kernel, not {want}")
         err = max(err, e)
         ran[kern].append(name)
+        if kern == "mmv":
+            a, b = ops.dequant_matmul(x, q), ops.dequant_matmul(x, q)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"dequant_matmul {name}: two calls differ")
+            same.append(name)
     for kern, names in ran.items():
         print(f"[kernels] dequant_matmul, {kern} kernel: {len(names)} further variants agree "
               f"with the plain version: {'; '.join(names)}", flush=True)
+    print(f"[kernels] dequant_matmul: two calls gave bit-identical outputs at {len(same)} "
+          f"shapes: {'; '.join(same)}", flush=True)
     a = per["wi M=4"]
     return dict(name="dequant_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
@@ -851,9 +977,16 @@ def _dequant_matmul_row(dev, g) -> dict:
                 ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
                 bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
                 library="none: no single PyTorch call dequantizes and multiplies; the "
-                        "prefill yardstick is torch.matmul on the pre-dequantized bf16 "
-                        "weight (4x the bytes), under shapes as matmul_bf16_ms",
-                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+                        "yardstick is torch.matmul on the pre-dequantized bf16 weight (4x "
+                        "the bytes), under shapes as matmul_bf16_ms",
+                kernels={"mmv": "dequant_mmv_kernel: decode, M <= 4 rows of bf16 x (the "
+                                "row's ms, at wi M=4)",
+                         "mma": "dequant_mma_kernel: prefill, M > 4 rows of bf16 x",
+                         "gemv": "dequant_mm_kernel: float32 x, unaligned x, other groups, "
+                                 "decode at N % 16 != 0 or unaligned codes"},
+                shapes=per, cluster_sweep_ms=sweep,
+                variants={k: len(v) for k, v in ran.items()},
+                bit_identical=len(same), tolerance="rtol 1e-4 atol 1e-4")
 
 
 # ---------------------------------------------------------------------------
@@ -1360,10 +1493,13 @@ def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
     bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
     check(not bad, f"{label}: plain versions ran on the card: {bad}")
     if "dequant_matmul" in must_launch:
-        # decode on the gemv kernel, chunked prefill on the tensor-core kernel
-        for kern in ("gemv", "mma"):
+        # decode on the tensor-core decode kernel, chunked prefill on the
+        # tensor-core prefill kernel, nothing on the gemv kernel
+        for kern in ("mmv", "mma"):
             check(dq_kernels.get(kern, 0) > 0, f"{label}: the {kern} dequant-matmul kernel "
                                                "never launched")
+        check(dq_kernels.get("gemv", 0) == 0, f"{label}: {dq_kernels.get('gemv', 0)} "
+                                                 "launches on the gemv dequant-matmul kernel")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
         "layers": cfg.num_layers, "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
@@ -1381,8 +1517,9 @@ def _decode_window(model, params, steps: int = 3) -> dict:
     slots holding 48-token prompts, `steps` steps under torch.profiler;
     the kernels' device time (the summed time of every kernel event) over
     the steps' wall time gives the device's busy share; the top kernels by
-    device time beside it.  Reports "not measured" when the profiler
-    records no device time."""
+    device time beside it, and the decode dequant-matmul kernel's own
+    (1.39 ms per step on the gemv kernel before it, PERF.md).  Reports "not
+    measured" when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import DenseBackend
@@ -1408,8 +1545,11 @@ def _decode_window(model, params, steps: int = 3) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     if busy_us <= 0:
         return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured"}
+    mmv = [e for e in events if "dequant_mmv_kernel" in e.key]
     return {"step_ms": wall / steps * 1e3, "device_ms_per_step": busy_us / steps / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,
+            "mmv_ms_per_step": sum(e.self_device_time_total for e in mmv) / steps / 1e3,
+            "mmv_launches_per_step": sum(e.count for e in mmv) / steps,
             "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
                                         for e in top}}
 

@@ -52,6 +52,7 @@ SIGNATURES = {
     "dequant_matmul": {
         "dequant_matmul_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "dequant_matmul_occupancy": (_I, _I, _I, _I, _IP, _IP),
+        "dequant_mmv_clusters": (_I, _I, _IP),
     },
     "flash_decode": {
         "paged_flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,

@@ -8,14 +8,71 @@
 //   and any N that is a multiple of 4: the ragged edge is masked, where the
 //   Pallas wrapper pads x, data and scale to its blocks.
 //
-// Two kernels, chosen by the wrapper from the shapes (ops.dequant_mm_kernel):
+// Three kernels, chosen by the wrapper from the shapes (ops.dequant_mm_kernel):
 //
-// "gemv", dequant_mm_kernel: decode (M = live rows, 1-4), and whatever the
-// tensor-core kernel does not take (float32 x, groups that are not a
-// multiple of 16 or above 256); correct at any M.  Every packed weight
-// byte serves at most 4 rows, so device-memory bytes bound it (Granite's
-// FFN up/gate matrix, 2048 x 16384 at 4 bits, is 16.8 MB of codes and 1 MB
-// of scales: ~5.3 us at 3.35 TB/s).
+// "mmv", dequant_mmv_kernel: decode, M <= 4 rows of 16-byte-aligned bf16 x
+// with groups a multiple of 16 up to 256 (every decode product of the
+// quantized Granite serve).  Each packed weight byte serves at most 4 rows,
+// so device-memory bytes bound it: Granite's FFN up/gate matrix, 2048 x
+// 16384 at 4 bits, is 16.8 MB of codes and 1 MB of scales, ~5.4 us at 3.35
+// TB/s; the down matrix, 8192 x 2048, half of that.  The gemv kernel below
+// spends ~8 instructions per 4-bit code (decode, scale, 4 FFMAs of which 3
+// run on zero rows at M = 1), reads 4 bytes per lane and load, and at wo
+// writes float32 partials for a second launch.  This kernel:
+//   * Multiply-adds on tensor cores with the operands swapped: y^T = W^T x^T
+//     on mma.sync m16n8k16.  Sixteen weight columns are the MMA's rows, the
+//     <= 4 rows of x its n8 columns (4-7 are zero).  A lane (g, t) owns the
+//     16 columns [16g, +16) of the block's 128 and the k values 4t .. 4t + 3
+//     of each k16 step; m16 tile j maps its rows g and g + 8 to the lane's
+//     columns 2j and 2j + 1, and the MMA's k pairs (2t, 2t + 1) and (2t + 8,
+//     2t + 9) to k 4t, 4t + 1 and 4t + 2, 4t + 3, so that B is one 8-byte
+//     load of x and each A register is two codes of one column from one
+//     packed byte (4 and 2 bits) or two packed rows (8 bits).
+//   * Codes become exact bf16 integers as in the "mma" kernel below: a byte
+//     permute, one LOP3 and one bf16x2 subtraction per pair at 4 and 2 bits
+//     (~2 instructions per 4-bit code in all, against ~8), through float32
+//     at 8 bits.  Per quant group a warp accumulates into a zeroed float32
+//     partial and adds partial * scale[group, n] to its output with one FMA
+//     per accumulator: a scale folded into a bf16 weight would miss the
+//     card's tolerance.
+//   * Bytes in flight without a block barrier: each of the 8 warps streams
+//     its own run of k16 steps through a private 2-stage ring.  Lane 0 asks
+//     for a stage (32 packed rows x 128 columns of codes, 4 KB, and the
+//     stage's x) with two TMA tile copies completing on the stage's
+//     mbarrier; the code tile lands with the 128-byte swizzle, so the lanes'
+//     16-byte reads are free of bank conflicts.  On the H100 the same ring
+//     fed by each lane's own 16-byte cp.async copies kept every SM well
+//     below its share of the bandwidth, with or without the compute; TMA
+//     tiles took a quarter off the kernel, and two stages of 4 KB beat
+//     three or four of 2 KB (more bytes in flight made the kernel slower).
+//     Those three comparisons come from ablations that no script of the repo
+//     reruns; they are unverified here.  The tensor maps need N % 16 == 0
+//     and 16-byte aligned codes: other decode shapes go to the gemv kernel.
+//   * Launched as a programmatic dependent: a block starts and sets up its
+//     mbarriers while the kernel before it drains, and reads nothing of
+//     global memory (codes, scales, x) before griddepcontrol.wait, so that
+//     a kernel writing the weights just before it is seen whole.
+//   * No partials in device memory and no second launch.  Where N alone
+//     fills the card (wi: 128 column tiles) a block owns a column tile and
+//     all of K; where it does not (wo: 16 tiles) K is split in whole groups
+//     across the blocks of a thread-block cluster, whose block sums are
+//     added through distributed shared memory in rank order.  Inside a
+//     block the warps' sums are added in warp order.  No atomics: the
+//     result is the same on every run.  The cluster grows only while every
+//     tile's cluster runs at once with one block per SM
+//     (ops.dequant_mm_splits): the H100 holds 15 clusters of 7 or 8 that
+//     way, so wo's 16 tiles split 6 ways.  chip_smoke.py phase 3c times wo
+//     at every cluster size beside the chosen one.
+//   * What bounds it (PERF.md): not the bytes alone.  It is barely faster
+//     with its weights warm in L2 than cold, and wo takes as long as wi on
+//     half the bytes.  The candidates, not measured apart: a block's wait
+//     for its first stage, and the decode's ALU work (two half-rate ALU
+//     instructions per byte) that the TMA waits of 8 warps per SM do not
+//     fully hide.
+//
+// "gemv", dequant_mm_kernel: whatever the tensor-core kernels do not take
+// (float32 x, bf16 x off 16-byte alignment, groups that are not a multiple
+// of 16 or are above 256); correct at any M.  Float32 FMAs:
 //   * A block of 128 threads owns 4 rows and 128 columns; a lane owns 4
 //     consecutive columns and reads them with one 4-byte load per packed
 //     row, so a warp reads 128 contiguous bytes.  The 4 warps take
@@ -77,9 +134,12 @@
 //     instantiation and group (two blocks of one SM overlap each other's
 //     stage barriers).
 //
-// Splits (both kernels): each split writes a float32 partial and a second
-// kernel adds the splits in split order.  No atomics: the result is the
-// same on every run.
+// Splits (gemv and mma kernels): each split writes a float32 partial and a
+// second kernel adds the splits in split order.  No atomics: the result is
+// the same on every run.
+#include <cooperative_groups.h>
+#include <cuda.h>
+
 #include "dequant.cuh"
 #include "mma.cuh"
 
@@ -524,6 +584,380 @@ cudaError_t launch_mma(const void* x, const void* data, const void* scale, float
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core matrix-vector kernel (decode)
+// ---------------------------------------------------------------------------
+constexpr int kMmvThreads = 256;             // 8 warps, each streaming its own run of K
+constexpr int kMmvWarps = kMmvThreads / 32;
+constexpr int kMmvCols = 128;                // columns of a block: 16 per lane, 8 m16 tiles
+constexpr int kMmvRows = 4;                  // rows of x: the n8 operand's columns 0-3
+constexpr int kMmvElems = kMmvRows * kMmvCols;   // outputs of a block
+constexpr int kMmvStages = 2;                // ring stages of a warp
+constexpr int kMmvStageRows = 32;            // packed rows of a stage: 4 KB of codes
+constexpr int kMmvCodeBytes = kMmvStageRows * kMmvCols;
+constexpr int kMmvMaxCluster = 8;            // the portable cluster size
+
+// k16 steps of a stage (a k16 step is 2 * bits packed rows), and a warp's
+// stage bytes: the code tile, then x for the stage's k values, 8 rows
+// (rows past M zero) of 16 k per step.
+__host__ __device__ constexpr int mmv_steps_per_stage(int bits) {
+  return kMmvStageRows / (2 * bits);
+}
+__host__ __device__ constexpr int mmv_x_bytes(int bits) {
+  return 8 * 16 * 2 * mmv_steps_per_stage(bits);
+}
+// Dynamic shared memory: the warps' rings (code tiles 1024-byte aligned for
+// the 128-byte swizzle, x tiles after them), their mbarriers, and slack to
+// align the base.
+__host__ __device__ constexpr int mmv_ring_bytes(int bits) {
+  return kMmvWarps * kMmvStages * (kMmvCodeBytes + mmv_x_bytes(bits));
+}
+__host__ __device__ constexpr int mmv_smem(int bits) {
+  return 1024 + mmv_ring_bytes(bits) + kMmvWarps * kMmvStages * 8;
+}
+static_assert(mmv_ring_bytes(8) >= (kMmvWarps + 1) * kMmvElems * 4,
+              "the warps' and the block's sums fit in the ring");
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// A 2-D TMA tile copy global -> shared, completing on mbarrier `bar`; the
+// tile is box (c0, c1) of the tensor map (columns past the tensor's edge
+// read as zero).
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Fields f and f + 1 (4 or 2 bits) of byte b of the packed word w, one
+// column's codes of two consecutive k, as exact bf16 integers, the lower k
+// in the low half: a byte permute, one LOP3 and one bf16x2 subtraction, as
+// in load_b.
+template <int BITS>
+__device__ __forceinline__ uint32_t code_pair(uint32_t w, int b, int f) {
+  constexpr uint32_t kMask = ((1u << BITS) - 1) * 0x00010001u;
+  constexpr uint32_t kBase = (0x4300u | (1u << (BITS - 1))) * 0x00010001u;  // 128 + 2^(bits-1)
+  const uint32_t v =
+      and_xor(prmt(w >> (BITS * f), w >> (BITS * (f + 1)), b | (4 + b) << 8), kMask, kBase);
+  return sub_bf16x2(v, kBase);
+}
+
+// Byte b of the 8-bit words lo and hi (one column, two k) as exact bf16.
+__device__ __forceinline__ uint32_t code_pair8(uint32_t lo, uint32_t hi, int b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(decode<8>(lo, 8 * b), decode<8>(hi, 8 * b));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of m16 tile j: rows g and g + 8 are the lane's columns 2j and
+// 2j + 1 (bytes b, b + 1 of word j / 2 of every piece), k pairs (2t, 2t + 1)
+// and (2t + 8, 2t + 9) the k values 4t, 4t + 1 and 4t + 2, 4t + 3 of the
+// step.  w[i] is the lane's piece i: 16 columns of one packed row.
+template <int BITS>
+__device__ __forceinline__ void mmv_a(uint32_t (&w)[BITS / 2][4], int j, uint32_t (&a)[4]) {
+  const int q = j >> 1;
+  const int b = 2 * (j & 1);
+  if constexpr (BITS == 8) {                 // pieces 0-3: k 4t, 4t + 1, 4t + 2, 4t + 3
+    a[0] = code_pair8(w[0][q], w[1][q], b);
+    a[1] = code_pair8(w[0][q], w[1][q], b + 1);
+    a[2] = code_pair8(w[2][q], w[3][q], b);
+    a[3] = code_pair8(w[2][q], w[3][q], b + 1);
+  } else if constexpr (BITS == 4) {          // piece 0: k 4t, 4t + 1; piece 1: 4t + 2, 4t + 3
+    a[0] = code_pair<4>(w[0][q], b, 0);
+    a[1] = code_pair<4>(w[0][q], b + 1, 0);
+    a[2] = code_pair<4>(w[1][q], b, 0);
+    a[3] = code_pair<4>(w[1][q], b + 1, 0);
+  } else {                                   // one piece: k 4t .. 4t + 3, fields 0-3 of a byte
+    a[0] = code_pair<2>(w[0][q], b, 0);
+    a[1] = code_pair<2>(w[0][q], b + 1, 0);
+    a[2] = code_pair<2>(w[0][q], b, 2);
+    a[3] = code_pair<2>(w[0][q], b + 1, 2);
+  }
+}
+
+// Block (rank, column tile) of kMmvThreads threads -> out rows [0, M) (M <=
+// 4), columns [128 y, +128).  The gridDim.x blocks of a column tile form
+// one cluster and split the quant groups.  A warp's stages come by TMA
+// (code_map: the codes as an (K / pack) x N byte tensor, N % 16 == 0 and
+// 16-byte aligned, boxes of 32 rows x 128 columns, 128-byte swizzle; x_map:
+// x as an M x K bf16 tensor, boxes of 8 rows).
+template <int BITS>
+__global__ void __launch_bounds__(kMmvThreads, 2) dequant_mmv_kernel(
+    const __grid_constant__ CUtensorMap code_map, const __grid_constant__ CUtensorMap x_map,
+    const float* __restrict__ scale, int M, int K, int N, int group_size,
+    float* __restrict__ out) {
+  constexpr int P = BITS / 2;                // pieces of a lane per k16 step
+  constexpr int U = mmv_steps_per_stage(BITS);
+  constexpr int ROWS = 2 * BITS;             // packed rows of a k16 step
+  constexpr int XB = mmv_x_bytes(BITS);
+  constexpr int XROW = XB / 8;               // bytes of one x row of a stage
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // 1024-byte aligned base: the 128-byte swizzle repeats every 8 rows
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ranks = gridDim.x;
+  const int rank = blockIdx.x;
+  const int n0 = blockIdx.y * kMmvCols;
+  const int col = n0 + 16 * g;               // the lane's 16 columns
+  const int spg = group_size / 16;           // k16 steps of a group
+  const int groups = K / group_size;
+  // the rank's whole groups, then the warp's share of their k16 steps
+  const int r0 = rank * groups / ranks * spg;
+  const int r1 = (rank + 1) * groups / ranks * spg;
+  const int s0 = r0 + warp * (r1 - r0) / kMmvWarps;
+  const int steps = r0 + (warp + 1) * (r1 - r0) / kMmvWarps - s0;
+  const int n_stages = (steps + U - 1) / U;
+
+  unsigned char* codes = smem + warp * kMmvStages * kMmvCodeBytes;
+  unsigned char* xs = smem + kMmvWarps * kMmvStages * kMmvCodeBytes + warp * kMmvStages * XB;
+  const uint32_t codes_s = smem_u32(codes);
+  const uint32_t xs_s = smem_u32(xs);
+  const uint32_t bars = smem_u32(smem + mmv_ring_bytes(BITS)) + warp * kMmvStages * 8;
+  if (lane == 0) {
+    if (warp == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&code_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
+                   : "memory");
+    }
+    for (int i = 0; i < kMmvStages; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // Where the lane reads piece i of step u of a stage: packed row u ROWS +
+  // P t + i of the code tile, its 16-byte chunk g swizzled by the row (chunk
+  // g ^ (row % 8), TMA's 128-byte swizzle, so that the 8 lanes of a
+  // quarter-warp read distinct banks); x row g, k 16 u + 4t .. + 3 of the x
+  // tile.
+  auto code_at = [&](int u, int i) {
+    const int r = u * ROWS + P * t + i;
+    return r * kMmvCols + ((g ^ (r & 7)) << 4);
+  };
+  auto x_at = [&](int u) { return g * XROW + u * 32 + 8 * t; };
+
+  // lane 0 asks for the stage's code tile and x tile on the slot's mbarrier
+  auto load = [&](int st) {
+    const int slot = st % kMmvStages;
+    __syncwarp();                            // every lane is done with the slot
+    if (lane == 0) {
+      const uint32_t bar = bars + 8 * slot;
+      // the lanes' reads of the slot come before the copies that refill it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, kMmvCodeBytes + XB);
+      tma_2d(codes_s + slot * kMmvCodeBytes, &code_map, n0, (s0 + st * U) * ROWS, bar);
+      tma_2d(xs_s + slot * XB, &x_map, (s0 + st * U) * 16, 0, bar);
+    }
+  };
+
+  float acc[8][4], part[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.f;
+  float4 sc[4];                              // scales of the lane's 16 columns
+  auto load_scale = [&](int s) {             // those of absolute step s's group
+    const float* sp = scale + (size_t)(s / spg) * N + col;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      sc[q] = col + 4 * q < N ? __ldg(reinterpret_cast<const float4*>(sp) + q)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  // Launched as the programmatic dependent of the kernel before it: no
+  // global read (codes, scales, x) before that kernel's writes are seen.
+  griddep_wait();
+  for (int st = 0; st < min(kMmvStages - 1, n_stages); ++st) load(st);
+  if (steps > 0) load_scale(s0);
+  int left = spg - s0 % spg;                 // steps left in the current group
+  for (int it = 0; it < n_stages; ++it) {
+    mbar_wait(bars + 8 * (it % kMmvStages), (it / kMmvStages) & 1);
+    // refill the slot read in the previous iteration
+    if (it + kMmvStages - 1 < n_stages) load(it + kMmvStages - 1);
+    const unsigned char* ct = codes + (it % kMmvStages) * kMmvCodeBytes;
+    const unsigned char* xt = xs + (it % kMmvStages) * XB;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = it * U + u;
+      if (s >= steps) break;
+      uint32_t w[P][4];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const uint4 v = *reinterpret_cast<const uint4*>(ct + code_at(u, i));
+        w[i][0] = v.x;
+        w[i][1] = v.y;
+        w[i][2] = v.z;
+        w[i][3] = v.w;
+      }
+      const uint2 xb = *reinterpret_cast<const uint2*>(xt + x_at(u));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t a[4];
+        mmv_a<BITS>(w, j, a);
+        mma_bf16(part[j], a[0], a[1], a[2], a[3], xb.x, xb.y);
+      }
+      if (--left == 0 || s + 1 == steps) {   // the group, or the warp's run, ends
+        // c0, c1 of tile j are column 2j (rows 2t, 2t + 1), c2, c3 column 2j + 1
+        const float sv[16] = {sc[0].x, sc[0].y, sc[0].z, sc[0].w, sc[1].x, sc[1].y,
+                              sc[1].z, sc[1].w, sc[2].x, sc[2].y, sc[2].z, sc[2].w,
+                              sc[3].x, sc[3].y, sc[3].z, sc[3].w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[j][e] = fmaf(part[j][e], sv[2 * j + (e >> 1)], acc[j][e]);
+            part[j][e] = 0.f;
+          }
+        left = spg;
+        if (s + 1 < steps) load_scale(s0 + s + 1);
+      }
+    }
+  }
+
+  // the warps' sums, [warp][row][column] over the rings (rows 2t, 2t + 1 of
+  // lanes t < 2; lanes t >= 2 hold the zero rows 4-7), added in warp order
+  __syncthreads();                           // every warp is done with its ring
+  float* red = reinterpret_cast<float*>(smem);
+  float* bsum = red + kMmvWarps * kMmvElems;
+  if (t < 2) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* r = red + (warp * kMmvRows + 2 * t) * kMmvCols + 16 * g + 2 * j;
+      *reinterpret_cast<float2*>(r) = make_float2(acc[j][0], acc[j][2]);
+      *reinterpret_cast<float2*>(r + kMmvCols) = make_float2(acc[j][1], acc[j][3]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kMmvElems; e += kMmvThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kMmvWarps; ++wi) v += red[wi * kMmvElems + e];
+    const int m = e / kMmvCols;
+    const int n = n0 + e % kMmvCols;
+    if (ranks > 1)
+      bsum[e] = v;
+    else if (m < M && n < N)
+      out[(size_t)m * N + n] = v;
+  }
+  if (ranks == 1) return;
+  // the cluster's block sums, added in rank order through distributed
+  // shared memory; rank r stores its 1/ranks of the tile
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  const int f0 = rank * kMmvElems / ranks;
+  const int f1 = (rank + 1) * kMmvElems / ranks;
+  for (int f = f0 + threadIdx.x; f < f1; f += kMmvThreads) {
+    float r = 0.f;
+    for (int q = 0; q < ranks; ++q) r += cluster.map_shared_rank(bsum, q)[f];
+    const int m = f / kMmvCols;
+    const int n = n0 + f % kMmvCols;
+    if (m < M && n < N) out[(size_t)m * N + n] = r;
+  }
+  cluster.sync();                            // no block leaves while its sums are read
+}
+
+// The most dynamic shared memory a block of the card may take.
+int max_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// Lets the instantiation take up to the card's limit of dynamic shared
+// memory: its rings, and the whole of an SM's in mmv_clusters (once per
+// process).
+template <int BITS>
+cudaError_t mmv_prepare() {
+  static cudaError_t err = cudaFuncSetAttribute(
+      dequant_mmv_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max(mmv_smem(BITS), max_smem()));
+  return err;
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D tensor map over a row-major (rows, cols) tensor of `elem` bytes per
+// element, boxes of box_rows x box_cols.
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                       int rows, int cols, int box_rows, int box_cols,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BITS>
+cudaError_t launch_mmv(const void* x, const void* data, const void* scale, float* out, int M,
+                       int K, int N, int group_size, int ranks, cudaStream_t s) {
+  cudaError_t err = mmv_prepare<BITS>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap code_map = {}, x_map = {};
+  err = tensor_map(&code_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, data, K * BITS / 8, N,
+                   kMmvStageRows, kMmvCols, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 8,
+                     16 * mmv_steps_per_stage(BITS), CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // a programmatic dependent of the kernel before it: its blocks start as
+  // that kernel's blocks leave (griddep_wait orders every global read)
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, (N + kMmvCols - 1) / kMmvCols, 1);
+  cfg.blockDim = dim3(kMmvThreads, 1, 1);
+  cfg.dynamicSmemBytes = mmv_smem(BITS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, dequant_mmv_kernel<BITS>, code_map, x_map,
+                            (const float*)scale, M, K, N, group_size, out);
+}
+
 template <int BITS, typename XT>
 void launch_gemv(const void* x, const void* data, const void* scale, float* dst, int M, int K,
                  int N, int group_size, int groups_per_split, int splits, cudaStream_t s) {
@@ -540,6 +974,7 @@ cudaError_t launch_bits(int kernel, int x_bf16, const void* x, const void* data,
   if (kernel == 1)
     return launch_mma<BITS>(x, data, scale, dst, M, K, N, group_size, groups_per_split, splits,
                             s);
+  if (kernel == 2) return launch_mmv<BITS>(x, data, scale, dst, M, K, N, group_size, splits, s);
   if (x_bf16)
     launch_gemv<BITS, __nv_bfloat16>(x, data, scale, dst, M, K, N, group_size,
                                      groups_per_split, splits, s);
@@ -559,6 +994,12 @@ cudaError_t occupancy(int kernel, int x_bf16, int group_size, int* blocks, int* 
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, dequant_mma_kernel<BITS>, kMmaThreads, mma_smem<BITS>(group_size));
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, dequant_mma_kernel<BITS>);
+  } else if (kernel == 2) {
+    err = mmv_prepare<BITS>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_mmv_kernel<BITS>,
+                                                          kMmvThreads, mmv_smem(BITS));
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, dequant_mmv_kernel<BITS>);
   } else if (x_bf16) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, dequant_mm_kernel<BITS, __nv_bfloat16>, kThreads, 0);
@@ -576,18 +1017,41 @@ cudaError_t occupancy(int kernel, int x_bf16, int group_size, int* blocks, int* 
 
 int pack_of(int bits) { return bits == 8 ? 1 : bits == 4 ? 2 : bits == 2 ? 4 : 0; }
 
-// The tensor-core kernel's constraints on the shapes (bf16 x checked apart).
+// The tensor-core kernels' constraints on the shapes (bf16 x checked apart).
 bool mma_ok(int group_size) {
   return group_size % 16 == 0 && group_size <= kMmaMaxGroup;
+}
+
+// Clusters of `ranks` decode blocks the card runs at once with one block
+// per SM (asked with an SM's whole shared memory): more clusters than that
+// would put two blocks on some SMs, and a cluster waits for its slowest.
+template <int BITS>
+cudaError_t mmv_clusters(int ranks, int* clusters) {
+  cudaError_t err = mmv_prepare<BITS>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, 1, 1);
+  cfg.blockDim = dim3(kMmvThreads, 1, 1);
+  cfg.dynamicSmemBytes = max_smem();
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, dequant_mmv_kernel<BITS>, &cfg);
 }
 
 }  // namespace
 
 // x (M, K) bf16 or f32; data (K / pack, N) int8; scale (K / group, N) f32;
-// out (M, N) f32; part (splits, M, N) f32 scratch when splits > 1.
-// `kernel` 0 is the gemv kernel (4-row tiles, any M), 1 the tensor-core
-// kernel (64-row tiles; bf16 x, group % 16 == 0, group <= 256, x 16-byte
-// aligned).  The K range is cut into `splits` runs of whole quant groups.
+// out (M, N) f32; part (splits, M, N) f32 scratch when splits > 1 (gemv and
+// mma kernels).  `kernel` 0 is the gemv kernel (4-row tiles, any M), 1 the
+// tensor-core prefill kernel (64-row tiles) and 2 the tensor-core decode
+// kernel (M <= 4), both with bf16 x 16-byte aligned and group % 16 == 0,
+// group <= 256.  The K range is cut into `splits` runs of whole quant
+// groups; for kernel 2 they are the 1 to 8 blocks of a cluster.
 extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* data,
                                      const void* scale, void* part, void* out, int M, int K,
                                      int N, int bits, int group_size, int kernel, int splits,
@@ -595,14 +1059,17 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* data
   const int pack = pack_of(bits);
   if (pack == 0 || M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group_size <= 0 ||
       group_size % pack != 0 || group_size > kStageK || K % group_size != 0 ||
-      (kernel != 0 && kernel != 1) ||
-      (kernel == 1 && (!x_bf16 || !mma_ok(group_size) || (uintptr_t)x % 16 != 0)) ||
-      splits <= 0 || splits > K / group_size || (splits > 1 && part == nullptr))
+      kernel < 0 || kernel > 2 ||
+      (kernel != 0 && (!x_bf16 || !mma_ok(group_size) || (uintptr_t)x % 16 != 0)) ||
+      (kernel == 2 && (M > kMmvRows || splits > kMmvMaxCluster || N % 16 != 0 ||
+                       (uintptr_t)data % 16 != 0)) ||
+      splits <= 0 || splits > K / group_size ||
+      (kernel != 2 && splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int groups = K / group_size;
   const int per = (groups + splits - 1) / splits;
-  float* dst = splits > 1 ? (float*)part : (float*)out;
+  float* dst = splits > 1 && kernel != 2 ? (float*)part : (float*)out;
   cudaError_t err;
   switch (bits) {
     case 8:
@@ -619,20 +1086,21 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* data
       break;
   }
   if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  if (err != cudaSuccess || splits == 1 || kernel == 2) return (int)err;
   const size_t quads = (size_t)M * N / 4;
   split_sum_kernel<<<(unsigned)((quads + kSumThreads - 1) / kSumThreads), kSumThreads, 0, s>>>(
       (const float4*)part, splits, quads, (float4*)out);
   return (int)cudaGetLastError();
 }
 
-// Blocks of `kernel` (0 gemv, 1 tensor-core) for (bits, x type, group) that
-// one SM holds at once, as the occupancy calculator reports, and the
-// registers per thread the instantiation was compiled to.
+// Blocks of `kernel` (0 gemv, 1 tensor-core prefill, 2 tensor-core decode)
+// for (bits, x type, group) that one SM holds at once, as the occupancy
+// calculator reports, and the registers per thread the instantiation was
+// compiled to.
 extern "C" int dequant_matmul_occupancy(int kernel, int bits, int x_bf16, int group_size,
                                         int* blocks, int* regs) {
-  if (pack_of(bits) == 0 || blocks == nullptr || regs == nullptr ||
-      (kernel == 1 && !mma_ok(group_size)))
+  if (pack_of(bits) == 0 || blocks == nullptr || regs == nullptr || kernel < 0 ||
+      kernel > 2 || (kernel != 0 && !mma_ok(group_size)))
     return (int)cudaErrorInvalidValue;
   switch (bits) {
     case 8:
@@ -641,5 +1109,20 @@ extern "C" int dequant_matmul_occupancy(int kernel, int bits, int x_bf16, int gr
       return (int)occupancy<4>(kernel, x_bf16, group_size, blocks, regs);
     default:
       return (int)occupancy<2>(kernel, x_bf16, group_size, blocks, regs);
+  }
+}
+
+// Clusters of `ranks` (1 to 8) decode-kernel blocks the card holds at once
+// with one block per SM, as cudaOccupancyMaxActiveClusters reports.
+extern "C" int dequant_mmv_clusters(int bits, int ranks, int* clusters) {
+  if (pack_of(bits) == 0 || clusters == nullptr || ranks < 1 || ranks > kMmvMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  switch (bits) {
+    case 8:
+      return (int)mmv_clusters<8>(ranks, clusters);
+    case 4:
+      return (int)mmv_clusters<4>(ranks, clusters);
+    default:
+      return (int)mmv_clusters<2>(ranks, clusters);
   }
 }

@@ -160,36 +160,15 @@ struct Ring {
   static constexpr int kBytes = kBars + 2 * 8 * kStages;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // Programmatic dependent launch: pass 1 lets the split combine's grid be
-// scheduled early; the combine waits here until pass 1 is done and visible.
+// scheduled early; the combine waits in griddep_wait (mma.cuh) until pass 1
+// is done and visible.
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Arrive on mbarrier `bar` once this thread's earlier cp.async copies land

@@ -1,7 +1,8 @@
 // PTX helpers for tensor-core kernels on Hopper (sm_90a), shared by the
 // flash-decode kernels (flash_decode.cuh) and the dense dequant-matmul
-// (dequant_matmul.cu): cp.async copies into shared memory, ldmatrix loads of
-// bf16 fragments, mma.sync m16n8k16 bf16 -> float32, and bf16 packing.
+// (dequant_matmul.cu): cp.async copies into shared memory, mbarriers, the
+// wait of a programmatic dependent launch, ldmatrix loads of bf16
+// fragments, mma.sync m16n8k16 bf16 -> float32, and bf16 packing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,30 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Programmatic dependent launch: wait until the grid before this one is
+// done and its writes are visible.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {

@@ -23,7 +23,7 @@ current stream and never synchronise.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -61,8 +61,9 @@ def reset_dispatch_counts() -> None:
 
 
 def dequant_mm_launches() -> Dict[str, int]:
-    """Launches of each dequant-matmul kernel ("gemv", "mma") since the last
-    ``reset_dispatch_counts``; they add up to ``"dequant_matmul.cuda"``."""
+    """Launches of each dequant-matmul kernel ("gemv", "mma", "mmv") since
+    the last ``reset_dispatch_counts``; they add up to
+    ``"dequant_matmul.cuda"``."""
     return dict(_DEQUANT_MM_LAUNCHES)
 
 
@@ -205,48 +206,75 @@ def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
 # dense dequant-matmul
 # --------------------------------------------------------------------------
 
-# output columns of one dequant-matmul block, both kernels (kTileN, kMmaCols
-# in dequant_matmul.cu)
+# output columns of one dequant-matmul block, every kernel (kTileN,
+# kMmaCols, kMmvCols in dequant_matmul.cu)
 DEQUANT_MM_TILE_N = 128
-# rows of one block: gemv kernel (kGemvRows), tensor-core kernel (kMmaRows)
+# rows of one block: gemv kernel (kGemvRows), tensor-core prefill kernel
+# (kMmaRows); the most rows the tensor-core decode kernel takes (kMmvRows)
 DEQUANT_MM_GEMV_ROWS = 4
 DEQUANT_MM_MMA_ROWS = 64
+DEQUANT_MM_MMV_ROWS = 4
 # largest quant group the gemv kernel stages at once (kStageK), and the
-# largest the tensor-core kernel takes (kMmaMaxGroup: one group per stage)
+# largest the tensor-core kernels take (kMmaMaxGroup: one group per stage)
 DEQUANT_MM_MAX_GROUP = 512
 DEQUANT_MM_MMA_MAX_GROUP = 256
 # blocks per SM the gemv kernel's K-split aims for when the row and column
 # tiles leave the card idle (bytes in flight)
 DEQUANT_MM_BLOCKS_PER_SM = 8
-_DEQUANT_MM_KERNELS = {"gemv": 0, "mma": 1}
+# the largest cluster the decode kernel splits K over (the portable size)
+DEQUANT_MM_MAX_CLUSTER = 8
+_DEQUANT_MM_KERNELS = {"gemv": 0, "mma": 1, "mmv": 2}
 _DEQUANT_MM_OCCUPANCY: Dict[tuple, tuple] = {}
+_DEQUANT_MMV_FIT: Dict[tuple, Dict[int, int]] = {}
 
 
-def dequant_mm_kernel(m: int, x_dtype: torch.dtype, group_size: int,
-                      x_aligned: bool) -> str:
-    """Which dequant-matmul kernel serves M rows: "mma" (tensor cores,
-    64-row tiles) for chunked prefill, M > 4 rows of 16-byte aligned bf16 x
-    (its copies into shared memory are 16-byte pieces) with quant groups of
-    a multiple of 16 up to DEQUANT_MM_MMA_MAX_GROUP; "gemv" (4-row tiles,
-    float32 FMAs, correct at any M and alignment) for decode and all else."""
-    if (m > 4 and x_dtype == torch.bfloat16 and x_aligned and group_size % 16 == 0
+def dequant_mm_kernel(m: int, n: int, x_dtype: torch.dtype, group_size: int,
+                      x_aligned: bool, codes_aligned: bool) -> str:
+    """Which dequant-matmul kernel serves M rows and N columns.  16-byte
+    aligned bf16 x (the tensor-core kernels copy it in 16- and 8-byte
+    pieces) with quant groups of a multiple of 16 up to
+    DEQUANT_MM_MMA_MAX_GROUP goes to tensor cores: "mma" (64-row tiles) for
+    chunked prefill, M > 4, and "mmv" (swapped operands, one block per
+    column tile) for decode, M <= 4, when its TMA tensor maps take the codes
+    (N % 16 == 0 and `codes_aligned`: 16-byte aligned).  "gemv" (4-row
+    tiles, float32 FMAs, correct at any M and alignment) serves all else."""
+    if not (x_dtype == torch.bfloat16 and x_aligned and group_size % 16 == 0
             and group_size <= DEQUANT_MM_MMA_MAX_GROUP):
+        return "gemv"
+    if m > DEQUANT_MM_MMV_ROWS:
         return "mma"
-    return "gemv"
+    return "mmv" if n % 16 == 0 and codes_aligned else "gemv"
 
 
 def dequant_mm_splits(m: int, k: int, n: int, bits: int, group_size: int,
-                      sm_count: int, kernel: str, blocks_per_sm: int) -> int:
-    """K-splits of the dequant-matmul grid, each split whole quant groups,
-    aiming at `blocks_per_sm` blocks on each of `sm_count` SMs.  gemv:
-    enough (row tile x column tile x split) blocks for that many per SM
-    (DEQUANT_MM_BLOCKS_PER_SM: bytes in flight), with the float32 partials
+                      sm_count: int, kernel: str, blocks_per_sm: int,
+                      clusters: Optional[Dict[int, int]] = None) -> int:
+    """K-splits of the dequant-matmul grid, each split whole quant groups.
+    mmv: the blocks of one cluster (1 to 8) that share a column tile, grown
+    by one while the grid's blocks stay under three quarters of the
+    `sm_count` SMs and every tile's cluster still runs at once with one
+    block per SM (`clusters`: size -> clusters the card holds that way,
+    ``dequant_mmv_fit``; ``sm_count // size`` when not given).  On the H100
+    Granite's wi (128 column tiles) is not split and its wo (16 tiles) is
+    split 6 ways: only 15 clusters of 7 or 8 fit (``chip_smoke.py`` phase
+    3c times wo and wi at every cluster size beside this choice).  gemv:
+    enough (row tile x column tile x split) blocks for `blocks_per_sm` per
+    SM (DEQUANT_MM_BLOCKS_PER_SM: bytes in flight), with the float32 partials
     (written once, read once) kept under a quarter of the codes' bytes.
-    mma: as many splits as keep the grid within one wave of the blocks per
-    SM that the occupancy calculator reports (``dequant_mm_occupancy``;
-    Granite's wo at M = 64 has 16 blocks).  No synchronisation."""
+    mma: as many splits as keep the grid within one wave of the
+    `blocks_per_sm` that the occupancy calculator reports
+    (``dequant_mm_occupancy``; Granite's wo at M = 64 has 16 blocks).  No
+    synchronisation."""
     groups = k // group_size
     tiles = -(-n // DEQUANT_MM_TILE_N)
+    if kernel == "mmv":
+        def fit(size):
+            return clusters[size] if clusters else sm_count // size
+        ranks = 1
+        while (ranks < DEQUANT_MM_MAX_CLUSTER and ranks < groups
+               and 4 * tiles * ranks < 3 * sm_count and tiles <= fit(ranks + 1)):
+            ranks += 1
+        return ranks
     if kernel == "mma":
         blocks = -(-m // DEQUANT_MM_MMA_ROWS) * tiles
         want = blocks_per_sm * sm_count // blocks
@@ -276,20 +304,24 @@ def dequant_mm_occupancy(kernel: str, bits: int, x_bf16: int, group_size: int):
     return _DEQUANT_MM_OCCUPANCY[key]
 
 
-def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
-    """y = x @ dequant(q), float32.
+def dequant_mmv_fit(bits: int) -> Dict[int, int]:
+    """Cluster size (1 to DEQUANT_MM_MAX_CLUSTER) -> clusters of the decode
+    kernel that the current card runs at once with one block per SM
+    (cudaOccupancyMaxActiveClusters); cached per card."""
+    key = (torch.cuda.current_device(), bits)
+    if key not in _DEQUANT_MMV_FIT:
+        lib = build.library("dequant_matmul")
+        fit = {}
+        for size in range(1, DEQUANT_MM_MAX_CLUSTER + 1):
+            n = ctypes.c_int(0)
+            _raise_on("dequant_matmul", lib.dequant_mmv_clusters(bits, size, ctypes.byref(n)))
+            fit[size] = n.value
+        _DEQUANT_MMV_FIT[key] = fit
+    return _DEQUANT_MMV_FIT[key]
 
-        x  (..., K)   activations (bf16 or f32), any leading dims
-        q  QTensor    data (K//pack, N) int8, scale (K//group, N) f32
-        -> (..., N) float32
 
-    The kernels mask ragged M and N (N a multiple of 4 on the card) where
-    the JAX package pads; K is a multiple of the group by the layout.  On
-    the card ``dequant_mm_kernel`` picks the kernel from the shapes."""
-    op = "dequant_matmul"
-    if _route(op, x, q.data, q.scale) == "torch":
-        _record(op, "torch")
-        return ref.dequant_matmul_ref(x, q)
+def _check_dequant_mm(op: str, x: torch.Tensor, q: QTensor):
+    """x as (M, K) and N, after checking what every kernel needs."""
     _check(op, q.bits in PACK_FACTOR, f"bits={q.bits} not in {sorted(PACK_FACTOR)}")
     pack = PACK_FACTOR[q.bits]
     _check(op, q.data.dim() == 2 and q.scale.dim() == 2,
@@ -308,28 +340,80 @@ def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
     _check(op, n % 4 == 0, f"N={n} must be a multiple of 4 (4-byte code loads)")
     x2 = x.reshape(-1, k)
     _check_contig(op, x=x2, data=q.data, scale=q.scale)
-    xb = _x_flag(op, x2)
-    lib = build.library("dequant_matmul")
+    _x_flag(op, x2)
     _check(op, q.data.data_ptr() % 4 == 0 and q.scale.data_ptr() % 16 == 0,
            "data must be 4-byte and scale 16-byte aligned")
-    m = x2.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return out.reshape(*x.shape[:-1], n)
-    kernel = dequant_mm_kernel(m, x2.dtype, gs, x2.data_ptr() % 16 == 0)
+    return x2, n
+
+
+def _dequant_mm_splits_for(kernel: str, x2: torch.Tensor, q: QTensor) -> int:
+    """The wrapper's K-split (mmv: cluster size) for `kernel` on these inputs."""
+    m, k = x2.shape
+    n, gs = q.data.shape[1], q.group_size
     blocks = (dequant_mm_occupancy(kernel, q.bits, 1, gs)[0] if kernel == "mma"
               else DEQUANT_MM_BLOCKS_PER_SM)
-    splits = dequant_mm_splits(m, k, n, q.bits, gs, _sm_count(x.device), kernel, blocks)
+    fit = dequant_mmv_fit(q.bits) if kernel == "mmv" else None
+    return dequant_mm_splits(m, k, n, q.bits, gs, _sm_count(x2.device), kernel, blocks, fit)
+
+
+def _kernel_for(x2: torch.Tensor, q: QTensor, n: int) -> str:
+    return dequant_mm_kernel(x2.shape[0], n, x2.dtype, q.group_size, x2.data_ptr() % 16 == 0,
+                             q.data.data_ptr() % 16 == 0)
+
+
+def _launch_dequant_mm(op: str, x2: torch.Tensor, q: QTensor, n: int, kernel: str,
+                       splits: Optional[int] = None):
+    m, k = x2.shape
+    lib = build.library("dequant_matmul")
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    if m == 0:
+        return out
+    if splits is None:
+        splits = _dequant_mm_splits_for(kernel, x2, q)
     part = None
-    if splits > 1:
-        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    if splits > 1 and kernel != "mmv":
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
     _record(op, "cuda")
     _DEQUANT_MM_LAUNCHES[kernel] = _DEQUANT_MM_LAUNCHES.get(kernel, 0) + 1
     _raise_on(op, lib.dequant_matmul_launch(
-        x2.data_ptr(), xb, q.data.data_ptr(), q.scale.data_ptr(),
-        part.data_ptr() if part is not None else None, out.data_ptr(),
-        m, k, n, q.bits, gs, _DEQUANT_MM_KERNELS[kernel], splits, _stream()))
-    return out.reshape(*x.shape[:-1], n)
+        x2.data_ptr(), int(x2.dtype == torch.bfloat16), q.data.data_ptr(),
+        q.scale.data_ptr(), part.data_ptr() if part is not None else None, out.data_ptr(),
+        m, k, n, q.bits, q.group_size, _DEQUANT_MM_KERNELS[kernel], splits, _stream()))
+    return out
+
+
+def dequant_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
+    """y = x @ dequant(q), float32.
+
+        x  (..., K)   activations (bf16 or f32), any leading dims
+        q  QTensor    data (K//pack, N) int8, scale (K//group, N) f32
+        -> (..., N) float32
+
+    The kernels mask ragged M and N (N a multiple of 4 on the card) where
+    the JAX package pads; K is a multiple of the group by the layout.  On
+    the card ``dequant_mm_kernel`` picks the kernel from the shapes."""
+    op = "dequant_matmul"
+    if _route(op, x, q.data, q.scale) == "torch":
+        _record(op, "torch")
+        return ref.dequant_matmul_ref(x, q)
+    x2, n = _check_dequant_mm(op, x, q)
+    return _launch_dequant_mm(op, x2, q, n, _kernel_for(x2, q, n)).reshape(*x.shape[:-1], n)
+
+
+def _dequant_matmul_on(kernel: str, x: torch.Tensor, q: QTensor,
+                       splits: Optional[int] = None) -> torch.Tensor:
+    """``dequant_matmul`` on CUDA tensors through the named kernel, which
+    must take the shapes, with K cut into `splits` (the decode kernel's
+    cluster size) when given; ``chip_smoke.py`` times the gemv kernel with
+    it beside the one the wrapper picks, and the decode kernel at every
+    cluster size.  Serving code calls ``dequant_matmul``."""
+    op = "dequant_matmul"
+    _check(op, _route(op, x, q.data, q.scale) == "cuda", "a kernel needs CUDA tensors")
+    x2, n = _check_dequant_mm(op, x, q)
+    if kernel != "gemv":
+        _check(op, _kernel_for(x2, q, n) == kernel,
+               f"the {kernel} kernel does not take these shapes")
+    return _launch_dequant_mm(op, x2, q, n, kernel, splits).reshape(*x.shape[:-1], n)
 
 
 # --------------------------------------------------------------------------

@@ -149,20 +149,26 @@ def test_dequant_matmul_leading_batch_dims(mode):
     _close(got, want)
 
 
-@pytest.mark.parametrize("m,k,n,bits,want", [(4, 2048, 16384, 4, 8), (4, 8192, 2048, 4, 32),
-                                             (1, 8192, 2048, 4, 64), (64, 2048, 16384, 4, 2),
+# clusters of each size the H100 runs at once with one decode block per SM
+# (chip_smoke.py phase 3c prints ops.dequant_mmv_fit)
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@pytest.mark.parametrize("m,k,n,bits,want", [(4, 2048, 16384, 4, 1), (4, 8192, 2048, 4, 6),
+                                             (1, 8192, 2048, 4, 6), (64, 2048, 16384, 4, 2),
                                              (64, 8192, 2048, 4, 16), (256, 8192, 2048, 4, 4)])
 def test_dequant_mm_splits_fill_the_card(m, k, n, bits, want):
-    """Granite's FFN shapes at group 128 on 132 SMs: decode (M <= 4, the gemv
-    kernel) splits K in whole groups until the grid holds ~8 blocks per SM,
-    with the float32 partials under a quarter of the code bytes; prefill
-    (the tensor-core kernel, 64 x 128 tiles) splits until the grid holds
-    the two blocks per SM the card reports for 4-bit codes in groups of
-    128: wo's 16 column tiles 16 ways at M = 64."""
-    kernel = ops.dequant_mm_kernel(m, torch.bfloat16, 128, True)
-    assert kernel == ("gemv" if m <= 4 else "mma")
+    """Granite's FFN shapes at group 128 on 132 SMs: decode (M <= 4, the
+    tensor-core decode kernel, one block per SM) splits K over a cluster
+    only where the 128-column tiles leave the card idle: wi's 128 tiles not
+    at all, wo's 16 tiles 6 ways (16 clusters of 7 or 8 do not fit); prefill (the tensor-core prefill kernel,
+    64 x 128 tiles) splits until the grid holds the two blocks per SM the
+    card reports for 4-bit codes in groups of 128: wo's 16 column tiles 16
+    ways at M = 64."""
+    kernel = ops.dequant_mm_kernel(m, n, torch.bfloat16, 128, True, True)
+    assert kernel == ("mmv" if m <= 4 else "mma")
     blocks = 2 if kernel == "mma" else ops.DEQUANT_MM_BLOCKS_PER_SM
-    s = ops.dequant_mm_splits(m, k, n, bits, 128, 132, kernel, blocks)
+    s = ops.dequant_mm_splits(m, k, n, bits, 128, 132, kernel, blocks, H100_CLUSTERS)
     assert s == want and 1 <= s <= k // 128
     per = -(-(k // 128) // s)
     assert (s - 1) * per < k // 128              # no empty split
@@ -172,18 +178,33 @@ def test_dequant_mm_splits_fill_the_card(m, k, n, bits, want):
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 4, 5, 64])
 def test_dequant_mm_kernel_choice(m, x_dtype, group):
-    """Tensor cores for M > 4 rows of bf16 x in groups of a multiple of 16;
-    the gemv kernel for decode, float32 x and other groups."""
-    want = "mma" if m > 4 and x_dtype == torch.bfloat16 and group % 16 == 0 else "gemv"
-    assert ops.dequant_mm_kernel(m, x_dtype, group, True) == want
+    """Tensor cores for bf16 x in groups of a multiple of 16: the decode
+    kernel for M <= 4 rows, the prefill kernel above; the gemv kernel for
+    float32 x and other groups."""
+    tc = x_dtype == torch.bfloat16 and group % 16 == 0
+    want = ("mmv" if m <= 4 else "mma") if tc else "gemv"
+    assert ops.dequant_mm_kernel(m, 2048, x_dtype, group, True, True) == want
 
 
-@pytest.mark.parametrize("m", [5, 64, 256])
+@pytest.mark.parametrize("m", [1, 4, 5, 64, 256])
 def test_dequant_mm_kernel_unaligned_bf16_x_takes_gemv(m):
     """bf16 x off 16-byte alignment (a contiguous view at an odd element
-    offset) cannot feed the tensor-core kernel's 16-byte copies: the gemv
-    kernel, correct at any alignment, serves it."""
-    assert ops.dequant_mm_kernel(m, torch.bfloat16, 128, False) == "gemv"
+    offset) cannot feed the tensor-core kernels' 16- and 8-byte copies, at
+    decode or prefill M: the gemv kernel, correct at any alignment, serves
+    it."""
+    assert ops.dequant_mm_kernel(m, 2048, torch.bfloat16, 128, False, True) == "gemv"
+
+
+@pytest.mark.parametrize("m,n,codes_aligned,want", [
+    (1, 100, True, "gemv"), (4, 100, True, "gemv"), (3, 2056, True, "gemv"),
+    (2, 2048, False, "gemv"), (4, 96, True, "mmv"), (2, 272, True, "mmv"),
+    (24, 100, True, "mma"), (64, 2048, False, "mma")])
+def test_dequant_mm_kernel_decode_needs_tma_codes(m, n, codes_aligned, want):
+    """The decode kernel reads the codes through a TMA tensor map, which
+    needs rows of a multiple of 16 bytes (N % 16 == 0) and a 16-byte
+    aligned base: other decode calls go to the gemv kernel.  The prefill
+    kernel copies any N % 4 at any 4-byte alignment."""
+    assert ops.dequant_mm_kernel(m, n, torch.bfloat16, 128, True, codes_aligned) == want
 
 
 @pytest.mark.parametrize("blocks,want", [(1, 8), (2, 16), (4, 32)])
@@ -233,7 +254,7 @@ def test_dequant_mma_numeric_scheme_meets_card_tolerance(bits, k, m):
     float32 after each group, at the split the card would pick, against the
     plain version at the card's rtol/atol 1e-4."""
     x, q = _mma_case(bits, k, m)
-    assert ops.dequant_mm_kernel(m, x.dtype, q.group_size, True) == "mma"
+    assert ops.dequant_mm_kernel(m, 256, x.dtype, q.group_size, True, True) == "mma"
     blocks = 1 if bits == 8 else 2           # the card's occupancy at group 128
     splits = ops.dequant_mm_splits(m, k, 256, bits, 128, 132, "mma", blocks)
     got = _mma_emulation(x, q, splits)
@@ -252,6 +273,78 @@ def test_dequant_mma_scale_folded_into_bf16_misses_card_tolerance(bits):
     err = (folded - want).abs()
     assert bool((err > DQ_CARD_TOL["atol"] + DQ_CARD_TOL["rtol"] * want.abs()).any())
     np.testing.assert_allclose(_mma_emulation(x, q, 1).numpy(), want.numpy(), **DQ_CARD_TOL)
+
+
+@pytest.mark.parametrize("k,n,group,fit,want", [
+    (8192, 2048, 128, H100_CLUSTERS, 6), (8192, 2048, 128, None, 7),
+    (2048, 16384, 128, H100_CLUSTERS, 1), (128, 512, 128, H100_CLUSTERS, 1),
+    (1280, 2048, 128, H100_CLUSTERS, 6), (384, 512, 128, H100_CLUSTERS, 3),
+    (8192, 2048, 256, H100_CLUSTERS, 6), (512, 256, 16, H100_CLUSTERS, 8),
+    (2048, 8192, 128, H100_CLUSTERS, 2)])
+def test_dequant_mmv_cluster_choice(k, n, group, fit, want):
+    """The decode kernel's cluster grows from 1 while its blocks (column
+    tiles x cluster) stay under three quarters of 132 SMs, every tile's
+    cluster still fits at one block per SM, and there are groups to share:
+    wo's 16 tiles stop at 6 on the H100 (15 clusters of 7 fit), at 7 on an
+    ideal card; a single group is never split, 3 groups go 3 ways, 10
+    groups 6 ways (unevenly)."""
+    assert ops.dequant_mm_splits(4, k, n, 4, group, 132, "mmv", 1, fit) == want
+
+
+def _mmv_emulation(x, q, ranks, warps=8):
+    """The decode kernel's arithmetic: the rank's whole groups, split into
+    runs of k16 steps over `warps` warps; bf16 x times integer codes (each
+    product exact in float32) summed per k16 step into a float32 partial,
+    partial * scale added to the warp's accumulator where the group or the
+    run ends; the warps' sums added in warp order, then the ranks' in rank
+    order."""
+    codes = unpack_codes(q.data, q.bits).to(torch.float32)
+    xf = x.to(torch.float32)
+    spg = q.group_size // 16
+    groups = x.shape[-1] // q.group_size
+    step = [xf[:, 16 * s:16 * s + 16] @ codes[16 * s:16 * s + 16]
+            for s in range(x.shape[-1] // 16)]
+    total = None
+    for r in range(ranks):
+        r0, r1 = r * groups // ranks * spg, (r + 1) * groups // ranks * spg
+        block = None
+        for w in range(warps):
+            s0, s1 = r0 + w * (r1 - r0) // warps, r0 + (w + 1) * (r1 - r0) // warps
+            acc = torch.zeros((x.shape[0], codes.shape[1]))
+            part = torch.zeros_like(acc)
+            for s in range(s0, s1):
+                part = part + step[s]
+                if (s + 1) % spg == 0 or s + 1 == s1:
+                    acc = acc + part * q.scale[s // spg]
+                    part = torch.zeros_like(acc)
+            block = acc if block is None else block + acc
+        total = block if total is None else total + block
+    return total
+
+
+@pytest.mark.parametrize("k", [2048, 8192])
+@pytest.mark.parametrize("group", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_dequant_mmv_numeric_scheme_meets_card_tolerance(m, bits, group, k):
+    """The decode kernel's scheme (exact bf16 codes, a float32 partial per
+    group and warp run times its scale, warps then cluster ranks added in
+    order) at the cluster the card would pick for 256 columns, against the
+    plain version at the card's rtol/atol 1e-4."""
+    x, q = _mma_case(bits, k, m, group=group)
+    assert ops.dequant_mm_kernel(m, 256, x.dtype, q.group_size, True, True) == "mmv"
+    ranks = ops.dequant_mm_splits(m, k, 256, bits, group, 132, "mmv", 1, H100_CLUSTERS)
+    got = _mmv_emulation(x, q, ranks)
+    want = ref.dequant_matmul_ref(x, q)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **DQ_CARD_TOL)
+
+
+def test_dequant_matmul_on_a_named_kernel_needs_cuda():
+    """The kernel-by-name entry that chip_smoke.py times beside the wrapper
+    has no plain path: CPU tensors raise."""
+    x, q = _mma_case(4, 256, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._dequant_matmul_on("gemv", x, q)
 
 
 # --------------------------------------------------------------------------
