@@ -11,7 +11,11 @@ and each printing its seconds:
   2. build   — the Hopper kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels — each kernel against its plain PyTorch version at the serving
                path's full Mixtral-8x7B shapes; device time from CUDA-graph
-               replays timed with CUDA events; an out-of-range pool slot
+               replays timed with CUDA events; the router kernels timed
+               beside a launch floor, swept over cluster sizes, checked at
+               edge variants and bit-identical over two calls, their layout
+               constants held to ops.py's; the grouped dequant pair
+               at P = 1, 2, 4 and 8 pairs; an out-of-range pool slot
                must abort the dequant kernels, and an out-of-range page id
                the paged flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
@@ -30,7 +34,8 @@ and each printing its seconds:
                g = 1, float32 K/V; SDPA on the same cache as the yardstick;
   4. serve   — HobbitBackend under BatchingServer on full-width Mixtral-8x7B
                (depth cut to 4 layers, seeded random bf16 weights): mixed-
-               length greedy requests, with every kernel's launch counted;
+               length greedy requests, with every kernel's launch counted,
+               the engine's gating_s and the lo pairs per grouped launch;
   5. parity  — the offload engine with every expert resident at full
                precision against the dense model, step by step;
   6. serve-paged — the same server and model on the paged KV layout
@@ -238,52 +243,7 @@ def phase_kernels(dev) -> list:
     bits, gs = 4, 64                      # EngineConfig defaults (lo_bits, group)
     pack = PACK_FACTOR[bits]
     g = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-
-    # -- gating_topk: x (B, D) bf16 against one (D, E) f32 router ------------
-    gates = torch.randn((1, d, e), generator=g, device=dev) / math.sqrt(d)
-    err = 0.0
-    for b in (1, 4):
-        x = torch.randn((b, d), generator=g, device=dev).to(torch.bfloat16)
-        lg, vals, idx = ops.gating_topk(x, gates, top_k=k)
-        rl, rv, ri = ref.gating_topk_ref(x, gates, top_k=k)
-        torch.cuda.synchronize()
-        err = max(err, _close("gating_topk logits", lg, rl, 1e-5, 1e-5),
-                  _close("gating_topk vals", vals, rv, 1e-5, 1e-6))
-        _topk_ok("gating_topk", idx, ri, ref.softmax_last(rl))
-        ms = graph_ms(lambda: ops.gating_topk(x, gates, top_k=k))
-        call = cuda_ms(lambda: ops.gating_topk(x, gates, top_k=k))
-        plain = cuda_ms(lambda: ref.gating_topk_ref(x, gates, top_k=k))
-        print(f"[kernels] gating_topk B={b}: {ms:.4f} ms on the card, {call:.4f} ms "
-              f"per call from Python (plain {plain:.4f} ms per call)", flush=True)
-    bms, by = bound(nbytes(x, gates, lg, vals, idx), 2 * b * d * e)
-    rows.append(dict(name="gating_topk", route="cuda",
-                     source="src/repro_torch/kernels/csrc/gating.cu",
-                     replaces="src/repro/kernels/stacked_gating.py:113",
-                     max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms,
-                     bound_by=by, library_ms=None,
-                     tolerance="rtol 1e-5 atol 1e-5; idx exact unless gap < 1e-6"))
-
-    # -- stacked_gating: x (1, D) f32 against the next 2 layers' routers -----
-    stack = torch.randn((2, d, e), generator=g, device=dev) / math.sqrt(d)
-    x = torch.randn((1, d), generator=g, device=dev)
-    lg = ops.stacked_gating(x, stack)
-    rl = ref.stacked_gating_ref(x, stack)
-    torch.cuda.synchronize()
-    err = _close("stacked_gating", lg, rl, 1e-5, 1e-5)
-    ms = graph_ms(lambda: ops.stacked_gating(x, stack))
-    call = cuda_ms(lambda: ops.stacked_gating(x, stack))
-    plain = cuda_ms(lambda: ref.stacked_gating_ref(x, stack))
-    lib = graph_ms(lambda: torch.einsum("bd,pde->pbe", x, stack))
-    bms, by = bound(nbytes(x, stack, lg), 2 * 2 * d * e)
-    print(f"[kernels] stacked_gating P=2: {ms:.4f} ms on the card, {call:.4f} ms per "
-          f"call (plain {plain:.4f} ms per call, einsum {lib:.4f} ms on the card)",
-          flush=True)
-    rows.append(dict(name="stacked_gating", route="cuda",
-                     source="src/repro_torch/kernels/csrc/gating.cu",
-                     replaces="src/repro/kernels/stacked_gating.py:53",
-                     max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms,
-                     bound_by=by, library_ms=lib, tolerance="rtol 1e-5 atol 1e-5"))
+    rows = _gating_rows(dev, g)
 
     # -- grouped dequant GEMV (up/gate) and GEMV + combine (down) ------------
     def pool(slots, kk, n):
@@ -292,11 +252,16 @@ def phase_kernels(dev) -> list:
         scale = torch.rand((slots, kk // gs, n), generator=g, device=dev) * 0.02
         return data, scale
 
+    # P pairs -> (token rows B, the combine's row of each pair): non-
+    # decreasing rows; at P = 8 one pad (row == B, weight 0) and a row no
+    # pair visits.  The serve launches P = 1 to 2 * B pairs (its
+    # lo_pairs_per_launch).
+    grouped = {1: (1, [0]), 2: (1, [0, 0]), 4: (2, [0, 0, 1, 1]),
+               8: (4, [0, 0, 1, 1, 3, 3, 3, 4])}
     for name in ("grouped_dequant_matmul", "grouped_dequant_combine"):
         kk, n = (d, 2 * f) if name == "grouped_dequant_matmul" else (f, d)
-        err = 0.0
-        for b in (1, 4):
-            p = b * k
+        err, by_p = 0.0, {}
+        for p, (b, r) in grouped.items():
             data, scale = pool(p, kk, n)
             slot = torch.randperm(p, generator=g, device=dev).to(torch.int32)
             x = torch.randn((p, kk), generator=g, device=dev).to(torch.bfloat16)
@@ -306,9 +271,6 @@ def phase_kernels(dev) -> list:
                 fn, plain_fn = ops.grouped_dequant_matmul, ref.grouped_dequant_matmul_ref
                 extra = ()
             else:
-                # non-decreasing rows, one pad (row == B, weight 0) and, at
-                # B = 4, a row no pair visits
-                r = [0, 0] if b == 1 else [0, 0, 1, 1, 3, 3, 3, 4]
                 rws = torch.tensor(r, dtype=torch.int32, device=dev)
                 w = torch.rand((p,), generator=g, device=dev)
                 w[rws == b] = 0.0
@@ -320,7 +282,7 @@ def phase_kernels(dev) -> list:
             want = plain_fn(*args, **kw)
             torch.cuda.synchronize()
             err = max(err, _close(name, got, want, 1e-4, 1e-3))
-            if name == "grouped_dequant_combine" and b == 4:
+            if name == "grouped_dequant_combine" and p == 8:
                 check(bool((got[2] == 0).all()), f"{name}: unvisited row not zero")
             ms = graph_ms(lambda: fn(*args, **kw))
             call = cuda_ms(lambda: fn(*args, **kw))
@@ -329,9 +291,12 @@ def phase_kernels(dev) -> list:
             moved = (nbytes(x, slot, got, *extra)
                      + live * (data[0].numel() + scale[0].numel() * 4))
             bms, by = bound(moved, 2 * live * kk * n)
+            by_p[p] = dict(b=b, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms,
+                           bound_by=by, of_bound=bms / ms, gbps=moved / ms / 1e6)
             print(f"[kernels] {name} B={b} P={p}: {ms:.4f} ms on the card "
                   f"({moved / ms / 1e6:.0f} GB/s), {call:.4f} ms per call (plain "
-                  f"{plain:.3f} ms per call, bound {bms:.4f} ms)", flush=True)
+                  f"{plain:.3f} ms per call, bound {bms:.4f} ms, {bms / ms:.0%} of it)",
+                  flush=True)
             del data, scale, got, want
         line = "dequant_matmul.py:145" if name == "grouped_dequant_matmul" \
             else "dequant_matmul.py:210"
@@ -339,12 +304,215 @@ def phase_kernels(dev) -> list:
                          source="src/repro_torch/kernels/csrc/dequant.cu",
                          replaces=f"src/repro/kernels/{line}", max_abs_err=err,
                          ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         library_ms=None, tolerance="rtol 1e-4 atol 1e-3"))
+                         library_ms=None, tolerance="rtol 1e-4 atol 1e-3",
+                         by_pairs=by_p, note="ms, bounds and the plain time at P = 8; "
+                                             "every P under by_pairs"))
         torch.cuda.empty_cache()
     _other_instantiations(dev, g)
     _slot_faults()
     rows.append(_paged_decode_row(dev, g))
     return rows
+
+
+# logits: float32 sums over D in another order than the plain version's
+GATING_TOL = dict(rtol=1e-5, atol=1e-5)
+# the cluster sizes timed at the serving shapes: every portable one
+GATING_SWEEP = tuple(range(1, 9))
+
+
+def _gating_call(op, x, gates, k, ranks=None):
+    """One router kernel call: the wrapper, or with the cluster size forced
+    to `ranks`; a tuple of outputs either way."""
+    from repro_torch.kernels import ops
+    if ranks is None:
+        out = ops.gating_topk(x, gates, top_k=k) if op == "gating_topk" \
+            else ops.stacked_gating(x, gates)
+    else:
+        out = ops._gating_at(ranks, x, gates, top_k=k if op == "gating_topk" else None)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _gating_check(name, op, x, gates, k, ranks=None) -> float:
+    """Max abs error of one call against the plain version: logits at
+    GATING_TOL; for gating_topk also vals (atol 1e-6) and idx (exact unless
+    the top-k gap is under 1e-6)."""
+    from repro_torch.kernels import ref
+    got = _gating_call(op, x, gates, k, ranks)
+    if op == "stacked_gating":
+        want = ref.stacked_gating_ref(x, gates)
+        torch.cuda.synchronize()
+        return _close(f"{name} logits", got[0], want, **GATING_TOL)
+    rl, rv, ri = ref.gating_topk_ref(x, gates, top_k=k)
+    torch.cuda.synchronize()
+    check(got[2].dtype == torch.int32, f"{name}: idx is {got[2].dtype}")
+    err = max(_close(f"{name} logits", got[0], rl, **GATING_TOL),
+              _close(f"{name} vals", got[1], rv, 1e-5, 1e-6))
+    _topk_ok(name, got[2], ri, ref.softmax_last(rl))
+    return err
+
+
+def _gating_same(name, op, x, gates, k) -> None:
+    """Two calls of the wrapper give bit-identical outputs."""
+    a = _gating_call(op, x, gates, k)
+    b = _gating_call(op, x, gates, k)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(a, b)), f"{name}: two calls differ")
+
+
+def _gating_gates(dev, g, p, d, e, *, aligned=True):
+    """Seeded routers (P, D, E) / sqrt(D); `aligned` False puts them, still
+    contiguous, one float into their storage (4-byte loads)."""
+    gates = torch.randn((p, d, e), generator=g, device=dev) / math.sqrt(d)
+    if not aligned:
+        buf = torch.empty(gates.numel() + 1, device=dev)
+        buf[1:].copy_(gates.reshape(-1))
+        gates = buf[1:].view(p, d, e)
+    return gates
+
+
+def _gating_rows(dev, g) -> list:
+    """Both router kernels at the serving path's shapes (Mixtral-8x7B: D
+    4096, E 8; gating_topk over bf16 x at B = 1-4 with K 2, stacked_gating
+    over float32 x at B = 1 with P = 1, 2), through the wrappers, against
+    the plain versions; two calls bit-identical.  Timed twice each, between
+    two timings of the launch floor (a one-element fill, timed the same
+    way), beside torch.einsum for stacked_gating.  Then the cluster size
+    swept at the serving shapes (``ops._gating_at``), and the edge variants
+    (E 1-256, K 1-6, B 1-17, P 2-3, ragged and tiny D, float32 x, unaligned
+    gates, tied logits; the wrapper's cluster size 1-8) through the
+    wrappers, each bit-identical over two calls.  The kernel's layout
+    constants must equal ops.py's mirror."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    layout = ops.gating_layout()
+    mirror = {n: getattr(ops, n) for n in layout}
+    check(layout == mirror, f"gating.cu's layout {layout} != ops.py's {mirror}")
+    print(f"[kernels] gating layout (gating.cu = ops.py): {layout}", flush=True)
+    cfg = get_config(ARCH)
+    d, e, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
+    one = torch.zeros(1, device=dev)
+    floor = [graph_ms(lambda: one.fill_(1.0))]
+    gates = _gating_gates(dev, g, 1, d, e)
+    stack = _gating_gates(dev, g, 2, d, e)
+    cases = [("gating_topk", f"B={b}", torch.randn((b, d), generator=g, device=dev)
+              .to(torch.bfloat16), gates, k) for b in (1, 2, 3, 4)]
+    x1 = torch.randn((1, d), generator=g, device=dev)
+    cases += [("stacked_gating", f"P={p}", x1, stack[:p], None) for p in (1, 2)]
+    shapes = {"gating_topk": {}, "stacked_gating": {}}
+    err = {"gating_topk": 0.0, "stacked_gating": 0.0}
+    same = []
+    for op, label, x, gt, kk in cases:
+        name = f"{op} {label}"
+        err[op] = max(err[op], _gating_check(name, op, x, gt, kk))
+        _gating_same(name, op, x, gt, kk)
+        same.append(name)
+
+        def new():
+            return _gating_call(op, x, gt, kk)
+
+        runs = [graph_ms(new), graph_ms(new)]
+        ms = sum(runs) / 2
+        call = cuda_ms(new)
+        if op == "gating_topk":
+            plain = cuda_ms(lambda: ref.gating_topk_ref(x, gt, top_k=kk))
+            lib = None
+        else:
+            plain = cuda_ms(lambda: ref.stacked_gating_ref(x, gt))
+            lib = graph_ms(lambda: torch.einsum("bd,pde->pbe", x, gt))
+        p, b = gt.shape[0], x.shape[0]
+        out = new()
+        bms, by = bound(nbytes(x, gt, *out), 2 * p * b * d * e)
+        plan = ops.gating_plan(d, e, b, vec=gt.data_ptr() % 16 == 0)
+        xb = int(x.dtype == torch.bfloat16)
+        regs = ops.gating_regs(xb, op == "gating_topk", plan.vec, b)
+        shapes[op][label] = dict(
+            p=p, b=b, d=d, e=e, k=kk, x=str(x.dtype)[6:], ms=ms, ms_runs=runs, call_ms=call,
+            plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, cluster=plan.ranks,
+            slice=plan.slice, blocks=plan.ranks * p, regs=regs)
+        lib_s = f", torch.einsum {lib:.4f} ms on the card" if lib is not None else ""
+        print(f"[kernels] {name}: cluster kernel (cluster of {plan.ranks} x {p} routers, "
+              f"{plan.slice} rows of D per rank, {ops.GATING_THREADS} threads, {regs} "
+              f"registers) {runs[0]:.4f} / {runs[1]:.4f} ms on the card{lib_s}; {call:.4f} "
+              f"ms per call from Python (plain {plain:.4f} ms per call); bound {bms:.6f} ms "
+              f"by {by}", flush=True)
+    floor.append(graph_ms(lambda: one.fill_(1.0)))
+    print(f"[kernels] gating launch floor (a one-element fill, graph replays): "
+          f"{floor[0]:.4f} / {floor[1]:.4f} ms", flush=True)
+
+    sweep = {}
+    for op, label, x, gt, kk in (cases[0], cases[3], cases[5]):
+        name = f"{op} {label}"
+        sweep[name] = {}
+        for c in GATING_SWEEP:
+            err[op] = max(err[op], _gating_check(f"{name} cluster {c}", op, x, gt, kk, ranks=c))
+            sweep[name][c] = graph_ms(lambda: _gating_call(op, x, gt, kk, c))
+        chosen = ops.gating_plan(d, e, x.shape[0]).ranks
+        each = " ".join(f"{c}: {t:.4f}" for c, t in sweep[name].items())
+        print(f"[kernels] {name} by cluster size, ms on the card: {each}; the wrapper "
+              f"picks {chosen}", flush=True)
+
+    # (B, D, E, K, P, x dtype, gates aligned, tied columns)
+    bf, f32 = torch.bfloat16, torch.float32
+    edges = [(1, 4096, 1, 1, 1, bf, True, False), (3, 4096, 2, 2, 1, bf, True, False),
+             (5, 4097, 3, 2, 1, bf, True, False), (2, 2048, 6, 6, 1, f32, True, False),
+             (9, 4096, 8, 2, 1, bf, True, False), (17, 4096, 8, 2, 1, f32, True, False),
+             (6, 4096, 16, 6, 1, bf, True, False), (7, 5120, 60, 2, 1, bf, True, False),
+             (8, 5120, 64, 6, 3, bf, True, False), (4, 2048, 128, 2, 1, f32, True, False),
+             (9, 5120, 160, 6, 1, bf, True, False), (2, 4096, 160, 1, 1, f32, True, False),
+             (3, 7168, 256, 6, 1, bf, True, False), (1, 100, 8, 2, 1, bf, True, False),
+             (2, 5, 16, 3, 1, f32, True, False), (1, 14336, 8, 2, 1, bf, True, False),
+             (4, 4096, 8, 2, 1, bf, False, False), (9, 2048, 256, 2, 1, f32, False, False),
+             (4, 4096, 8, 3, 1, bf, True, True), (9, 2048, 160, 6, 1, bf, True, True),
+             (1, 1024, 8, 2, 1, f32, True, False), (2, 1100, 8, 2, 1, bf, True, False),
+             (3, 2560, 8, 2, 2, f32, True, False), (1, 3000, 8, 2, 1, bf, True, False),
+             (5, 3500, 8, 2, 1, bf, True, False)]
+    variants = []
+    picked = set()
+    for b, dd, ee, kk, p, dt, aligned, tied in edges:
+        gt = _gating_gates(dev, g, p, dd, ee, aligned=aligned)
+        picked.add(ops.gating_plan(dd, ee, b, vec=gt.data_ptr() % 16 == 0).ranks)
+        x = torch.randn((b, dd), generator=g, device=dev)
+        if tied:
+            gt[:, :, 5] = gt[:, :, 2]
+            gt[:, :, 7] = gt[:, :, 2]
+            x += 8.0 * gt[0, :, 2][None, :] / gt[0, :, 2].square().sum()
+        x = x.to(dt)
+        label = (f"B={b} D={dd} E={ee} K={kk} P={p} {str(dt)[6:]}"
+                 f"{'' if aligned else ' unaligned gates'}{' tied' if tied else ''}")
+        for op in ("gating_topk", "stacked_gating"):
+            err[op] = max(err[op], _gating_check(f"{op} {label}", op, x, gt, kk))
+            _gating_same(f"{op} {label}", op, x, gt, kk)
+        if tied:
+            lg, _, idx = ops.gating_topk(x, gt, top_k=kk)
+            check(bool((lg[..., 2] == lg[..., 5]).all() and (lg[..., 2] == lg[..., 7]).all()),
+                  f"gating_topk {label}: tied columns differ")
+            check(bool((idx[..., :3].cpu() == torch.tensor([2, 5, 7], dtype=torch.int32)).all()),
+                  f"gating_topk {label}: ties not taken lowest index first")
+        variants.append(label)
+        same.append(label)
+    check(picked == set(GATING_SWEEP), f"edge variants' cluster sizes {sorted(picked)}")
+    print(f"[kernels] gating: {len(variants)} edge variants agree with the plain versions "
+          f"through both wrappers, at cluster sizes {sorted(picked)}: {'; '.join(variants)}",
+          flush=True)
+    print(f"[kernels] gating: two calls gave bit-identical outputs at {len(same)} shapes",
+          flush=True)
+    out = []
+    for op, label, line in (("gating_topk", "B=4", "stacked_gating.py:113"),
+                            ("stacked_gating", "P=2", "stacked_gating.py:53")):
+        a = shapes[op][label]
+        out.append(dict(
+            name=op, route="cuda", source="src/repro_torch/kernels/csrc/gating.cu",
+            replaces=f"src/repro/kernels/{line}", max_abs_err=err[op], ms=a["ms"],
+            call_ms=a["call_ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+            bound_by=a["bound_by"], library_ms=a["library_ms"],
+            launch_floor_ms=floor, cluster=a["cluster"], regs=a["regs"], shapes=shapes[op],
+            note=f"ms and bound at {label}",
+            cluster_sweep_ms={n: s for n, s in sweep.items() if n.startswith(op)},
+            variants=len(variants), bit_identical=len(same),
+            tolerance="rtol 1e-5 atol 1e-5" + ("; vals atol 1e-6; idx exact unless gap "
+                                               "< 1e-6" if op == "gating_topk" else "")))
+    return out
 
 
 def phase_kernels_dense(dev) -> list:
@@ -1187,6 +1355,18 @@ def mixtral_cut():
     return dataclasses.replace(get_config(ARCH), num_layers=LAYERS).validate()
 
 
+def _gating_path(counts, es, label) -> None:
+    """Prints the engine's gating_s (host wall around each gating_topk call
+    and its results' copy back) and the lo pairs each grouped launch
+    carried."""
+    calls = counts.get("gating_topk.cuda", 0)
+    lo = es["lo_pairs_per_launch"]
+    print(f"[{label}] gating_s {es['gating_s']:.4f} s over {calls} gating_topk calls "
+          f"({es['gating_s'] / max(calls, 1) * 1e3:.4f} ms per call, host wall with the copy "
+          f"back); lo pairs per grouped launch: min {lo['min']}, median {lo['median']}, max "
+          f"{lo['max']} over {lo['launches']} launches {lo['hist']}", flush=True)
+
+
 def phase_serve(dev, model, params) -> dict:
     from repro_torch.core import EngineConfig
     from repro_torch.kernels import ops
@@ -1231,6 +1411,7 @@ def phase_serve(dev, model, params) -> dict:
         check(counts.get(f"{op}.torch", 0) == 0, f"{op}: plain version ran on the card")
     check(es["loads_hi"] > 0 and es["loads_lo"] > 0,
           f"loads_hi={es['loads_hi']} loads_lo={es['loads_lo']}")
+    _gating_path(counts, es, "serve")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
         "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
@@ -1239,6 +1420,7 @@ def phase_serve(dev, model, params) -> dict:
         "loads_lo": es["loads_lo"], "precision_downgrades": es["precision_downgrades"],
         "link_gbps": es["link_gbps"], "kernel_dispatch": counts,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
+        "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
     }
     print(f"[serve] {json.dumps(summary)}", flush=True)
     return summary
@@ -1370,6 +1552,7 @@ def phase_serve_paged(dev, model, params) -> dict:
               f"{op}: no CUDA launch on the paged serving path")
     bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
     check(not bad, f"plain versions ran on the card: {bad}")
+    _gating_path(counts, es, "serve-paged")
     check(es["prefix_hit_tokens"] > 0, "no prefix hit on a shared system prompt")
     check(es["cow_copies"] > 0, "no copy-on-write of the shared partial page")
     prompt_tokens = sum(len(r.prompt) for r in srv.completed)
@@ -1382,6 +1565,7 @@ def phase_serve_paged(dev, model, params) -> dict:
         "cow_copies": es["cow_copies"], "kv_pages_total": es["kv_pages_total"],
         "kv_page_fraction_peak": probe.peak,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
+        "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
         "kernel_dispatch": counts,
     }
     print(f"[serve-paged] {st['decode_tok_s']:.1f} tok/s, load stall "

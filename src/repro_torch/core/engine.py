@@ -118,6 +118,16 @@ def _check_ported(ecfg: EngineConfig) -> None:
             "yet (ROADMAP Queue 1, item 4)")
 
 
+def _spread(hist: Dict[int, int]) -> Dict:
+    """launches, min, median and max of a {value: count} histogram (zeros
+    when it is empty) and the histogram itself."""
+    vals = sorted(v for v, c in hist.items() for _ in range(c))
+    if not vals:
+        return {"launches": 0, "min": 0, "median": 0, "max": 0, "hist": {}}
+    return {"launches": len(vals), "min": vals[0], "median": float(np.median(vals)),
+            "max": vals[-1], "hist": dict(sorted(hist.items()))}
+
+
 class OffloadEngine:
     def __init__(self, model: Model, params, ecfg: EngineConfig):
         _check_ported(ecfg)
@@ -183,6 +193,7 @@ class OffloadEngine:
         self._pending_preds: List = []
         self.trace: List[List[TraceLayer]] = []
         self._gating_s = 0.0
+        self._lo_pairs: Dict[int, int] = {}     # lo pairs per grouped launch -> launches
         self._expert_dispatches = 0
         self._union_reloads = 0
         self._layer_s_ema = 0.0
@@ -541,6 +552,7 @@ class OffloadEngine:
             y[r] += float(w_hi[r, j]) * out[0].to(torch.float32)
         if lo_pairs:
             n = len(lo_pairs)
+            self._lo_pairs[n] = self._lo_pairs.get(n, 0) + 1
             ints = np.asarray([s for _, _, s in lo_pairs] + [r for r, _, _ in lo_pairs],
                               np.int32)
             idx = to_device(ints, hs.device)
@@ -724,6 +736,8 @@ class OffloadEngine:
             "pred_accuracy": {int(d): float(a)
                               for d, a in self.predictor.accuracy().items()},
             "gating_s": self._gating_s,
+            # (row, expert) pairs each grouped lo launch pair carried
+            "lo_pairs_per_launch": _spread(self._lo_pairs),
             "expert_dispatches": self._expert_dispatches,
             "union_reloads": self._union_reloads,
             # "<op>.<cuda|torch>" -> count: a card run showing .torch counts

@@ -40,8 +40,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # float scalars as c_float, an int result through an int*)
 SIGNATURES = {
     "gating": {
-        "gating_topk_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "stacked_gating_launch": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+        "gating_topk_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "stacked_gating_launch": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "gating_regs": (_I, _I, _I, _I, _IP),
+        "gating_layout": (_IP,),
     },
     "dequant": {
         "grouped_dequant_matmul_launch": (_P, _I, _P, _P, _P, _P, _P,

@@ -23,7 +23,8 @@ current stream and never synchronise.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -146,6 +147,70 @@ def _sm_count(device: torch.device) -> int:
 # gating
 # --------------------------------------------------------------------------
 
+# threads of one cluster-kernel block, gate loads each thread keeps in
+# flight per tile, token rows per pass, the floats of the block's shared x
+# tile / partial buffer and the largest cluster (kThreads, kLoads,
+# kMaxRows, kBufFloats and kMaxCluster in gating.cu; ``gating_layout``
+# reads them from the built kernel)
+GATING_THREADS = 256
+GATING_LOADS = 4
+GATING_ROWS = 8
+GATING_BUF_FLOATS = 8192
+GATING_MAX_CLUSTER = 8
+_GATING_REGS: Dict[tuple, int] = {}
+
+
+class GatingPlan(NamedTuple):
+    """How the cluster kernel cuts one router (``gating_plan``)."""
+    vec: int        # gate floats per load: 4 (16-byte loads) or 1
+    groups: int     # column groups of `vec` experts (E / vec)
+    lanes: int      # groups padded to a power of two
+    rows: int       # D rows one pass of a block covers (threads / lanes)
+    tile: int       # D rows of one tile (rows * GATING_LOADS)
+    ranks: int      # blocks of the cluster, one slice of D each
+    slice: int      # D rows of one rank's slice (the last may be shorter)
+    row_pass: int   # token rows per pass: 1, 2, 4 or 8
+    passes: int     # passes over the token rows
+    slots: int      # partials a block adds in order: warps, or rows of groups
+
+    def slices(self, d: int):
+        """[d0, d1) of each rank, in rank order."""
+        return [(min(d, c * self.slice), min(d, c * self.slice + self.slice))
+                for c in range(self.ranks)]
+
+
+def gating_plan(d: int, e: int, b: int, *, vec: bool = True,
+                ranks: Optional[int] = None) -> GatingPlan:
+    """The cluster kernel's cut of a (D, E) router for B token rows, as
+    gating.cu computes it.  16-byte gate loads when `vec` (the gates are
+    16-byte aligned) and E % 4 == 0, else 4-byte ones.  The cluster has
+    enough ranks that each reads at most one tile (every thread's loads in
+    flight at once), up to GATING_MAX_CLUSTER; `ranks` forces the size.  At
+    Mixtral's router (D 4096, E 8) that is 8 ranks of 512 rows."""
+    v = 4 if vec and e % 4 == 0 else 1
+    groups = e // v
+    lanes = 1
+    while lanes < groups:
+        lanes *= 2
+    rows = GATING_THREADS // lanes
+    tile = rows * GATING_LOADS
+    if ranks is None:
+        ranks = max(1, min(GATING_MAX_CLUSTER, -(-d // tile)))
+    row_pass = next(c for c in (1, 2, 4, GATING_ROWS) if c >= min(b, GATING_ROWS))
+    slots = GATING_THREADS // 32 if lanes <= 32 else rows
+    return GatingPlan(vec=v, groups=groups, lanes=lanes, rows=rows, tile=tile, ranks=ranks,
+                      slice=-(-d // ranks), row_pass=row_pass, passes=-(-b // row_pass),
+                      slots=slots)
+
+
+@functools.lru_cache(maxsize=256)
+def _gating_cut(d: int, e: int, aligned: bool) -> Tuple[int, int]:
+    """(16-byte gate loads, cluster size) of ``gating_plan``, which do not
+    depend on the batch: what each launch passes, cached per router shape."""
+    plan = gating_plan(d, e, 1, vec=aligned)
+    return int(plan.vec == 4), plan.ranks
+
+
 def _check_gating(op: str, x: torch.Tensor, gates: torch.Tensor):
     _check(op, x.dim() == 2 and gates.dim() == 3, "want x (B, D) and gates (P, D, E)")
     b, d = x.shape
@@ -158,6 +223,34 @@ def _check_gating(op: str, x: torch.Tensor, gates: torch.Tensor):
     return p, b, d, e
 
 
+def _launch_gating(op: str, x: torch.Tensor, gates: torch.Tensor, top_k: Optional[int],
+                   ranks: Optional[int] = None):
+    """Launch the cluster kernel on CUDA tensors (`ranks` forces its cluster
+    size): logits, plus vals and idx when `top_k` is given."""
+    p, b, d, e = _check_gating(op, x, gates)
+    if top_k is not None:
+        _check(op, 0 < top_k <= e, f"top_k={top_k} outside 1..{e}")
+    xb = _x_flag(op, x)
+    vec, planned = _gating_cut(d, e, gates.data_ptr() % 16 == 0)
+    ranks = planned if ranks is None else ranks
+    _check(op, 1 <= ranks <= GATING_MAX_CLUSTER,
+           f"cluster of {ranks} outside 1..{GATING_MAX_CLUSTER}")
+    lib = build.library("gating")
+    logits = torch.empty((p, b, e), dtype=torch.float32, device=x.device)
+    _record(op, "cuda")
+    if top_k is None:
+        _raise_on(op, lib.stacked_gating_launch(
+            x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), p, b, d, e, vec, ranks,
+            _stream()))
+        return logits
+    vals = torch.empty((p, b, top_k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((p, b, top_k), dtype=torch.int32, device=x.device)
+    _raise_on(op, lib.gating_topk_launch(
+        x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), p, b, d, e, top_k, vec, ranks, _stream()))
+    return logits, vals, idx
+
+
 def gating_topk(x: torch.Tensor, gates: torch.Tensor, *, top_k: int):
     """Fused router: stacked gate matmul + softmax + top-k in one launch.
 
@@ -166,23 +259,13 @@ def gating_topk(x: torch.Tensor, gates: torch.Tensor, *, top_k: int):
         ->     logits (P, B, E) f32, vals (P, B, K) f32 softmax probabilities
                of the selected experts, idx (P, B, K) int32
 
-    Ties select the lowest expert index on both paths."""
+    Ties select the lowest expert index on both paths.  On the card: one
+    thread-block cluster per router (``gating_plan``)."""
     op = "gating_topk"
     if _route(op, x, gates) == "torch":
         _record(op, "torch")
         return ref.gating_topk_ref(x, gates, top_k=top_k)
-    p, b, d, e = _check_gating(op, x, gates)
-    _check(op, 0 < top_k <= e, f"top_k={top_k} outside 1..{e}")
-    xb = _x_flag(op, x)
-    lib = build.library("gating")
-    logits = torch.empty((p, b, e), dtype=torch.float32, device=x.device)
-    vals = torch.empty((p, b, top_k), dtype=torch.float32, device=x.device)
-    idx = torch.empty((p, b, top_k), dtype=torch.int32, device=x.device)
-    _record(op, "cuda")
-    _raise_on(op, lib.gating_topk_launch(
-        x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), p, b, d, e, top_k, _stream()))
-    return logits, vals, idx
+    return _launch_gating(op, x, gates, top_k)
 
 
 def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
@@ -192,14 +275,41 @@ def stacked_gating(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     if _route(op, x, gates) == "torch":
         _record(op, "torch")
         return ref.stacked_gating_ref(x, gates)
-    p, b, d, e = _check_gating(op, x, gates)
-    xb = _x_flag(op, x)
-    lib = build.library("gating")
-    logits = torch.empty((p, b, e), dtype=torch.float32, device=x.device)
-    _record(op, "cuda")
-    _raise_on(op, lib.stacked_gating_launch(
-        x.data_ptr(), xb, gates.data_ptr(), logits.data_ptr(), p, b, d, e, _stream()))
-    return logits
+    return _launch_gating(op, x, gates, None)
+
+
+def _gating_at(ranks: int, x: torch.Tensor, gates: torch.Tensor, *,
+               top_k: Optional[int] = None):
+    """``gating_topk`` (with `top_k`) or ``stacked_gating`` (without) on CUDA
+    tensors with the cluster size forced to `ranks` (1 to
+    GATING_MAX_CLUSTER); ``chip_smoke.py`` sweeps the size with it."""
+    op = "stacked_gating" if top_k is None else "gating_topk"
+    _check(op, _route(op, x, gates) == "cuda", "a kernel needs CUDA tensors")
+    return _launch_gating(op, x, gates, top_k, ranks)
+
+
+def gating_regs(x_bf16: int, select: bool, vec: int, b: int) -> int:
+    """Registers per thread of the cluster kernel's instantiation for bf16
+    or float32 x, with or without the top-k, `vec` gate floats per load and
+    a batch of `b` rows; cached per card."""
+    key = (torch.cuda.current_device(), x_bf16, select, vec, min(b, GATING_ROWS))
+    if key not in _GATING_REGS:
+        regs = ctypes.c_int(0)
+        _raise_on("gating", build.library("gating").gating_regs(
+            x_bf16, int(select), int(vec == 4), b, ctypes.byref(regs)))
+        _GATING_REGS[key] = regs.value
+    return _GATING_REGS[key]
+
+
+def gating_layout() -> Dict[str, int]:
+    """The built kernel's layout constants, by the names this module
+    mirrors them under (GATING_THREADS, ...), for holding the mirror to
+    the kernel."""
+    out = (ctypes.c_int * 5)()
+    _raise_on("gating", build.library("gating").gating_layout(out))
+    names = ("GATING_THREADS", "GATING_LOADS", "GATING_ROWS", "GATING_BUF_FLOATS",
+             "GATING_MAX_CLUSTER")
+    return dict(zip(names, out))
 
 
 # --------------------------------------------------------------------------

@@ -132,6 +132,32 @@ def test_join_release_pause_resume_match_reference(models):
         tb.close()
 
 
+def test_lo_pairs_per_launch_counts_every_grouped_launch(models):
+    """stats()["lo_pairs_per_launch"]: one histogram entry per grouped lo
+    launch pair, each the number of (row, expert) pairs it carried."""
+    from repro_torch.kernels import ops as kops
+    cfg, _, _, port, tparams = models
+    eng = OffloadEngine(port, tparams, EngineConfig(hi_slots=3, lo_slots=2,
+                                                    async_prefetch=False))
+    tb = HobbitBackend(eng)
+    rng = np.random.default_rng(3)
+    try:
+        tb.start_batch(2, 32)
+        kops.reset_dispatch_counts()
+        tb.prefill(rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32))
+        for _ in range(4):
+            tb.step(rng.integers(0, cfg.vocab_size, 2).astype(np.int32))
+        st = eng.stats()
+        lo = st["lo_pairs_per_launch"]
+        launches = st["kernel_dispatch"].get("grouped_dequant_matmul.torch", 0)
+        assert launches > 0 and lo["launches"] == launches
+        assert sum(lo["hist"].values()) == launches
+        assert 1 <= lo["min"] <= lo["median"] <= lo["max"] <= 2 * cfg.moe.top_k
+        assert lo["min"] == min(lo["hist"]) and lo["max"] == max(lo["hist"])
+    finally:
+        tb.close()
+
+
 def test_default_async_engine_matches_dense_unconstrained():
     """Default EngineConfig (async staging on two streams, measured link)
     with every expert resident at full precision equals the dense model —

@@ -88,6 +88,181 @@ def test_stacked_gating_matches_reference(mode, p, e):
     _close(got, want)
 
 
+@pytest.mark.parametrize("d", [2048, 4096, 5120, 4097])
+@pytest.mark.parametrize("e", [1, 3, 8, 16, 160, 256])
+@pytest.mark.parametrize("vec", [True, False])
+def test_gating_plan_slices_cover_d_once(d, e, vec):
+    """The cluster kernel's cut: the ranks' slices tile [0, D) in order with
+    no gap or overlap, each within one tile, the cluster within the card's
+    limit, and the block's shared x tile and partials within its buffer."""
+    for b in (1, 4, 9):
+        plan = ops.gating_plan(d, e, b, vec=vec)
+        covered = np.zeros(d, np.int64)
+        for d0, d1 in plan.slices(d):
+            assert 0 <= d0 <= d1 <= d
+            covered[d0:d1] += 1
+        assert (covered == 1).all()
+        assert 1 <= plan.ranks <= ops.GATING_MAX_CLUSTER == 8
+        # what each launch passes does not depend on the batch
+        assert ops._gating_cut(d, e, vec) == (int(plan.vec == 4), plan.ranks)
+        assert plan.slice <= plan.tile or plan.ranks == ops.GATING_MAX_CLUSTER
+        assert plan.groups * plan.vec == e and plan.groups <= plan.lanes < 2 * plan.groups
+        assert 32 % plan.lanes == 0 or plan.lanes % 32 == 0
+        assert plan.rows * plan.lanes == ops.GATING_THREADS
+        assert plan.row_pass * plan.passes >= b and plan.row_pass <= ops.GATING_ROWS
+        assert plan.row_pass * plan.tile <= ops.GATING_BUF_FLOATS
+        assert plan.slots * plan.row_pass * e <= ops.GATING_BUF_FLOATS
+        assert plan.vec == (4 if vec and e % 4 == 0 else 1)
+    # Mixtral's router: 8 ranks of one 512-row tile, 16-byte loads
+    if (d, e, vec) == (4096, 8, True):
+        assert (plan.ranks, plan.slice, plan.tile) == (8, 512, 512)
+
+
+def _fma(x, g, acc):
+    """float32 fmaf(x, g, acc): the product is exact in float64."""
+    return (x.astype(np.float64) * g.astype(np.float64) + acc).astype(np.float32)
+
+
+def _gating_emulation(x, gates, top_k, plan):
+    """gating.cu's cluster kernel in float32, in its order of operations:
+    each thread's FMA chain over rows d0 + r, d0 + r + rows, ... of its
+    rank's slice; the xor butterfly over the rows a warp holds (lanes <= 32);
+    the warps (or rows of groups) in order; the ranks in rank order; then
+    per token row the softmax and k rounds of argmax as one warp computes
+    them (lane l sums experts l, l + 32, ..., then a butterfly; each round
+    picks the largest exp(l - max), ties at the lowest index, and divides
+    only the pick by the sum)."""
+    p, d, e = gates.shape
+    b = x.shape[0]
+    rows, lanes = plan.rows, plan.lanes
+    logits = np.zeros((p, b, e), np.float32)
+    for pi in range(p):
+        total = np.zeros((b, e), np.float32)
+        for d0, d1 in plan.slices(d):
+            n = d1 - d0
+            steps = -(-n // rows)
+            xs = np.zeros((b, steps * rows), np.float32)
+            xs[:, :n] = x[:, d0:d1]
+            gs = np.zeros((steps * rows, e), np.float32)
+            gs[:n] = gates[pi, d0:d1]
+            xs, gs = xs.reshape(b, steps, rows), gs.reshape(steps, rows, e)
+            acc = np.zeros((b, rows, e), np.float32)            # thread (r, column)
+            for i in range(steps):
+                acc = _fma(xs[:, i, :, None], gs[i][None], acc)
+            if lanes <= 32:
+                per_warp = 32 // lanes
+                acc = acc.reshape(b, rows // per_warp, per_warp, e)
+                o = per_warp // 2
+                while o >= 1:
+                    acc = acc + acc[:, :, np.arange(per_warp) ^ o]
+                    o //= 2
+                slots = acc[:, :, 0]
+            else:
+                slots = acc
+            part = np.zeros((b, e), np.float32)
+            for k in range(slots.shape[1]):
+                part = part + slots[:, k]
+            total = total + part
+        logits[pi] = total
+    z = np.exp(logits - logits.max(-1, keepdims=True)).astype(np.float32)
+    ez = np.zeros((p, b, 256), np.float32)
+    ez[..., :e] = z
+    lane_sum = np.zeros((p, b, 32), np.float32)
+    for i in range(8):
+        lane_sum = lane_sum + ez[..., 32 * i:32 * i + 32]
+    o = 16
+    while o >= 1:
+        lane_sum = lane_sum + lane_sum[..., np.arange(32) ^ o]
+        o //= 2
+    work, total = z.copy(), lane_sum[..., 0]
+    vals, idx = [], []
+    for _ in range(top_k):
+        i = work.argmax(-1)                      # first maximal exp(l - max)
+        vals.append(np.take_along_axis(work, i[..., None], -1)[..., 0] / total)
+        idx.append(i)
+        np.put_along_axis(work, i[..., None], -1.0, -1)
+    return logits, np.stack(vals, -1), np.stack(idx, -1).astype(np.int32)
+
+
+def _topk_match(idx, want_idx, want_vals_sorted):
+    """idx equal to the reference's, except where the reference's top-k gap
+    (a selected value to the next candidate) is under 1e-6."""
+    if np.array_equal(idx, want_idx):
+        return
+    k = want_idx.shape[-1]
+    gaps = np.abs(want_vals_sorted[..., :k] - want_vals_sorted[..., 1:k + 1]).min(-1)
+    rows = (idx != want_idx).any(-1)
+    assert (gaps[rows] < 1e-6).all(), "top-k indices differ where the gap exceeds 1e-6"
+
+
+# (P, D, E, K, B, 16-byte gate loads); the first six are the serving path's
+# shapes (Mixtral's router for B 1-4, the predictor's stack of 2)
+GATING_EMULATION_CASES = [
+    (1, 4096, 8, 2, 1, True), (1, 4096, 8, 2, 2, True), (1, 4096, 8, 2, 3, True),
+    (1, 4096, 8, 2, 4, True), (2, 4096, 8, 2, 1, True), (1, 4096, 8, 2, 1, False),
+    (1, 2048, 16, 1, 9, True), (2, 4096, 16, 6, 5, True), (1, 5120, 160, 6, 8, True),
+    (1, 2048, 160, 2, 3, False), (1, 4096, 256, 6, 9, True), (2, 2048, 256, 1, 2, False),
+    (1, 4097, 8, 2, 4, True), (3, 512, 3, 2, 7, True),
+]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", GATING_EMULATION_CASES,
+                         ids=["p{}-d{}-e{}-k{}-b{}-{}".format(*c[:5], "v4" if c[5] else "v1")
+                              for c in GATING_EMULATION_CASES])
+def test_gating_cluster_order_meets_card_tolerance(mode, case):
+    """The cluster kernel's summation order and warp top-k, emulated in
+    float32, against the JAX package's gating_topk and stacked_gating at
+    chip_smoke.py's tolerances: rtol/atol 1e-5 on logits and vals, idx
+    exact unless the top-k gap is under 1e-6.  x is rounded to bf16 first,
+    as the serving path hands it over."""
+    p, d, e, k, b, vec = case
+    rng = np.random.default_rng(d + e + b)
+    x = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(torch.float32).numpy()
+    gates = (rng.standard_normal((p, d, e)) / np.sqrt(d)).astype(np.float32)
+    plan = ops.gating_plan(d, e, b, vec=vec)
+    lg, vals, idx = _gating_emulation(x, gates, k, plan)
+    lg_r, v_r, i_r = jops.gating_topk(jnp.asarray(x), jnp.asarray(gates), top_k=k, mode=mode)
+    np.testing.assert_allclose(lg, np.asarray(lg_r), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(vals, np.asarray(v_r), rtol=1e-5, atol=1e-5)
+    probs = np.asarray(jref.gating_topk_ref(jnp.asarray(x), jnp.asarray(gates), top_k=e)[1])
+    _topk_match(idx, np.asarray(i_r), probs)
+    want = jops.stacked_gating(jnp.asarray(x), jnp.asarray(gates), mode=mode)
+    np.testing.assert_allclose(lg, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("e,k,b", [(8, 3, 4), (16, 6, 9), (160, 6, 3)])
+def test_gating_cluster_order_keeps_ties_at_lowest_index(mode, e, k, b):
+    """Duplicate router columns give exactly equal logits in the emulated
+    cluster order too (each column's chain, butterfly and slot sums have the
+    same shape), and the warp argmax picks the lower index first."""
+    rng = np.random.default_rng(e * k)
+    d = 2048
+    gates = (rng.standard_normal((1, d, e)) / np.sqrt(d)).astype(np.float32)
+    for c in (5, 7):
+        gates[0, :, c] = gates[0, :, 2]
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    x = x + 4.0 * gates[0, :, 2][None, :] / np.square(gates[0, :, 2]).sum()
+    lg, vals, idx = _gating_emulation(x, gates, k, ops.gating_plan(d, e, b))
+    assert (lg[..., 2] == lg[..., 5]).all() and (lg[..., 2] == lg[..., 7]).all()
+    _, v_r, i_r = jops.gating_topk(jnp.asarray(x), jnp.asarray(gates), top_k=k, mode=mode)
+    np.testing.assert_array_equal(idx[..., :3], np.tile([2, 5, 7], (1, b, 1)))
+    np.testing.assert_array_equal(idx, np.asarray(i_r))
+    np.testing.assert_allclose(vals, np.asarray(v_r), rtol=1e-5, atol=1e-5)
+
+
+def test_gating_at_a_cluster_size_needs_cuda():
+    """The forced-cluster entry that chip_smoke.py sweeps has no plain path:
+    CPU tensors raise for both router ops."""
+    x, gates = torch.zeros((1, 64)), torch.zeros((1, 64, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._gating_at(8, x, gates, top_k=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._gating_at(1, x, gates)
+
+
 # --------------------------------------------------------------------------
 # dense dequant-matmul (cases of tests/test_kernels.py's dequant section)
 # --------------------------------------------------------------------------
