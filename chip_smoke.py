@@ -14,10 +14,15 @@ and each printing its seconds:
                replays timed with CUDA events; the router kernels timed
                beside a launch floor, swept over cluster sizes, checked at
                edge variants and bit-identical over two calls, their layout
-               constants held to ops.py's; the grouped dequant pair
-               at P = 1, 2, 4 and 8 pairs; an out-of-range pool slot
-               must abort the dequant kernels, and an out-of-range page id
-               the paged flash-decode kernel (checked in child processes);
+               constants held to ops.py's; the grouped dequant pair on its
+               tensor-core kernel at P = 1-5 and 8 pairs and two pairs on
+               one slot, pools cold in L2, swept over cluster size,
+               then bits 8/2, float32 x, pads, passes of more
+               than 8 pairs, groups, ragged N and every cluster size, each
+               bit-identical over two calls on the kernel its shape names;
+               an out-of-range pool slot (a pad's too) must abort both
+               grouped kernels, and an out-of-range page id the paged
+               flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
   3c. dequant_matmul — the dense dequant-matmul kernels at Granite-3.0-2B's
                FFN shapes (decode M = 1-4 on the tensor-core decode kernel,
@@ -35,7 +40,9 @@ and each printing its seconds:
   4. serve   — HobbitBackend under BatchingServer on full-width Mixtral-8x7B
                (depth cut to 4 layers, seeded random bf16 weights): mixed-
                length greedy requests, with every kernel's launch counted,
-               the engine's gating_s and the lo pairs per grouped launch;
+               the engine's gating_s, the lo pairs and distinct slots per
+               grouped launch, every grouped launch on the tensor-core
+               kernel;
   5. parity  — the offload engine with every expert resident at full
                precision against the dense model, step by step;
   6. serve-paged — the same server and model on the paged KV layout
@@ -234,80 +241,10 @@ def _topk_ok(name: str, idx, want_idx, want_probs) -> None:
 
 
 def phase_kernels(dev) -> list:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
-    from repro_torch.quant.quantize import PACK_FACTOR
-
-    cfg = get_config(ARCH)
-    d, f, e, k = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts, cfg.moe.top_k
-    bits, gs = 4, 64                      # EngineConfig defaults (lo_bits, group)
-    pack = PACK_FACTOR[bits]
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = _gating_rows(dev, g)
 
-    # -- grouped dequant GEMV (up/gate) and GEMV + combine (down) ------------
-    def pool(slots, kk, n):
-        data = torch.randint(-128, 128, (slots, kk // pack, n), generator=g,
-                             device=dev, dtype=torch.int8)
-        scale = torch.rand((slots, kk // gs, n), generator=g, device=dev) * 0.02
-        return data, scale
-
-    # P pairs -> (token rows B, the combine's row of each pair): non-
-    # decreasing rows; at P = 8 one pad (row == B, weight 0) and a row no
-    # pair visits.  The serve launches P = 1 to 2 * B pairs (its
-    # lo_pairs_per_launch).
-    grouped = {1: (1, [0]), 2: (1, [0, 0]), 4: (2, [0, 0, 1, 1]),
-               8: (4, [0, 0, 1, 1, 3, 3, 3, 4])}
-    for name in ("grouped_dequant_matmul", "grouped_dequant_combine"):
-        kk, n = (d, 2 * f) if name == "grouped_dequant_matmul" else (f, d)
-        err, by_p = 0.0, {}
-        for p, (b, r) in grouped.items():
-            data, scale = pool(p, kk, n)
-            slot = torch.randperm(p, generator=g, device=dev).to(torch.int32)
-            x = torch.randn((p, kk), generator=g, device=dev).to(torch.bfloat16)
-            if name == "grouped_dequant_matmul":
-                args = (x, data, scale, slot)
-                kw = dict(bits=bits, group_size=gs)
-                fn, plain_fn = ops.grouped_dequant_matmul, ref.grouped_dequant_matmul_ref
-                extra = ()
-            else:
-                rws = torch.tensor(r, dtype=torch.int32, device=dev)
-                w = torch.rand((p,), generator=g, device=dev)
-                w[rws == b] = 0.0
-                args = (x, data, scale, slot, rws, w)
-                kw = dict(bits=bits, group_size=gs, num_rows=b)
-                fn, plain_fn = ops.grouped_dequant_combine, ref.grouped_dequant_combine_ref
-                extra = (rws, w)
-            got = fn(*args, **kw)
-            want = plain_fn(*args, **kw)
-            torch.cuda.synchronize()
-            err = max(err, _close(name, got, want, 1e-4, 1e-3))
-            if name == "grouped_dequant_combine" and p == 8:
-                check(bool((got[2] == 0).all()), f"{name}: unvisited row not zero")
-            ms = graph_ms(lambda: fn(*args, **kw))
-            call = cuda_ms(lambda: fn(*args, **kw))
-            plain = cuda_ms(lambda: plain_fn(*args, **kw), warmup=1, iters=5)
-            live = p if name == "grouped_dequant_matmul" else int((extra[0] < b).sum())
-            moved = (nbytes(x, slot, got, *extra)
-                     + live * (data[0].numel() + scale[0].numel() * 4))
-            bms, by = bound(moved, 2 * live * kk * n)
-            by_p[p] = dict(b=b, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms,
-                           bound_by=by, of_bound=bms / ms, gbps=moved / ms / 1e6)
-            print(f"[kernels] {name} B={b} P={p}: {ms:.4f} ms on the card "
-                  f"({moved / ms / 1e6:.0f} GB/s), {call:.4f} ms per call (plain "
-                  f"{plain:.3f} ms per call, bound {bms:.4f} ms, {bms / ms:.0%} of it)",
-                  flush=True)
-            del data, scale, got, want
-        line = "dequant_matmul.py:145" if name == "grouped_dequant_matmul" \
-            else "dequant_matmul.py:210"
-        rows.append(dict(name=name, route="cuda",
-                         source="src/repro_torch/kernels/csrc/dequant.cu",
-                         replaces=f"src/repro/kernels/{line}", max_abs_err=err,
-                         ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         library_ms=None, tolerance="rtol 1e-4 atol 1e-3",
-                         by_pairs=by_p, note="ms, bounds and the plain time at P = 8; "
-                                             "every P under by_pairs"))
-        torch.cuda.empty_cache()
+    rows += _grouped_rows(dev, g)
     _other_instantiations(dev, g)
     _slot_faults()
     rows.append(_paged_decode_row(dev, g))
@@ -528,10 +465,198 @@ def phase_kernels_dense(dev) -> list:
     return [dq, fd]
 
 
+# ---------------------------------------------------------------------------
+# phase 3, rows 3-4: the grouped lo-expert pair at Mixtral's expert shapes
+# ---------------------------------------------------------------------------
+# float32 sums over K <= 14336 in another order than the plain version's
+GROUPED_TOL = dict(rtol=1e-4, atol=1e-3)
+# pair counts as the serve launches them (its lo_pairs_per_launch: 1-5, and
+# up to 8 at batch 4): name -> (token rows B, each pair's row, each pair's
+# pool slot).  P = 8 carries one pad (row B, weight 0) on a slot of its own
+# and a row no pair visits (row 2); "P=2 one slot" is two token rows'
+# pairs on one slot.
+GROUPED_CASES = {
+    "P=1": (1, [0], [0]), "P=2": (1, [0, 0], [1, 0]), "P=3": (2, [0, 0, 1], [2, 0, 1]),
+    "P=4": (2, [0, 0, 1, 1], [3, 1, 0, 2]), "P=5": (3, [0, 0, 1, 1, 2], [4, 2, 0, 3, 1]),
+    "P=8": (4, [0, 0, 1, 1, 3, 3, 3, 4], [5, 2, 7, 0, 3, 6, 1, 4]),
+    "P=2 one slot": (1, [0, 0], [0, 0]),
+}
+
+
+def _grouped_pools(dev, g, slots, k, n, bits=4, group=64):
+    """Seeded pools (data, scale) of `slots` experts (random codes, scales
+    in [0, 0.02)), enough copies that cycling through them moves over twice
+    the card's 50 MB L2: each timed launch finds its experts cold, as a
+    decode step does."""
+    from repro_torch.quant.quantize import PACK_FACTOR
+    per = slots * (k // PACK_FACTOR[bits] * n + k // group * n * 4)
+    return [(torch.randint(-128, 128, (slots, k // PACK_FACTOR[bits], n), generator=g,
+                           device=dev, dtype=torch.int8),
+             torch.rand((slots, k // group, n), generator=g, device=dev) * 0.02)
+            for _ in range(max(2, -(-L2_CYCLE_BYTES // per)))]
+
+
+def _grouped_call(op, x, data, scale, slot, rows=None, w=None, num_rows=None, *, bits=4,
+                  group=64, ranks=None):
+    """One call of the op through its wrapper, or through the tensor-core
+    kernel with its cluster size forced."""
+    from repro_torch.kernels import ops
+    kw = dict(bits=bits, group_size=group)
+    if op == "grouped_dequant_combine":
+        kw["num_rows"] = num_rows
+    if ranks is not None:
+        return ops._grouped_at(ranks, x, data, scale, slot, rows, w, **kw)
+    if op == "grouped_dequant_combine":
+        return ops.grouped_dequant_combine(x, data, scale, slot, rows, w, **kw)
+    return ops.grouped_dequant_matmul(x, data, scale, slot, **kw)
+
+
+def _grouped_check(name, op, x, data, scale, slot, rows=None, w=None, num_rows=None, *,
+                   bits=4, group=64, ranks=None, want_kernel=None):
+    """(max abs error against the plain version, the kernel that ran): two
+    calls must be bit-identical, rows no pair visits exact zeros, and the
+    kernel the one named by `want_kernel` when given."""
+    from repro_torch.kernels import ops, ref
+    before = ops.grouped_launches()
+    got = _grouped_call(op, x, data, scale, slot, rows, w, num_rows, bits=bits, group=group,
+                        ranks=ranks)
+    after = ops.grouped_launches()
+    ran = [key.split(".")[1] for key in after if after[key] != before.get(key, 0)]
+    check(len(ran) == 1, f"{name}: launched {ran}, not one grouped kernel")
+    again = _grouped_call(op, x, data, scale, slot, rows, w, num_rows, bits=bits, group=group,
+                          ranks=ranks)
+    kw = dict(bits=bits, group_size=group)
+    if op == "grouped_dequant_combine":
+        want = ref.grouped_dequant_combine_ref(x, data, scale, slot, rows, w,
+                                               num_rows=num_rows, **kw)
+    else:
+        want = ref.grouped_dequant_matmul_ref(x, data, scale, slot, **kw)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == tuple(want.shape), f"{name}: shape {tuple(got.shape)}")
+    check(torch.equal(got, again), f"{name}: two calls differ")
+    if op == "grouped_dequant_combine":
+        for r in range(num_rows):
+            if r not in rows.tolist():
+                check(bool((got[r] == 0).all()), f"{name}: unvisited row {r} not zero")
+    if want_kernel is not None:
+        check(ran[0] == want_kernel, f"{name}: ran the {ran[0]} kernel, not {want_kernel}")
+    return _close(f"{name} ({ran[0]})", got, want, **GROUPED_TOL), ran[0]
+
+
+def _grouped_rows(dev, g) -> list:
+    """Both ops at Mixtral-8x7B's expert shapes (the matmul over wi, K 4096
+    -> N 28672; the combine over wo, K 14336 -> N 4096; 4-bit codes, group
+    64, bf16 x), at every P of GROUPED_CASES, through the wrappers, against
+    the plain versions, two calls bit-identical, every launch on the
+    tensor-core kernel.  Timed with the pool cold in L2; the bound counts
+    each distinct live slot's codes and scales once (a pad's slot is not
+    read).  Then the tensor-core kernel by cluster size (wo 1-8, wi 1-2)
+    at P = 1, and the layout constants held to ops.py's mirror."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.quantize import PACK_FACTOR
+
+    layout = ops.grouped_layout()
+    mirror = {n: getattr(ops, n) for n in layout}
+    check(layout == mirror, f"dequant.cu's grouped layout {layout} != ops.py's {mirror}")
+    cfg = get_config(ARCH)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    bits, gs = 4, 64                      # EngineConfig defaults (lo_bits, group)
+    pack = PACK_FACTOR[bits]
+    out = []
+    for op in ("grouped_dequant_matmul", "grouped_dequant_combine"):
+        k, n = (d, 2 * f) if op == "grouped_dequant_matmul" else (f, d)
+        combine = op == "grouped_dequant_combine"
+        plan = ops._grouped_plan_for(k, n, gs, bits, combine, dev)
+        info = ops.grouped_info(bits, combine, gs)
+        err, by_p = 0.0, {}
+        for name, (b, r, sl) in GROUPED_CASES.items():
+            p = len(r)
+            pools = _grouped_pools(dev, g, max(sl) + 1, k, n)
+            data, scale = pools[0]
+            slot = torch.tensor(sl, dtype=torch.int32, device=dev)
+            x = torch.randn((p, k), generator=g, device=dev).to(torch.bfloat16)
+            rws = torch.tensor(r, dtype=torch.int32, device=dev) if combine else None
+            w = None
+            if combine:
+                w = torch.rand((p,), generator=g, device=dev)
+                w[rws == b] = 0.0
+            label = f"{op} {name} B={b}"
+            e, _ = _grouped_check(label, op, x, data, scale, slot, rws, w, b,
+                                  want_kernel="mmv")
+            err = max(err, e)
+            calls = [lambda dt=dt, sc=sc: _grouped_call(op, x, dt, sc, slot, rws, w, b)
+                     for dt, sc in pools]
+            ms = graph_ms(_cycling(calls))
+            call = cuda_ms(calls[0])
+            plain = cuda_ms(
+                (lambda: ref.grouped_dequant_combine_ref(x, data, scale, slot, rws, w,
+                                                         bits=bits, group_size=gs, num_rows=b))
+                if combine else
+                (lambda: ref.grouped_dequant_matmul_ref(x, data, scale, slot, bits=bits,
+                                                        group_size=gs)), warmup=1, iters=5)
+            live = [s_ for s_, rr in zip(sl, r) if not combine or rr < b]
+            y = calls[0]()
+            moved = (nbytes(x, slot, y, *((rws, w) if combine else ()))
+                     + len(set(live)) * (k // pack * n + k // gs * n * 4))
+            bms, by = bound(moved, 2 * len(live) * k * n, BF16_FLOPS)
+            by_p[name] = dict(b=b, p=p, slots=len(set(live)), ms=ms, call_ms=call,
+                              plain_ms=plain, bound_ms=bms, bound_by=by, of_bound=bms / ms,
+                              gbps=moved / ms / 1e6, pool_copies=len(pools))
+            print(f"[kernels] {label}: {ms:.4f} ms on the card, L2 cold ({moved / ms / 1e6:.0f} "
+                  f"GB/s; {len(set(live))} distinct live slots; bound {bms:.4f} ms by {by}, "
+                  f"{bms / ms:.0%} of it), {call:.4f} ms per call (plain {plain:.3f} ms per call)",
+                  flush=True)
+            del pools, data, scale, calls, y
+            torch.cuda.empty_cache()
+        # the tensor-core kernel by cluster size at P = 1
+        pools = _grouped_pools(dev, g, 1, k, n)
+        x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+        slot = torch.zeros(1, dtype=torch.int32, device=dev)
+        rws = torch.zeros(1, dtype=torch.int32, device=dev) if combine else None
+        w = torch.ones(1, device=dev) if combine else None
+        sweep = {}
+        tiles = -(-n // ops.GROUPED_TILE_N)
+        for ranks in range(1, 9 if n <= 4096 else 3):
+            e, _ = _grouped_check(f"{op} P=1 cluster {ranks}", op, x, *pools[0], slot, rws, w,
+                                  1, ranks=ranks)
+            err = max(err, e)
+            calls = [lambda dt=dt, sc=sc: _grouped_call(op, x, dt, sc, slot, rws, w, 1,
+                                                       ranks=ranks)
+                     for dt, sc in pools]
+            sweep[ranks] = graph_ms(_cycling(calls))
+        each = " ".join(f"{key}: {t:.4f}" for key, t in sweep.items())
+        print(f"[kernels] {op} P=1 by cluster size, ms on the card (L2 cold): {each}; "
+              f"the wrapper picks {plan.ranks} ({tiles} column tiles, "
+              f"{plan.blocks_per_sm} blocks/SM, clusters that fit at once {info.clusters}); "
+              f"{info.smem} bytes of dynamic shared memory per block, {info.regs} registers, "
+              f"{info.local_bytes} bytes of local memory per thread", flush=True)
+        del pools
+        torch.cuda.empty_cache()
+        line = "dequant_matmul.py:145" if op == "grouped_dequant_matmul" \
+            else "dequant_matmul.py:210"
+        head = by_p["P=8"]
+        out.append(dict(name=op, route="cuda", source="src/repro_torch/kernels/csrc/dequant.cu",
+                        replaces=f"src/repro/kernels/{line}", max_abs_err=err, ms=head["ms"],
+                        call_ms=head["call_ms"], plain_ms=head["plain_ms"],
+                        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                        kernel="mmv", cluster=plan.ranks, blocks_per_sm=plan.blocks_per_sm,
+                        smem=info.smem, regs=info.regs, local_bytes=info.local_bytes,
+                        tolerance="rtol 1e-4 atol 1e-3", by_pairs=by_p, sweep_ms=sweep,
+                        note="ms, bounds and the plain time at P = 8; every P under "
+                             "by_pairs; L2 cold"))
+    return out
+
+
 def _other_instantiations(dev, g) -> None:
-    """Every compiled variant the serving shapes above do not reach (8- and
-    2-bit codes, float32 activations, Phi-MoE's 16 experts, pad-only combine)
-    against the plain versions at small shapes; untimed."""
+    """Every compiled variant the serving shapes above do not reach, against
+    the plain versions at small shapes, untimed: the routers at Phi-MoE's 16
+    experts and float32 x; the grouped pair at bits 8/4/2 and float32/bf16
+    x, pads, pads only and a row no pair visits, pairs sharing a slot,
+    passes of more than 8 pairs, groups 8-256, ragged N, unaligned x, and
+    shapes that make the planner choose every cluster size 1-8; each
+    grouped variant bit-identical over two calls and on the kernel the
+    shape rule names (``ops.grouped_dequant_kernel``)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import PACK_FACTOR
 
@@ -548,32 +673,72 @@ def _other_instantiations(dev, g) -> None:
             _close("stacked_gating", ops.stacked_gating(x, gates),
                    ref.stacked_gating_ref(x, gates), 1e-5, 1e-5)
             n_checked += 2
-    k, n, gs = 512, 256, 64
+
+    def pool(s_, k, n, bits, gs):
+        return (torch.randint(-128, 128, (s_, k // PACK_FACTOR[bits], n), generator=g,
+                              device=dev, dtype=torch.int8),
+                torch.rand((s_, k // gs, n), generator=g, device=dev) * 0.05)
+
+    def x_of(p, k, dt=torch.bfloat16, offset=False):
+        x = torch.randn((p, k), generator=g, device=dev).to(dt)
+        if offset:                         # contiguous, one element into its storage
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(x.shape)
+        return x
+
+    # (label, K, N, bits, group, slots, rows (None: the matmul), num_rows, x dtype,
+    #  x unaligned, the kernel the shape rule names)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
     for bits in (8, 4, 2):
-        for dt in (torch.float32, torch.bfloat16):
-            data = torch.randint(-128, 128, (4, k // PACK_FACTOR[bits], n), generator=g,
-                                 device=dev, dtype=torch.int8)
-            scale = torch.rand((4, k // gs, n), generator=g, device=dev) * 0.05
-            x = torch.randn((3, k), generator=g, device=dev).to(dt)
-            slot = torch.tensor([2, 0, 2], dtype=torch.int32, device=dev)
-            kw = dict(bits=bits, group_size=gs)
-            _close(f"grouped_dequant_matmul bits={bits}",
-                   ops.grouped_dequant_matmul(x, data, scale, slot, **kw),
-                   ref.grouped_dequant_matmul_ref(x, data, scale, slot, **kw), 1e-4, 1e-3)
-            for r in ([0, 0, 2], [3, 3, 3]):      # pad + unvisited row; pads only
-                rows = torch.tensor(r, dtype=torch.int32, device=dev)
-                w = torch.rand((3,), generator=g, device=dev)
-                w[rows == 3] = 0.0
-                got = ops.grouped_dequant_combine(x, data, scale, slot, rows, w,
-                                                  num_rows=3, **kw)
-                want = ref.grouped_dequant_combine_ref(x, data, scale, slot, rows, w,
-                                                       num_rows=3, **kw)
-                _close(f"grouped_dequant_combine bits={bits}", got, want, 1e-4, 1e-3)
-                check(bool((got[1] == 0).all()), "combine: unvisited row not zero")
-            n_checked += 3
+        for dt in (f32, bf):
+            kern = "mmv" if dt == bf else "two_pass"
+            cases += [(f"bits {bits} {str(dt)[6:]} shared slot", 512, 256, bits, 64, [2, 0, 2],
+                       None, None, dt, False, kern),
+                      (f"bits {bits} {str(dt)[6:]} pad + unvisited row", 512, 256, bits, 64,
+                       [2, 0, 2], [0, 0, 3], 3, dt, False, kern),
+                      (f"bits {bits} {str(dt)[6:]} pads only", 512, 256, bits, 64, [2, 0, 2],
+                       [3, 3, 3], 3, dt, False, kern)]
+    cases += [(f"group {gs}", 3072, 384, 4, gs, [1, 0, 1, 3], None, None, bf, False,
+               "mmv" if gs % 16 == 0 else "two_pass") for gs in (8, 16, 32, 48, 128, 256)]
+    cases += [("group 16 bits 2 combine", 1024, 256, 2, 16, [0, 1, 1], [0, 1, 1], 2, bf, False,
+               "mmv"),
+              ("ragged N=272", 512, 272, 4, 64, [0, 1], None, None, bf, False, "mmv"),
+              ("ragged N=272 combine", 512, 272, 4, 64, [0, 1], [0, 0], 1, bf, False, "mmv"),
+              ("unaligned x", 512, 256, 4, 64, [0, 1], None, None, bf, True, "two_pass"),
+              ("P=11 shared slots", 1024, 256, 4, 64, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1], None,
+               None, bf, False, "mmv"),
+              ("P=19 combine over 3 passes", 1024, 256, 4, 64, [i % 5 for i in range(19)],
+               [i // 3 for i in range(19)], 7, bf, False, "mmv"),
+              ("P=9 combine, pads and shared slots", 1024, 512, 8, 64,
+               [3, 3, 0, 1, 0, 2, 2, 3, 1], [0, 0, 1, 1, 1, 3, 4, 4, 4], 4, bf, False, "mmv")]
+    # K of c groups caps the cluster at c (N = 256: two column tiles)
+    picked = set()
+    for c in range(1, 9):
+        cases.append((f"K of {c} groups", 64 * c, 256, 4, 64, [1, 0], [0, 1], 2, bf, False,
+                      "mmv"))
+        picked.add(ops._grouped_plan_for(64 * c, 256, 64, 4, True, dev).ranks)
+    check(picked == set(range(1, 9)), f"edge variants' cluster sizes {sorted(picked)}")
+    labels = []
+    for label, k, n, bits, gs, sl, r, nr, dt, off, kern in cases:
+        data, scale = pool(max(sl) + 1, k, n, bits, gs)
+        x = x_of(len(sl), k, dt, off)
+        slot = torch.tensor(sl, dtype=torch.int32, device=dev)
+        op = "grouped_dequant_matmul" if r is None else "grouped_dequant_combine"
+        rows = w = None
+        if r is not None:
+            rows = torch.tensor(r, dtype=torch.int32, device=dev)
+            w = torch.rand((len(sl),), generator=g, device=dev)
+            w[rows >= nr] = 0.0
+        _, ran = _grouped_check(f"{op} {label}", op, x, data, scale, slot, rows, w, nr,
+                                bits=bits, group=gs, want_kernel=kern)
+        labels.append(f"{label} ({op[16:]}, {ran})")
+        n_checked += 1
     torch.cuda.synchronize()
-    print(f"[kernels] {n_checked} further variants (bits 8/4/2, f32/bf16 x, E 8/16, "
-          "pads) agree with the plain versions", flush=True)
+    print(f"[kernels] {n_checked} further variants agree with the plain versions (routers: E "
+          f"8/16, f32/bf16 x; grouped pair, bit-identical over two calls, at cluster sizes "
+          f"{sorted(picked)}: {'; '.join(labels)})", flush=True)
 
 
 # A child process calls one dequant wrapper with one pool slot out of range;
@@ -588,14 +753,17 @@ op, bad = sys.argv[2], int(sys.argv[3])
 dev = torch.device("cuda", 0)
 data = torch.zeros((2, 256, 256), dtype=torch.int8, device=dev)
 scale = torch.ones((2, 8, 256), device=dev)
-x = torch.ones((2, 512), device=dev)
+x = torch.ones((2, 512), device=dev,
+               dtype=torch.bfloat16 if sys.argv[4] == "bf16" else torch.float32)
 slot = torch.tensor([0, bad], dtype=torch.int32, device=dev)
 kw = dict(bits=4, group_size=64)
 try:
     if op == "grouped_dequant_matmul":
         ops.grouped_dequant_matmul(x, data, scale, slot, **kw)
     else:
-        rows = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+        # the second pair is a pad (row == num_rows) when asked
+        rows = torch.tensor([0, 2 if sys.argv[5] == "pad" else 1], dtype=torch.int32,
+                            device=dev)
         ops.grouped_dequant_combine(x, data, scale, slot, rows,
                                     torch.ones(2, device=dev), num_rows=2, **kw)
     torch.cuda.synchronize()
@@ -609,13 +777,19 @@ os._exit(0)
 
 
 def _slot_faults() -> None:
-    """An out-of-range pool slot (past the end, and negative) must fail the
-    dequant kernels, as it makes the plain versions raise IndexError."""
-    cases = (("grouped_dequant_matmul", 2), ("grouped_dequant_combine", -1))
-    procs = [(op, bad, subprocess.Popen(
+    """An out-of-range pool slot (past the end, and negative; a pad's too)
+    must fail both grouped kernels (bf16 x: the tensor-core kernel; float32
+    x: the two-pass kernel), as it makes the plain versions raise
+    IndexError."""
+    cases = (("grouped_dequant_matmul", 2, "f32", "row"),
+             ("grouped_dequant_combine", -1, "f32", "row"),
+             ("grouped_dequant_matmul", 2, "bf16", "row"),
+             ("grouped_dequant_combine", -1, "bf16", "row"),
+             ("grouped_dequant_combine", 2, "bf16", "pad"))
+    procs = [(f"{op} {dt} {kind}", bad, subprocess.Popen(
         [sys.executable, "-c", _SLOT_FAULT_CHILD, os.path.join(ROOT, "src"), op,
-         str(bad)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for op, bad in cases]
+         str(bad), dt, kind], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for op, bad, dt, kind in cases]
     for op, bad, proc in procs:
         try:
             out, _ = proc.communicate(timeout=300)
@@ -1355,16 +1529,23 @@ def mixtral_cut():
     return dataclasses.replace(get_config(ARCH), num_layers=LAYERS).validate()
 
 
-def _gating_path(counts, es, label) -> None:
+def _gating_path(counts, es, label, grouped) -> None:
     """Prints the engine's gating_s (host wall around each gating_topk call
-    and its results' copy back) and the lo pairs each grouped launch
-    carried."""
+    and its results' copy back), the lo pairs each grouped launch carried
+    and the distinct pool slots among them; every grouped launch (`grouped`:
+    ``ops.grouped_launches()`` of the run) must have gone to the
+    tensor-core kernel."""
     calls = counts.get("gating_topk.cuda", 0)
-    lo = es["lo_pairs_per_launch"]
+    lo, sl = es["lo_pairs_per_launch"], es["lo_slots_per_launch"]
+    for op in ("grouped_dequant_matmul", "grouped_dequant_combine"):
+        check(grouped.get(f"{op}.mmv", 0) == counts.get(f"{op}.cuda", 0) > 0,
+              f"{label}: {op} launches {grouped} did not all take the tensor-core kernel")
     print(f"[{label}] gating_s {es['gating_s']:.4f} s over {calls} gating_topk calls "
           f"({es['gating_s'] / max(calls, 1) * 1e3:.4f} ms per call, host wall with the copy "
           f"back); lo pairs per grouped launch: min {lo['min']}, median {lo['median']}, max "
-          f"{lo['max']} over {lo['launches']} launches {lo['hist']}", flush=True)
+          f"{lo['max']} over {lo['launches']} launches {lo['hist']}; distinct slots per launch: "
+          f"min {sl['min']}, median {sl['median']}, max {sl['max']} {sl['hist']}; grouped "
+          f"kernels {grouped}", flush=True)
 
 
 def phase_serve(dev, model, params) -> dict:
@@ -1396,6 +1577,7 @@ def phase_serve(dev, model, params) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.dispatch_counts()
+    grouped = ops.grouped_launches()
     st = srv.stats()
     es = eng.stats()
     srv.close()
@@ -1411,7 +1593,7 @@ def phase_serve(dev, model, params) -> dict:
         check(counts.get(f"{op}.torch", 0) == 0, f"{op}: plain version ran on the card")
     check(es["loads_hi"] > 0 and es["loads_lo"] > 0,
           f"loads_hi={es['loads_hi']} loads_lo={es['loads_lo']}")
-    _gating_path(counts, es, "serve")
+    _gating_path(counts, es, "serve", grouped)
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
         "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
@@ -1421,6 +1603,7 @@ def phase_serve(dev, model, params) -> dict:
         "link_gbps": es["link_gbps"], "kernel_dispatch": counts,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
+        "lo_slots_per_launch": es["lo_slots_per_launch"], "grouped_kernels": grouped,
     }
     print(f"[serve] {json.dumps(summary)}", flush=True)
     return summary
@@ -1537,6 +1720,7 @@ def phase_serve_paged(dev, model, params) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.dispatch_counts()
+    grouped = ops.grouped_launches()
     st = srv.stats()
     es = eng.stats()
     srv.close()
@@ -1552,7 +1736,7 @@ def phase_serve_paged(dev, model, params) -> dict:
               f"{op}: no CUDA launch on the paged serving path")
     bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
     check(not bad, f"plain versions ran on the card: {bad}")
-    _gating_path(counts, es, "serve-paged")
+    _gating_path(counts, es, "serve-paged", grouped)
     check(es["prefix_hit_tokens"] > 0, "no prefix hit on a shared system prompt")
     check(es["cow_copies"] > 0, "no copy-on-write of the shared partial page")
     prompt_tokens = sum(len(r.prompt) for r in srv.completed)
@@ -1566,6 +1750,7 @@ def phase_serve_paged(dev, model, params) -> dict:
         "kv_page_fraction_peak": probe.peak,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
+        "lo_slots_per_launch": es["lo_slots_per_launch"], "grouped_kernels": grouped,
         "kernel_dispatch": counts,
     }
     print(f"[serve-paged] {st['decode_tok_s']:.1f} tok/s, load stall "

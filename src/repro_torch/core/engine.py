@@ -194,6 +194,7 @@ class OffloadEngine:
         self.trace: List[List[TraceLayer]] = []
         self._gating_s = 0.0
         self._lo_pairs: Dict[int, int] = {}     # lo pairs per grouped launch -> launches
+        self._lo_slots: Dict[int, int] = {}     # distinct lo slots per grouped launch -> launches
         self._expert_dispatches = 0
         self._union_reloads = 0
         self._layer_s_ema = 0.0
@@ -553,6 +554,8 @@ class OffloadEngine:
         if lo_pairs:
             n = len(lo_pairs)
             self._lo_pairs[n] = self._lo_pairs.get(n, 0) + 1
+            ns = len({s for _, _, s in lo_pairs})
+            self._lo_slots[ns] = self._lo_slots.get(ns, 0) + 1
             ints = np.asarray([s for _, _, s in lo_pairs] + [r for r, _, _ in lo_pairs],
                               np.int32)
             idx = to_device(ints, hs.device)
@@ -736,8 +739,11 @@ class OffloadEngine:
             "pred_accuracy": {int(d): float(a)
                               for d, a in self.predictor.accuracy().items()},
             "gating_s": self._gating_s,
-            # (row, expert) pairs each grouped lo launch pair carried
+            # (row, expert) pairs each grouped lo launch pair carried, and
+            # the distinct pool slots among them (each read once per launch
+            # on the card)
             "lo_pairs_per_launch": _spread(self._lo_pairs),
+            "lo_slots_per_launch": _spread(self._lo_slots),
             "expert_dispatches": self._expert_dispatches,
             "union_reloads": self._union_reloads,
             # "<op>.<cuda|torch>" -> count: a card run showing .torch counts

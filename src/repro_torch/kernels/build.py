@@ -50,6 +50,11 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _I, _I, _I, _P),
         "grouped_dequant_combine_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "grouped_mmv_tensor_map": (_P, _I, _I, _I, _I, _P),
+        "grouped_mmv_launch": (_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "grouped_mmv_info": (_I, _I, _I, _I, _IP, _IP, _IP, _IP),
+        "grouped_mmv_layout": (_IP,),
     },
     "dequant_matmul": {
         "dequant_matmul_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -33,6 +33,7 @@ from repro_torch.quant.quantize import PACK_FACTOR, QTensor
 
 _DISPATCH_COUNTS: Dict[str, int] = {}
 _DEQUANT_MM_LAUNCHES: Dict[str, int] = {}
+_GROUPED_LAUNCHES: Dict[str, int] = {}
 
 # widest router a gating kernel takes (Phi-MoE has 16 experts, DeepSeek 160)
 MAX_EXPERTS = 256
@@ -59,6 +60,7 @@ def dispatch_counts() -> Dict[str, int]:
 def reset_dispatch_counts() -> None:
     _DISPATCH_COUNTS.clear()
     _DEQUANT_MM_LAUNCHES.clear()
+    _GROUPED_LAUNCHES.clear()
 
 
 def dequant_mm_launches() -> Dict[str, int]:
@@ -66,6 +68,13 @@ def dequant_mm_launches() -> Dict[str, int]:
     the last ``reset_dispatch_counts``; they add up to
     ``"dequant_matmul.cuda"``."""
     return dict(_DEQUANT_MM_LAUNCHES)
+
+
+def grouped_launches() -> Dict[str, int]:
+    """Launches of each grouped dequant kernel since the last
+    ``reset_dispatch_counts``, keyed ``"<op>.<mmv|two_pass>"``; per op they
+    add up to ``"<op>.cuda"``."""
+    return dict(_GROUPED_LAUNCHES)
 
 
 def _route(op: str, *tensors: torch.Tensor) -> str:
@@ -530,6 +539,123 @@ def _dequant_matmul_on(kernel: str, x: torch.Tensor, q: QTensor,
 # grouped dequant GEMV (+ gated combine)
 # --------------------------------------------------------------------------
 
+# the tensor-core grouped kernel's column tile, pairs per pass, largest
+# cluster, warps per block and packed rows per ring stage (kMmvCols,
+# kPairs, kMmvMaxCluster, kMmvWarps, kMmvStageRows in dequant.cu and
+# dequant_mmv.cuh; ``grouped_layout`` reads them from the built kernel)
+GROUPED_TILE_N = 128
+GROUPED_PAIRS = 8
+GROUPED_MAX_CLUSTER = 8
+GROUPED_WARPS = 8
+GROUPED_STAGE_ROWS = 32
+_GROUPED_INFO: Dict[tuple, "GroupedInfo"] = {}
+
+
+def grouped_dequant_kernel(x_dtype: torch.dtype, group_size: int, x_aligned: bool) -> str:
+    """Which grouped dequant kernel serves a launch (both need N % 16 == 0
+    and 16-byte aligned codes and scales).  16-byte aligned bf16 x with
+    quant groups of a multiple of 16 up to DEQUANT_MM_MMA_MAX_GROUP goes to
+    "mmv", the tensor-core kernel (TMA copies of x, k16 steps within a
+    group); "two_pass", the float32 kernel with its partials pass,
+    serves all else (float32 x, unaligned x, other groups)."""
+    if (x_dtype == torch.bfloat16 and x_aligned and group_size % 16 == 0
+            and group_size <= DEQUANT_MM_MMA_MAX_GROUP):
+        return "mmv"
+    return "two_pass"
+
+
+class GroupedPlan(NamedTuple):
+    """How the tensor-core grouped kernel cuts one launch (``grouped_plan``)."""
+    ranks: int          # blocks of a column tile's cluster, each whole groups of K
+    blocks_per_sm: int  # blocks of the kernel an SM holds at once
+
+    def slices(self, groups: int):
+        """[g0, g1) quant groups of each rank, in rank order."""
+        return [(r * groups // self.ranks, (r + 1) * groups // self.ranks)
+                for r in range(self.ranks)]
+
+
+def grouped_plan(k: int, n: int, group_size: int, sm_count: int, clusters: Dict[int, int],
+                 *, ranks: Optional[int] = None) -> GroupedPlan:
+    """The tensor-core grouped kernel's cluster for a K x N expert matrix,
+    from shapes and the card's cluster fit only (no synchronisation).
+    `clusters`: size -> clusters of that size the card runs at once
+    (``grouped_info``); at size 1 that is blocks, so ``clusters[1] //
+    sm_count`` blocks share an SM (two at the kernel's 2-stage rings: a
+    warp's decode and MMAs then hide behind 15 others).  The cluster grows
+    by one from 1 while the grid's blocks stay within those per SM, there
+    are groups to share, and every tile's cluster still runs at once.
+    Mixtral's wi (224 column tiles) is not split; its wo (32 tiles) splits
+    7 ways on the H100.  `ranks` forces the size (``chip_smoke.py`` sweeps
+    it)."""
+    groups = k // group_size
+    tiles = -(-n // GROUPED_TILE_N)
+    per_sm = max(1, clusters[1] // sm_count)
+    if ranks is None:
+        ranks = 1
+        while (ranks < GROUPED_MAX_CLUSTER and ranks < groups
+               and tiles * (ranks + 1) <= per_sm * sm_count and tiles <= clusters[ranks + 1]):
+            ranks += 1
+    return GroupedPlan(ranks=ranks, blocks_per_sm=per_sm)
+
+
+class GroupedInfo(NamedTuple):
+    """What the card reports for one instantiation of the tensor-core
+    grouped kernel (``grouped_info``)."""
+    clusters: Dict[int, int]  # cluster size -> clusters the card runs at once
+    regs: int                 # registers per thread
+    local_bytes: int          # local memory per thread (spills)
+    smem: int                 # dynamic shared memory of a block
+
+
+def grouped_info(bits: int, combine: bool, group_size: int) -> GroupedInfo:
+    """The card's report on the tensor-core grouped kernel at `bits` and
+    `group_size` (the combine's instantiation when `combine`); cached per
+    card."""
+    key = (torch.cuda.current_device(), bits, combine, group_size)
+    if key not in _GROUPED_INFO:
+        lib = build.library("dequant")
+        fit = {}
+        regs, local, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        for size in range(1, GROUPED_MAX_CLUSTER + 1):
+            c = ctypes.c_int(0)
+            _raise_on("grouped_dequant", lib.grouped_mmv_info(
+                bits, int(combine), group_size, size, ctypes.byref(c), ctypes.byref(regs),
+                ctypes.byref(local), ctypes.byref(smem)))
+            fit[size] = c.value
+        _GROUPED_INFO[key] = GroupedInfo(fit, regs.value, local.value, smem.value)
+    return _GROUPED_INFO[key]
+
+
+def _grouped_plan_for(k: int, n: int, group_size: int, bits: int, combine: bool,
+                      device: torch.device, ranks: Optional[int] = None) -> GroupedPlan:
+    """``grouped_plan`` with the card's SM count and cluster fit."""
+    return grouped_plan(k, n, group_size, _sm_count(device),
+                        grouped_info(bits, combine, group_size).clusters, ranks=ranks)
+
+
+def grouped_layout() -> Dict[str, int]:
+    """The built kernel's layout constants, by the names this module
+    mirrors them under (GROUPED_TILE_N, ...)."""
+    names = ("GROUPED_TILE_N", "GROUPED_PAIRS", "GROUPED_MAX_CLUSTER", "GROUPED_WARPS",
+             "GROUPED_STAGE_ROWS")
+    out = (ctypes.c_int * len(names))()
+    _raise_on("grouped_dequant", build.library("dequant").grouped_mmv_layout(out))
+    return dict(zip(names, out))
+
+
+@functools.lru_cache(maxsize=256)
+def _tensor_map(device: int, kind: int, ptr: int, rows: int, cols: int, bits: int):
+    """The 128-byte TMA tensor map of the tensor-core kernel over the codes
+    (kind 0, rows S * K / pack) or x (kind 1, P x K bf16) at `ptr`.  A map
+    depends only on these arguments, so it is built once per pool tensor
+    (and per recurring x buffer) rather than on every call."""
+    buf = ctypes.create_string_buffer(128)
+    _raise_on("grouped_dequant", build.library("dequant").grouped_mmv_tensor_map(
+        ptr, kind, rows, cols, bits, buf))
+    return buf
+
+
 def _check_dequant(op: str, x, data, scale, slot, bits: int, group_size: int):
     _check(op, bits in PACK_FACTOR, f"bits={bits} not in {sorted(PACK_FACTOR)}")
     pack = PACK_FACTOR[bits]
@@ -557,6 +683,65 @@ def _check_dequant_cuda(op: str, data, scale, n: int):
            "data and scale must be 16-byte aligned")
 
 
+def _count_grouped(op: str, kernel: str) -> None:
+    _record(op, "cuda")
+    key = f"{op}.{kernel}"
+    _GROUPED_LAUNCHES[key] = _GROUPED_LAUNCHES.get(key, 0) + 1
+
+
+def _launch_grouped(op: str, x, data, scale, slot, rows, weights, *, bits: int,
+                    group_size: int, num_rows: Optional[int] = None,
+                    ranks: Optional[int] = None):
+    """Check the inputs and launch the kernel ``grouped_dequant_kernel``
+    picks on CUDA tensors; the combine when `rows` is given.  `ranks`
+    forces the tensor-core kernel's cluster size."""
+    combine = rows is not None
+    p, k, n, s, pack = _check_dequant(op, x, data, scale, slot, bits, group_size)
+    if combine:
+        _check(op, tuple(rows.shape) == (p,) and tuple(weights.shape) == (p,),
+               "rows and weights must be (P,)")
+        _check(op, rows.dtype == torch.int32, "rows must be int32")
+        _check(op, weights.dtype == torch.float32, "weights must be float32")
+        _check(op, num_rows > 0, f"num_rows={num_rows} must be positive")
+        _check_contig(op, rows=rows, weights=weights)
+    xb = _x_flag(op, x)
+    lib = build.library("dequant")
+    _check_dequant_cuda(op, data, scale, n)
+    kernel = grouped_dequant_kernel(x.dtype, group_size, x.data_ptr() % 16 == 0)
+    _check(op, kernel == "mmv" or ranks is None,
+           "the tensor-core kernel does not take these inputs")
+    out_rows = num_rows if combine else p
+    if p == 0:
+        return torch.zeros((out_rows, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((out_rows, n), dtype=torch.float32, device=x.device)
+    if kernel == "mmv":
+        dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        plan = _grouped_plan_for(k, n, group_size, bits, combine, x.device, ranks)
+        code_map = _tensor_map(dev, 0, data.data_ptr(), s * (k // pack), n, bits)
+        x_map = _tensor_map(dev, 1, x.data_ptr(), p, k, bits)
+        _count_grouped(op, kernel)
+        _raise_on(op, lib.grouped_mmv_launch(
+            code_map, x_map, scale.data_ptr(), slot.data_ptr(),
+            rows.data_ptr() if combine else None, weights.data_ptr() if combine else None,
+            out.data_ptr(), p, k, n, s, num_rows if combine else p, bits, group_size,
+            int(combine), plan.ranks, _stream()))
+        return out
+    chunk = dequant_chunk(p, k, n, group_size, pack, _sm_count(x.device))
+    part = torch.empty((p, k // chunk, n), dtype=torch.float32, device=x.device)
+    _count_grouped(op, kernel)
+    if combine:
+        _raise_on(op, lib.grouped_dequant_combine_launch(
+            x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
+            rows.data_ptr(), weights.data_ptr(), part.data_ptr(), out.data_ptr(),
+            p, k, n, s, num_rows, bits, group_size, chunk, _stream()))
+    else:
+        _raise_on(op, lib.grouped_dequant_matmul_launch(
+            x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
+            part.data_ptr(), out.data_ptr(), p, k, n, s, bits, group_size, chunk,
+            _stream()))
+    return out
+
+
 def grouped_dequant_matmul(x, data, scale, slot, *, bits: int,
                            group_size: int) -> torch.Tensor:
     """y[p] = x[p] @ dequant(data[slot[p]], scale[slot[p]]), float32.
@@ -567,29 +752,18 @@ def grouped_dequant_matmul(x, data, scale, slot, *, bits: int,
         slot   (P,) int32         pool slot each pair reads
         ->     (P, N) float32
 
-    The kernel reads each pair's expert in place in the pool.  A slot outside
-    0..S-1 aborts the kernel (the next synchronisation raises); the plain
-    version raises IndexError."""
+    The kernel reads each pair's expert in place in the pool, each distinct
+    slot once per launch on the tensor-core kernel
+    (``grouped_dequant_kernel`` picks the kernel).  A slot outside 0..S-1
+    aborts the kernel (the next synchronisation raises); the plain version
+    raises IndexError."""
     op = "grouped_dequant_matmul"
     if _route(op, x, data, scale, slot) == "torch":
         _record(op, "torch")
         return ref.grouped_dequant_matmul_ref(x, data, scale, slot, bits=bits,
                                               group_size=group_size)
-    p, k, n, s, pack = _check_dequant(op, x, data, scale, slot, bits, group_size)
-    xb = _x_flag(op, x)
-    lib = build.library("dequant")
-    _check_dequant_cuda(op, data, scale, n)
-    out = torch.empty((p, n), dtype=torch.float32, device=x.device)
-    if p == 0:
-        return out
-    chunk = dequant_chunk(p, k, n, group_size, pack, _sm_count(x.device))
-    part = torch.empty((p, k // chunk, n), dtype=torch.float32, device=x.device)
-    _record(op, "cuda")
-    _raise_on(op, lib.grouped_dequant_matmul_launch(
-        x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
-        part.data_ptr(), out.data_ptr(), p, k, n, s, bits, group_size, chunk,
-        _stream()))
-    return out
+    return _launch_grouped(op, x, data, scale, slot, None, None, bits=bits,
+                           group_size=group_size)
 
 
 def grouped_dequant_combine(x, data, scale, slot, rows, weights, *, bits: int,
@@ -615,27 +789,21 @@ def grouped_dequant_combine(x, data, scale, slot, rows, weights, *, bits: int,
         return ref.grouped_dequant_combine_ref(
             x, data, scale, slot, rows, weights, bits=bits, group_size=group_size,
             num_rows=num_rows)
-    p, k, n, s, pack = _check_dequant(op, x, data, scale, slot, bits, group_size)
-    _check(op, tuple(rows.shape) == (p,) and tuple(weights.shape) == (p,),
-           "rows and weights must be (P,)")
-    _check(op, rows.dtype == torch.int32, "rows must be int32")
-    _check(op, weights.dtype == torch.float32, "weights must be float32")
-    _check(op, num_rows > 0, f"num_rows={num_rows} must be positive")
-    _check_contig(op, rows=rows, weights=weights)
-    xb = _x_flag(op, x)
-    lib = build.library("dequant")
-    _check_dequant_cuda(op, data, scale, n)
-    if p == 0:
-        return torch.zeros((num_rows, n), dtype=torch.float32, device=x.device)
-    out = torch.empty((num_rows, n), dtype=torch.float32, device=x.device)
-    chunk = dequant_chunk(p, k, n, group_size, pack, _sm_count(x.device))
-    part = torch.empty((p, k // chunk, n), dtype=torch.float32, device=x.device)
-    _record(op, "cuda")
-    _raise_on(op, lib.grouped_dequant_combine_launch(
-        x.data_ptr(), xb, data.data_ptr(), scale.data_ptr(), slot.data_ptr(),
-        rows.data_ptr(), weights.data_ptr(), part.data_ptr(), out.data_ptr(),
-        p, k, n, s, num_rows, bits, group_size, chunk, _stream()))
-    return out
+    return _launch_grouped(op, x, data, scale, slot, rows, weights, bits=bits,
+                           group_size=group_size, num_rows=num_rows)
+
+
+def _grouped_at(ranks: int, x, data, scale, slot, rows=None, weights=None, *, bits: int,
+                group_size: int, num_rows: Optional[int] = None) -> torch.Tensor:
+    """``grouped_dequant_combine`` (with `rows`) or ``grouped_dequant_matmul``
+    on CUDA tensors through the tensor-core kernel at a cluster of `ranks`
+    blocks; ``chip_smoke.py`` sweeps the size with it.  Serving code calls
+    the two ops."""
+    op = "grouped_dequant_matmul" if rows is None else "grouped_dequant_combine"
+    tensors = (x, data, scale, slot) + (() if rows is None else (rows, weights))
+    _check(op, _route(op, *tensors) == "cuda", "a kernel needs CUDA tensors")
+    return _launch_grouped(op, x, data, scale, slot, rows, weights, bits=bits,
+                           group_size=group_size, num_rows=num_rows, ranks=ranks)
 
 
 # --------------------------------------------------------------------------

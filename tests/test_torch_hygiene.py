@@ -3,8 +3,10 @@ package, and on CUDA tensors a kernel wrapper launches its kernel or
 raises — no fallback to the plain version, no environment switch."""
 
 import ast
+import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -13,12 +15,14 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.quant.quantize import QTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, chip_smoke.py and the root timing scripts that import the port
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "router_host_time.py",
+                                      ROOT / "grouped_dequant_time.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -125,3 +129,29 @@ def test_chip_smoke_fails_without_a_card_or_outside_the_repo(tmp_path):
                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _c_type(param: str):
+    """The ctypes type an argument of a C entry point is bound as."""
+    if re.match(r"(const\s+)?int\s*\*", param):
+        return ctypes.POINTER(ctypes.c_int)
+    if "*" in param:
+        return ctypes.c_void_p
+    return ctypes.c_float if param.startswith("float") else ctypes.c_int
+
+
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_signatures_match_the_c_entry_points(source):
+    """build.SIGNATURES binds every `extern "C"` entry of a kernel source,
+    with its arguments' number and kinds (pointer, int, float, int*) as the
+    source declares them: a stale binding would pass the wrong arguments
+    on the card, where nothing checks them."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    declared = {}
+    for m in re.finditer(r'extern "C" \w+ (\w+)\(([^)]*)\)', text):
+        params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+        declared[m.group(1)] = [_c_type(p) for p in params]
+    bound = build.SIGNATURES[source]
+    assert sorted(declared) == sorted(bound)
+    for fn, argtypes in bound.items():
+        assert list(argtypes) == declared[fn], fn

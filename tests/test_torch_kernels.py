@@ -643,6 +643,224 @@ def test_grouped_dequant_slot_out_of_range_raises(op, bad):
 
 
 # --------------------------------------------------------------------------
+# grouped dequant: the tensor-core kernel's shape rule, planner and order
+# --------------------------------------------------------------------------
+# clusters of each size the H100 runs at once with the tensor-core grouped
+# kernel's blocks at a 2-stage ring (two per SM) and at 4-bit codes in
+# groups of 64 (chip_smoke.py prints ops.grouped_info)
+H100_GROUPED_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+# (config, its lo matrices as (K, N)): up/gate (d_model -> 2 d_ff) and down
+MOE_LO_SHAPES = {"mixtral-8x7b": ((4096, 28672), (14336, 4096)),
+                 "phi-moe": ((4096, 12800), (6400, 4096))}
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_LO_SHAPES))
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_kernel_takes_every_moe_lo_launch(arch, x_dtype):
+    """With the engine's lo defaults (4-bit codes, group 64) every lo launch
+    of the Mixtral and Phi-MoE serves (bf16 x, 16-byte aligned) takes the
+    tensor-core kernel; float32 x the two-pass kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EngineConfig
+    ecfg = EngineConfig()
+    cfg = get_config(arch)
+    want = "mmv" if x_dtype == torch.bfloat16 else "two_pass"
+    for k, n in ((cfg.d_model, 2 * cfg.moe.d_ff_expert), (cfg.moe.d_ff_expert, cfg.d_model)):
+        assert (k, n) in MOE_LO_SHAPES[arch]
+        assert n % ops.DEQUANT_COL_ALIGN == 0 and k % ecfg.group_size == 0
+        assert ops.grouped_dequant_kernel(x_dtype, ecfg.group_size, True) == want
+
+
+@pytest.mark.parametrize("group,aligned,want", [
+    (16, True, "mmv"), (32, True, "mmv"), (48, True, "mmv"), (64, True, "mmv"),
+    (128, True, "mmv"), (256, True, "mmv"), (8, True, "two_pass"), (24, True, "two_pass"),
+    (512, True, "two_pass"), (64, False, "two_pass")])
+def test_grouped_kernel_shape_rule(group, aligned, want):
+    """bf16 x in groups of a multiple of 16 up to 256, 16-byte aligned: the
+    tensor-core kernel; other groups and unaligned x the two-pass kernel."""
+    assert ops.grouped_dequant_kernel(torch.bfloat16, group, aligned) == want
+
+
+@pytest.mark.parametrize("arch,which,want", [
+    ("mixtral-8x7b", 0, 1), ("mixtral-8x7b", 1, 7), ("phi-moe", 0, 2), ("phi-moe", 1, 7)])
+def test_grouped_plan_at_the_moe_shapes(arch, which, want):
+    """At two blocks per SM the column tiles fill the H100 for Mixtral's wi
+    (224 tiles: one rank); its wo (32 tiles) splits 7 ways, as 32 clusters
+    of 7 run at once and 32 of 8 do not (30 fit); Phi-MoE's wi (100 tiles)
+    splits 2 ways."""
+    k, n = MOE_LO_SHAPES[arch][which]
+    plan = ops.grouped_plan(k, n, 64, 132, H100_GROUPED_CLUSTERS)
+    assert plan.ranks == want
+    assert plan.blocks_per_sm == 2
+
+
+# clusters of each size the H100 runs at once with one block per SM (what
+# it reports for the dense decode kernel, whose blocks take one SM each)
+H100_ONE_BLOCK_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+GROUPED_FITS = {"two_per_sm": H100_GROUPED_CLUSTERS, "one_per_sm": H100_ONE_BLOCK_CLUSTERS}
+
+
+@pytest.mark.parametrize("fit", sorted(GROUPED_FITS))
+@pytest.mark.parametrize("k,n,group", [
+    (4096, 28672, 64), (14336, 4096, 64), (6400, 4096, 64), (4096, 12800, 64),
+    (512, 256, 64), (448, 4096, 64), (64, 256, 64), (1024, 256, 16),
+    (3072, 384, 48), (2048, 272, 128), (14336, 4096, 256), (960, 128, 64)])
+def test_grouped_plan_covers_k_once_and_fits_the_card(k, n, group, fit):
+    """The planner's ranks cover K once, in whole groups, in rank order,
+    none empty; every column tile gets a cluster of at most 8 ranks; the
+    blocks per SM are those the card's fit at cluster size 1 gives on 132
+    SMs, the grid stays within them, and every tile's cluster runs at once;
+    one rank more would break one of these."""
+    clusters = GROUPED_FITS[fit]
+    plan = ops.grouped_plan(k, n, group, 132, clusters)
+    groups = k // group
+    tiles = -(-n // ops.GROUPED_TILE_N)
+    sl = plan.slices(groups)
+    assert sl[0][0] == 0 and sl[-1][1] == groups
+    assert all(a < b for a, b in sl) and all(sl[i][1] == sl[i + 1][0] for i in range(len(sl) - 1))
+    assert 1 <= plan.ranks <= min(ops.GROUPED_MAX_CLUSTER, groups)
+    assert plan.blocks_per_sm == clusters[1] // 132
+    assert tiles * plan.ranks <= plan.blocks_per_sm * 132 or plan.ranks == 1
+    assert tiles <= clusters[plan.ranks] or plan.ranks == 1
+    more = plan.ranks + 1
+    assert (more > min(ops.GROUPED_MAX_CLUSTER, groups)
+            or tiles * more > plan.blocks_per_sm * 132 or tiles > clusters[more])
+
+
+def test_grouped_plan_forced_cluster_passes_through():
+    """A forced cluster size passes through at any fit; the blocks per SM
+    follow the fit at cluster size 1."""
+    for fit, per_sm in (("two_per_sm", 2), ("one_per_sm", 1)):
+        plan = ops.grouped_plan(14336, 4096, 64, 132, GROUPED_FITS[fit], ranks=3)
+        assert (plan.ranks, plan.blocks_per_sm) == (3, per_sm)
+
+
+def test_grouped_kernel_entry_needs_cuda():
+    """The forced-plan entry that chip_smoke.py sweeps has no plain path:
+    CPU tensors raise; the per-kernel counters stay empty on the CPU."""
+    ops.reset_dispatch_counts()
+    rng = np.random.default_rng(3)
+    data, scale = _pool(rng, 2, 256, 128, 4, 64)
+    x = torch.randn(2, 256)
+    slot = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._grouped_at(2, x, _t(data), _t(scale), slot, bits=4, group_size=64)
+    ops.grouped_dequant_matmul(x, _t(data), _t(scale), slot, bits=4, group_size=64)
+    assert ops.grouped_launches() == {}
+    assert ops.dispatch_counts() == {"grouped_dequant_matmul.torch": 1}
+    ops.reset_dispatch_counts()
+
+
+def _fma_t(a, b, c):
+    """float32 tensors a * b + c rounded once, as the card's FFMA."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _grouped_emulation(x, data, scale, slot, bits, group, ranks, rows=None, w=None,
+                       num_rows=None):
+    """The tensor-core kernel's summation order: passes of 8 pairs; each
+    rank's whole groups cut into stages of 16 / bits k16 steps, runs of
+    whole stages per warp (8 warps); per k16 step the exact bf16 x times
+    integer codes summed in float32 into a group partial, which gets its
+    float32 scale with one FMA per accumulator where the group or the
+    warp's run ends; a pair adds nothing for the slots it does not read;
+    the warps' sums added in warp order, the ranks' in rank order; the
+    combine adds each row's pairs in pair order (FMA) on top of what the
+    earlier passes left there.  Pads (rows outside 0..num_rows-1) are never
+    streamed."""
+    p, k = x.shape
+    n = data.shape[-1]
+    xf = x.float()
+    u = ops.GROUPED_STAGE_ROWS // (2 * bits)
+    spg = group // 16
+    groups = k // group
+    codes = {s: unpack_codes(data[s], bits).float() for s in set(slot.tolist())}
+    y = torch.zeros((p, n))
+    for r in range(ranks):
+        r0, r1 = r * groups // ranks * spg, (r + 1) * groups // ranks * spg
+        rank_stages = -(-(r1 - r0) // u)
+        block = torch.zeros((p, n))
+        for wi in range(8):
+            st0 = wi * rank_stages // 8
+            s0 = r0 + st0 * u
+            steps = max(0, min(r1, r0 + (wi + 1) * rank_stages // 8 * u) - s0)
+            acc = torch.zeros((p, n))
+            for q in range(p):
+                if rows is not None and not 0 <= int(rows[q]) < num_rows:
+                    continue
+                c, sc = codes[int(slot[q])], scale[int(slot[q])]
+                part = torch.zeros(n)
+                left = spg - s0 % spg
+                for i in range(steps):
+                    s = s0 + i
+                    part = part + xf[q, 16 * s:16 * s + 16] @ c[16 * s:16 * s + 16]
+                    left -= 1
+                    if left == 0 or i + 1 == steps:
+                        acc[q] = _fma_t(part, sc[s // spg], acc[q])
+                        part = torch.zeros(n)
+                        left = spg
+            block = block + acc
+        y = y + block
+    if rows is None:
+        return y
+    out = torch.zeros((num_rows, n))
+    for q in range(p):
+        rr = int(rows[q])
+        if 0 <= rr < num_rows:
+            out[rr] = _fma_t(w[q].expand(n), y[q], out[rr])
+    return out
+
+
+GROUPED_ORDER_CASES = {
+    # (K, N, bits, group, slots, rows, num_rows)
+    "matmul shared slot": (2048, 256, 4, 64, [2, 0, 2], None, None),
+    "matmul 2-bit group 128": (2048, 128, 2, 128, [1, 0], None, None),
+    "matmul 8-bit group 48": (1536, 128, 8, 48, [0, 1, 1], None, None),
+    "combine pads and unvisited row": (1024, 256, 4, 64, [1, 0, 1, 2, 3, 3],
+                                       [0, 0, 1, 3, 3, 4], 4),
+    "combine 11 pairs over 2 passes": (512, 128, 4, 32, [i % 4 for i in range(11)],
+                                       [i // 3 for i in range(11)], 4),
+    "combine wo-like ranks": (4096, 128, 4, 64, [0, 1], [0, 0], 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED_ORDER_CASES))
+def test_grouped_mmv_order_meets_card_tolerance(case):
+    """The tensor-core kernel's order of float32 sums, at the cluster size
+    the planner picks on the H100, held to the JAX package's op (its jnp
+    oracle, on each pair's gathered expert) at chip_smoke.py's tolerance
+    (rtol 1e-4, atol 1e-3), with shared slots, pads, an unvisited row and
+    more than one pass of 8 pairs."""
+    k, n, bits, group, sl, rw, nr = GROUPED_ORDER_CASES[case]
+    rng = np.random.default_rng(k + n + bits + group + len(sl))
+    data, scale = _pool(rng, max(sl) + 1, k, n, bits, group)
+    data, scale = _t(data), _t(scale)
+    x = _t(rng.standard_normal((len(sl), k)).astype(np.float32)).to(torch.bfloat16)
+    slot = torch.tensor(sl, dtype=torch.int32)
+    ranks = ops.grouped_plan(k, n, group, 132, H100_GROUPED_CLUSTERS).ranks
+    # the reference's gathered signature: pair p's expert at index p
+    jx = jnp.asarray(x.float().numpy())
+    jdata, jscale = jnp.asarray(data.numpy()[sl]), jnp.asarray(scale.numpy()[sl])
+    if rw is None:
+        got = _grouped_emulation(x, data, scale, slot, bits, group, ranks)
+        want = jops.grouped_dequant_matmul(jx, jdata, jscale, bits=bits, group_size=group,
+                                           mode="xla")
+    else:
+        rows = torch.tensor(rw, dtype=torch.int32)
+        w = _t(rng.random(len(sl)).astype(np.float32))
+        w[rows >= nr] = 0.0
+        got = _grouped_emulation(x, data, scale, slot, bits, group, ranks, rows, w, nr)
+        want = jops.grouped_dequant_combine(jx, jdata, jscale, jnp.asarray(rows.numpy()),
+                                            jnp.asarray(w.numpy()), bits=bits,
+                                            group_size=group, num_rows=nr, mode="xla")
+        for r in range(nr):
+            if r not in rw:
+                assert torch.all(got[r] == 0)
+    assert ranks > 1 or k <= 1024
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-3)
+
+
+# --------------------------------------------------------------------------
 # paged flash decode (cases of tests/test_kernels.py's paged section)
 # --------------------------------------------------------------------------
 PAGED_IMPLS = ["pallas", "oracle"]
