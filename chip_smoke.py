@@ -32,7 +32,10 @@ and each printing its seconds:
                kernel at every cluster size, then bits 8/2, float32 x,
                ragged M and N, groups 8-512, raw codes, leading dims,
                unaligned x and codes, clusters, each with the kernel it
-               took;
+               took; then the decode kernel at Mixtral-8x7B's expert shapes
+               (wi 4096 -> 28672, wo 14336 -> 4096, M = 1, group 64, the
+               weight a pool slot's view), as the per-expert engine path
+               calls it, beside its bound and torch.matmul;
   3d. flash_decode — the contiguous flash-decode kernel at (a) Granite's
                serving shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (the
                paged kernel's shapes), then length 0 and 1, S off the tile,
@@ -51,6 +54,21 @@ and each printing its seconds:
                copied on write; every kernel's launch counted;
   7. paged parity — the unconstrained engine on paged KV against the same
                engine on dense KV, step by step;
+  7b. per-expert — the per-expert reference path (``grouped=False``)
+               against the grouped path on the same Mixtral-cut weights and
+               teacher-forced workload, synchronous loading, constrained
+               cache, dense and paged KV: equal routes, precision decisions
+               and load counts and logits within atol 0.1 until a row's
+               routes part at a near tie, the dense dequant-matmul kernel
+               for every lo expert and no grouped kernel; both paths'
+               decode tok/s;
+  7c. host-mode — ``score_nll`` through the engine in host compute mode
+               (experts on the CPU in float32) against the device
+               per-expert path, and its seconds;
+  7d. single-sequence — ``engine.generate`` against ``api.generate``
+               through HobbitBackend on one prompt, and ``api.score_nll``
+               through HobbitBackend against DenseBackend (the unconstrained
+               configuration of phase 5);
   8. serve-dense — Granite-3.0-2B at full width and depth (40 layers,
                seeded random bf16 weights) through DenseBackend(paged=True)
                under BatchingServer, once with bf16 FFN weights and once
@@ -1312,6 +1330,8 @@ def _dequant_matmul_row(dev, g) -> dict:
               f"with the plain version: {'; '.join(names)}", flush=True)
     print(f"[kernels] dequant_matmul: two calls gave bit-identical outputs at {len(same)} "
           f"shapes: {'; '.join(same)}", flush=True)
+    mixtral = _dq_mixtral_expert(dev, g)
+    err = max(err, max(r["max_abs_err"] for r in mixtral.values()))
     a = per["wi M=4"]
     return dict(name="dequant_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
@@ -1326,9 +1346,65 @@ def _dequant_matmul_row(dev, g) -> dict:
                          "mma": "dequant_mma_kernel: prefill, M > 4 rows of bf16 x",
                          "gemv": "dequant_mm_kernel: float32 x, unaligned x, other groups, "
                                  "decode at N % 16 != 0 or unaligned codes"},
-                shapes=per, cluster_sweep_ms=sweep,
+                shapes=per, mixtral_expert_shapes=mixtral, cluster_sweep_ms=sweep,
                 variants={k: len(v) for k, v in ran.items()},
                 bit_identical=len(same), tolerance="rtol 1e-4 atol 1e-4")
+
+
+def _dq_mixtral_expert(dev, g) -> dict:
+    """The decode kernel at Mixtral-8x7B's expert shapes, as the per-expert
+    engine path calls it for each product of a lo expert: wi (4096 ->
+    28672, SwiGLU) and wo (14336 -> 4096), x (1, 1, K) bf16 (one row's
+    hidden state), 4-bit codes and group 64 (``EngineConfig``'s), the
+    weight a row of a two-slot pool (slot 1, its codes offset by K/2 * N
+    bytes, as a pool view is).  Checked against the plain version at
+    DQ_TOL, two calls bit-identical, timed cold in L2 (launches cycle
+    through copies) beside its bound and torch.matmul on the dequantized
+    bf16 weight."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.quantize import QTensor, dequantize, quantize
+
+    cfg = mixtral_cut()
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    out = {}
+    for name, (k, n) in {"wi": (d, 2 * f), "wo": (f, d)}.items():
+        q0 = quantize(torch.randn((k, n), generator=g, device=dev) * 0.02, bits=4,
+                      group_size=64)
+        pool_data = torch.stack([torch.zeros_like(q0.data), q0.data])
+        pool_scale = torch.stack([torch.zeros_like(q0.scale), q0.scale])
+        q = QTensor(pool_data[1], pool_scale[1], 4, 64, k)
+        check(q.data.data_ptr() % 16 == 0, f"mixtral {name}: pool view codes unaligned")
+        x = torch.randn((1, 1, k), generator=g, device=dev).to(torch.bfloat16)
+        label = f"dequant_matmul mixtral expert {name} M=1"
+        e, kern = _dq_check(label, x, q)
+        check(kern == "mmv", f"{label}: took the {kern} kernel, not mmv")
+        y = ops.dequant_matmul(x, q)
+        again = ops.dequant_matmul(x, q)
+        torch.cuda.synchronize()
+        check(torch.equal(y, again), f"{label}: two calls differ")
+        qs = _copies(q, nbytes(q.data, q.scale))
+        ms = graph_ms(_cycling([lambda c=c: ops.dequant_matmul(x, c) for c in qs]))
+        call = cuda_ms(lambda: ops.dequant_matmul(x, q))
+        plain = cuda_ms(lambda: ref.dequant_matmul_ref(x, q), warmup=1, iters=3)
+        wb = dequantize(q, dtype=torch.bfloat16)
+        wbs = [wb] + [wb.clone() for _ in range(-(-L2_CYCLE_BYTES // nbytes(wb)) - 1)]
+        mm = graph_ms(_cycling([lambda w=w: torch.matmul(x, w) for w in wbs]))
+        moved = nbytes(x, q.data, q.scale, y)
+        bms, by = bound(moved, 2 * k * n, BF16_FLOPS)
+        tile, cluster, blocks, regs = _dq_plan(kern, x, q)
+        out[name] = dict(m=1, k=k, n=n, bits=4, group=64, kernel=kern, tile=tile,
+                         cluster=cluster, blocks_per_sm=blocks, regs=regs, ms=ms,
+                         call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
+                         gbps=moved / ms / 1e6, matmul_bf16_ms=mm, max_abs_err=e)
+        print(f"[kernels] {label} K={k} N={n} (group 64, pool slot 1): mmv kernel, tile "
+              f"{tile}, cluster of {cluster}, {blocks} blocks/SM, {regs} registers: "
+              f"{ms:.4f} ms on the card, L2 cold ({moved / ms / 1e6:.0f} GB/s; bound "
+              f"{bms:.4f} ms by {by}, {bms / ms:.0%} of it); {call:.4f} ms per call "
+              f"(plain {plain:.3f} ms per call; torch.matmul on the dequantized bf16 weight "
+              f"{mm:.4f} ms, {ms / mm:.2f}x); max abs err {e:.2e}", flush=True)
+        del q0, pool_data, pool_scale, q, qs, x, y, again, wb, wbs
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1809,6 +1885,318 @@ def phase_paged_parity(dev, cfg, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the per-expert reference path against the grouped path
+# ---------------------------------------------------------------------------
+GROUPED_OPS = ("gating_topk", "grouped_dequant_matmul", "grouped_dequant_combine")
+# a teacher-forced NLL is a log-softmax at one index: it moves by at most
+# twice the largest logit change, and logits agree within PARITY_ATOL
+NLL_ATOL = 2 * PARITY_ATOL
+
+
+def _free_engine() -> None:
+    """Collect a closed engine's pinned host storage and device pools
+    before the next engine is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _per_expert_run(model, params, prompts, teacher, *, grouped, paged) -> dict:
+    """One teacher-forced workload through HobbitBackend on the default
+    constrained cache with synchronous loading: per step its logits, its
+    trace rows (each MoE layer's routed experts and gates per active row)
+    and the cumulative hi/lo loads; decode seconds, engine stats and the
+    launches of the run."""
+    from repro_torch.core import PREC_HI, PREC_LO, EngineConfig, OffloadEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import HobbitBackend
+
+    b, s = prompts.shape
+    steps = teacher.shape[0]
+    hob = HobbitBackend(OffloadEngine(model, params, EngineConfig(
+        async_prefetch=False, grouped=grouped, paged_kv=paged)))
+    eng = hob.engine
+    try:
+        hob.start_batch(b, s + steps + 4)
+        ops.reset_dispatch_counts()
+        lg = [hob.prefill(prompts)]
+        per_step, decode_s = [], 0.0
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg.append(hob.step(teacher[t]))
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            per_step.append(dict(
+                routes=[[(list(map(int, e.experts)), np.asarray(e.gate_vals, np.float64))
+                         for e in row] for row in eng.trace[t * b:(t + 1) * b]],
+                loads=(eng.loader.n_loads[PREC_HI], eng.loader.n_loads[PREC_LO])))
+        counts = ops.dispatch_counts()
+        es = hob.stats()
+        th = eng.loader.th
+    finally:
+        hob.close()
+    del hob, eng
+    _free_engine()
+    return dict(logits=lg, per_step=per_step, th=th, decode_s=decode_s,
+                decode_tok_s=b * steps / decode_s, kernel_dispatch=counts,
+                loads_hi=es["loads_hi"], loads_lo=es["loads_lo"],
+                union_reloads=es["union_reloads"], cache_hit_ratio=es["cache"]["hit_ratio"])
+
+
+# two paths' routing probabilities within this of each other are a near tie:
+# bf16 rounding of the hidden state moves them by ~1e-3 at most (the
+# per-expert path rounds each lo expert's output to bf16 as the reference
+# does, the grouped path combines in float32), a wrong route by O(0.1)
+GATE_TIE = 0.01
+
+
+def _tie_gap(entry_g, entry_r, th):
+    """None when one layer's routing (experts in rank order, gates) and the
+    precision decisions agree on both paths; else the largest probability
+    gap the difference hinges on, to be held to GATE_TIE: the gates of the
+    experts both picked, the last-rank gates where the picks differ, the
+    gap between two ranks that swapped, and the normalised top gate's
+    distance to the threshold a decision crossed."""
+    from repro_torch.core.scoring import normalize_gates, precision_decisions
+    (xg, gg), (xr, gr) = entry_g, entry_r
+    dg, dr = precision_decisions(gg, th).tolist(), precision_decisions(gr, th).tolist()
+    if xg == xr and dg == dr:
+        return None
+    pg, pr = dict(zip(xg, gg)), dict(zip(xr, gr))
+    gaps = [abs(pg[e] - pr[e]) for e in set(xg) & set(xr)]
+    if set(xg) != set(xr):
+        gaps.append(abs(gg.min() - gr.min()))
+    if xg != xr:
+        gaps += [abs(gg[i] - gg[i + 1]) for i in range(len(xg) - 1) if xg[i] != xr[i]]
+        gaps += [abs(gr[i] - gr[i + 1]) for i in range(len(xr) - 1) if xg[i] != xr[i]]
+    if dg != dr:
+        top = [float(normalize_gates(v).max()) for v in (gg, gr)]
+        gaps.append(min(abs(v - t) for v in top for t in (th.t1, th.t2)))
+    return max(gaps)
+
+
+def phase_per_expert(dev, model, params) -> dict:
+    """The per-expert reference path (``grouped=False``) against the grouped
+    path, both loading synchronously (``async_prefetch=False``) on the
+    default constrained cache (16 hi / 8 lo slots, so lo experts and
+    reloads happen), on dense and on paged KV: batch 2, 32-token prompts,
+    8 teacher-forced decode steps, compared step by step.  Each row's routed
+    experts and precision decisions must be equal and its logits within
+    PARITY_ATOL (both bf16, float32 sums in another order) until the row's
+    routes part at a near tie (``_tie_gap`` within GATE_TIE), after which
+    that row computes other experts and only finite logits are checked;
+    the cumulative hi/lo loads must be equal until any row parts.  The
+    per-expert path must launch the dense dequant-matmul kernel for its lo
+    experts and no grouped or gating_topk kernel; no plain version may
+    run.  Both paths' decode tok/s: the reference benchmark's grouped vs
+    per-expert comparison."""
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 4)
+    b, s, steps = 2, 32, 8
+    prompts = rng.integers(0, cfg.vocab_size, (b, s))
+    teacher = rng.integers(0, cfg.vocab_size, (steps, b))
+    out = {}
+    for paged in (False, True):
+        kv = "paged" if paged else "dense"
+        runs = {grouped: _per_expert_run(model, params, prompts, teacher, grouped=grouped,
+                                         paged=paged)
+                for grouped in (True, False)}
+        g, r = runs[True], runs[False]
+        for name, run in (("grouped", g), ("per-expert", r)):
+            bad = {k: v for k, v in run["kernel_dispatch"].items() if k.endswith(".torch")}
+            check(not bad, f"per-expert ({kv} KV), {name} path: plain versions ran: {bad}")
+            check(run["kernel_dispatch"].get("stacked_gating.cuda", 0) > 0,
+                  f"per-expert ({kv} KV), {name} path: no predictor kernel launch")
+            if paged:
+                check(run["kernel_dispatch"].get("paged_flash_decode.cuda", 0) > 0,
+                      f"per-expert ({kv} KV), {name} path: no paged flash-decode launch")
+        check(r["kernel_dispatch"].get("dequant_matmul.cuda", 0) > 0,
+              f"per-expert ({kv} KV): no dequant_matmul launch for the lo experts")
+        for op in GROUPED_OPS:
+            check(r["kernel_dispatch"].get(f"{op}.cuda", 0) == 0,
+                  f"per-expert ({kv} KV): {op} launched on the per-expert path")
+            check(g["kernel_dispatch"].get(f"{op}.cuda", 0) > 0,
+                  f"per-expert ({kv} KV): {op} not launched on the grouped path")
+        check(r["loads_lo"] > 0, f"per-expert ({kv} KV): no lo load")
+        # rows decode independently: each row is compared until its routes
+        # part at a near tie; the loads (a union over rows) until any row parts
+        parted, tie = [None] * b, 0.0
+        worst, same, compared = 0.0, 0, 0
+        for i, (lg, lr) in enumerate(zip(g["logits"], r["logits"])):
+            check(bool(np.isfinite(lg).all() and np.isfinite(lr).all()),
+                  f"per-expert ({kv} KV) step {i}: non-finite logits")
+            if i > 0:                                     # the prefill routes nothing
+                sg, sr = g["per_step"][i - 1], r["per_step"][i - 1]
+                for row in range(b):
+                    if parted[row] is not None:
+                        continue
+                    gaps = [x for x in (_tie_gap(eg, er, r["th"]) for eg, er in
+                                        zip(sg["routes"][row], sr["routes"][row]))
+                            if x is not None]
+                    if gaps:
+                        parted[row], tie = i, max(tie, max(gaps))
+                        check(max(gaps) <= GATE_TIE,
+                              f"per-expert ({kv} KV) step {i} row {row}: routes or decisions "
+                              f"differ by a probability gap {max(gaps):.4f} > {GATE_TIE}")
+                if all(p is None for p in parted):
+                    check(sg["loads"] == sr["loads"], f"per-expert ({kv} KV) step {i}: "
+                                                      f"hi/lo loads {sg['loads']} != {sr['loads']}")
+            for row in range(b):
+                if parted[row] is not None:
+                    continue
+                err = float(np.abs(lg[row] - lr[row]).max())
+                worst = max(worst, err)
+                same += int(lg[row].argmax() == lr[row].argmax())
+                compared += 1
+                check(err <= PARITY_ATOL, f"per-expert ({kv} KV) step {i} row {row}: max "
+                                          f"|grouped - per-expert| = {err:.4f} > {PARITY_ATOL}")
+        lo_calls = r["kernel_dispatch"]["dequant_matmul.cuda"]
+        loads_until = min((p for p in parted if p is not None), default=steps + 1) - 1
+        agree = ("routes, decisions and hi/lo loads equal in every step"
+                 if all(p is None for p in parted) else
+                 f"rows part at steps {parted} on near ties (largest gap {tie:.5f} <= "
+                 f"{GATE_TIE}); hi/lo loads equal through step {loads_until}")
+        print(f"[per-expert] {kv} KV, {b} rows x {steps} decode steps: {agree}; loads hi/lo "
+              f"grouped {g['loads_hi']}/{g['loads_lo']}, per-expert {r['loads_hi']}/"
+              f"{r['loads_lo']}; union reloads {g['union_reloads']} / {r['union_reloads']}; "
+              f"max |grouped - per-expert| = {worst:.4f} <= {PARITY_ATOL} over {compared} "
+              f"row-steps before the rows part, greedy equal in {same}/{compared}; decode "
+              f"tok/s grouped {g['decode_tok_s']:.2f}, per-expert {r['decode_tok_s']:.2f} "
+              f"({g['decode_tok_s'] / r['decode_tok_s']:.2f}x); per-expert dequant_matmul "
+              f"launches {lo_calls}", flush=True)
+        for name, run in (("grouped", g), ("per_expert", r)):
+            out[f"{name}_{kv}"] = {k: v for k, v in run.items()
+                                   if k not in ("logits", "per_step", "th")}
+        out[f"compare_{kv}"] = dict(max_abs_diff=worst, row_steps_compared=compared,
+                                    rows_parted_at=parted, loads_equal_through=loads_until,
+                                    tie_gap=tie)
+    print(f"[per-expert] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: host compute mode against the device per-expert path
+# ---------------------------------------------------------------------------
+def phase_host_mode(dev, model, params) -> dict:
+    """``score_nll`` through the engine over 6 tokens of one row, on the
+    device per-expert path and on ``compute_mode="host"`` (each expert on
+    the CPU in float32 from pinned host storage), default constrained
+    cache, synchronous loading.  The NLLs must agree within NLL_ATOL (bf16
+    rounding on the card: logits within PARITY_ATOL move a log-softmax by
+    at most twice that).  Host mode launches no dequant-matmul kernel."""
+    from repro_torch.core import EngineConfig, OffloadEngine
+    from repro_torch.kernels import ops
+
+    toks = [int(t) for t in np.random.default_rng(SEED + 5).integers(0, model.cfg.vocab_size, 6)]
+    res = {}
+    for mode in ("device", "host"):
+        eng = OffloadEngine(model, params, EngineConfig(async_prefetch=False, grouped=False,
+                                                        compute_mode=mode))
+        try:
+            ops.reset_dispatch_counts()
+            t0 = time.perf_counter()
+            nll = eng.score_nll(toks)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = ops.dispatch_counts()
+            es = eng.stats()
+        finally:
+            eng.close()
+        del eng
+        _free_engine()
+        check(math.isfinite(nll), f"host-mode: {mode} NLL {nll}")
+        bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
+        check(not bad, f"host-mode: plain versions ran on the {mode} path: {bad}")
+        res[mode] = dict(nll=nll, seconds=sec, loads_hi=es["loads_hi"],
+                         loads_lo=es["loads_lo"], kernel_dispatch=counts)
+    check(res["device"]["kernel_dispatch"].get("dequant_matmul.cuda", 0) > 0,
+          "host-mode: the device path launched no dequant_matmul")
+    check(res["host"]["kernel_dispatch"].get("dequant_matmul.cuda", 0) == 0,
+          "host-mode: the host path launched dequant_matmul")
+    diff = abs(res["host"]["nll"] - res["device"]["nll"])
+    check(diff <= NLL_ATOL, f"host-mode: |host - device| NLL = {diff:.4f} > {NLL_ATOL}")
+    print(f"[host-mode] score_nll over {len(toks)} tokens: device {res['device']['nll']:.5f} "
+          f"in {res['device']['seconds']:.2f} s, host {res['host']['nll']:.5f} in "
+          f"{res['host']['seconds']:.2f} s; |host - device| = {diff:.5f} <= {NLL_ATOL}; "
+          f"loads hi/lo device {res['device']['loads_hi']}/{res['device']['loads_lo']}, "
+          f"host {res['host']['loads_hi']}/{res['host']['loads_lo']}", flush=True)
+    res["host_vs_device"] = diff
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the single-sequence API
+# ---------------------------------------------------------------------------
+def phase_single_sequence(dev, cfg, params) -> dict:
+    """On the unconstrained configuration of phase 5 (every expert resident
+    at full precision, capacity_factor 8): ``engine.generate`` at batch 1
+    (the prompt decoded token by token) against ``serving.api.generate``
+    through HobbitBackend (the prompt prefilled) on the same prompt, and
+    ``serving.api.score_nll`` through HobbitBackend against DenseBackend
+    within NLL_ATOL.  The greedy tokens must be equal; where they part, the
+    prefixes must be equal and the two tokens a near tie of the API path's
+    logits there (their gap within 2 * PARITY_ATOL, bf16 rounding: both
+    paths compute the same function in another order), after which the
+    sequences legitimately differ."""
+    from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import api
+
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    model = build_model(cfg8)
+    n = cfg8.num_layers * cfg8.moe.num_experts
+    ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
+                        prefetch=False)
+    rng = np.random.default_rng(SEED + 6)
+    prompt = rng.integers(0, cfg8.vocab_size, 16)
+    seq = rng.integers(0, cfg8.vocab_size, 12)
+    new = 8
+    eng = OffloadEngine(model, params, ecfg)
+    try:
+        ops.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        by_engine = eng.generate([int(t) for t in prompt], new)
+        gen_s = time.perf_counter() - t0
+        counts = ops.dispatch_counts()
+        hob = api.HobbitBackend(eng)
+        by_api = [int(t) for t in api.generate(hob, prompt[None], new).tokens[0, len(prompt):]]
+        part = next((i for i in range(new) if by_engine[i] != by_api[i]), None)
+        gap = None
+        if part is not None:
+            # the API path's logits where the two parted, on the shared prefix
+            hob.start_batch(1, len(prompt) + new + 1)
+            lg = hob.prefill(prompt[None])[0]
+            for t in by_api[:part]:
+                lg = hob.step(np.asarray([t]))[0]
+            gap = float(abs(lg[by_api[part]] - lg[by_engine[part]]))
+            check(gap <= 2 * PARITY_ATOL,
+                  f"single-sequence: engine.generate {by_engine} != api.generate {by_api} "
+                  f"from token {part}, logit gap {gap:.4f} > {2 * PARITY_ATOL}")
+        nll_h = api.score_nll(hob, seq)
+    finally:
+        eng.close()
+    del eng, hob
+    _free_engine()
+    nll_d = api.score_nll(api.DenseBackend(model, params), seq)
+    _free_engine()
+    bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
+    check(not bad, f"single-sequence: plain versions ran: {bad}")
+    check(counts.get("gating_topk.cuda", 0) > 0, "single-sequence: gating kernel not used")
+    diff = abs(nll_h - nll_d)
+    check(math.isfinite(nll_h) and diff <= NLL_ATOL,
+          f"single-sequence: |HobbitBackend - DenseBackend| NLL = {diff:.4f} > {NLL_ATOL}")
+    print(f"[single-sequence] engine.generate ({new} tokens after a {len(prompt)}-token "
+          f"prompt, {gen_s:.2f} s) {by_engine}; api.generate {by_api}: "
+          + ("equal" if part is None else f"equal up to token {part}, where the API path's "
+             f"logits gap is {gap:.4f} <= {2 * PARITY_ATOL} (a bf16 near tie)")
+          + f"; api.score_nll over {len(seq)} tokens: HobbitBackend {nll_h:.5f}, DenseBackend "
+          f"{nll_d:.5f}, |diff| = {diff:.5f} <= {NLL_ATOL}", flush=True)
+    return dict(engine_tokens=by_engine, api_tokens=by_api, parted_at=part, logit_gap=gap,
+                nll_hobbit=nll_h, nll_dense=nll_d, generate_s=gen_s, kernel_dispatch=counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: Granite-3.0-2B at full width and depth through DenseBackend
 # ---------------------------------------------------------------------------
 DENSE_OPS = ("paged_flash_decode",)
@@ -2030,6 +2418,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("paged-parity"):
         phase_paged_parity(dev, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("per-expert"):
+        per_expert = phase_per_expert(dev, model, params)
+    with phase("host-mode"):
+        host_mode = phase_host_mode(dev, model, params)
+    with phase("single-sequence"):
+        single = phase_single_sequence(dev, cfg, params)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2073,7 +2469,11 @@ def main() -> None:
     main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
                  "flash_decode": None}
     paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
-             "serve_dense_q4": dense_q}
+             "serve_dense_q4": dense_q, "per_expert": per_expert["per_expert_dense"],
+             "per_expert_paged": per_expert["per_expert_paged"],
+             "grouped_sync": per_expert["grouped_dense"],
+             "grouped_sync_paged": per_expert["grouped_paged"],
+             "host_mode": host_mode["host"], "single_sequence": single}
     for r in rows:
         key = f"{r['name']}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()}

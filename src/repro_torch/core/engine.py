@@ -1,8 +1,19 @@
 """HOBBIT OffloadEngine on PyTorch: serve a MoE model whose experts live in
 host memory, through a device-resident mixed-precision expert cache, the
 dynamic loader, the adaptive predictor and the multidimensional cache
-manager (Fig. 4), with the grouped decode path of the JAX reference
+manager (Fig. 4), with the decode paths of the JAX reference
 (``src/repro/core/engine.py``) and the same cache/loader decisions.
+
+Two decode paths share one contract (``decode_step_batch``): the grouped
+path (the default, the serving hot path: one fused gating kernel, one
+grouped lo launch pair per MoE layer, asynchronous staging) and the
+per-expert reference path (``grouped=False``, or ``compute_mode="host"``),
+which gates on the host in numpy, loads synchronously and computes expert
+by expert, the numerics baseline the grouped path is held to.  With
+``compute_mode="host"`` (the paper's §4 CPU-helper mode) each expert runs on
+the CPU in float32 from host storage; loading still runs as on the device.
+The single-sequence API (``start_sequence``, ``decode_token``, ``generate``,
+``score_nll``) drives either path at batch 1.
 
 What changes on a card:
 
@@ -17,34 +28,37 @@ What changes on a card:
   copy's event and then copies staging -> pool slot.  A copy never writes
   a pool slot from a copy stream, so a kernel still reading the slot for an
   earlier layer cannot race it.
-* The union-overflow experts (a layer's union demand larger than the pool)
-  live in extra rows of the same pool tensors (``hi_slots + B*top_k`` and
-  ``lo_slots + B*top_k`` rows), and the lo kernels read every expert in
-  place through a per-pair slot index: nothing is gathered or concatenated
-  per layer.
+* On the grouped path the union-overflow experts (a layer's union demand
+  larger than the pool) live in extra rows of the same pool tensors
+  (``hi_slots + B*top_k`` and ``lo_slots + B*top_k`` rows; the reference's
+  ``_overflow_buffers`` host buffers have no counterpart), and the lo
+  kernels read every expert in place through a per-pair slot index.  The
+  per-expert path admits an overflow expert into the cache instead, as the
+  reference does, and its pools have no extra rows.
 * The hi half is one ``torch.matmul`` pair per (token, expert) on pool
-  views; the lo half is the two hand-written dequant kernels.
+  views.  The lo half is the two grouped dequant kernels on the grouped
+  path and the dense dequant-matmul kernel, one call per product, on the
+  per-expert path; neither materialises a float32 weight on the card.
 * The host blocks on the card where the reference does.  Per MoE layer it
-  reads back the normed hidden state and the gating result (the scheduler
-  runs on the host): two synchronisations.  With prefetch on, each predictor
-  call reads back its stacked-gating probabilities: one or two calls per
-  active row on every MoE layer but the last (the adaptive walk, then a
-  one-layer prediction when the walk did not reach the next layer).  A
-  union-overflow miss waits for its staged copy, and each step ends with
-  one logits readback.  The paged KV layout adds none: its step prologue
-  reads positions that already live on the host, and each chunked-prefill
-  call reads back its logits as the reference does.
+  reads back the normed hidden state, and on the grouped path the gating
+  result (the scheduler runs on the host).  With prefetch on, each
+  predictor call reads back its stacked-gating probabilities: one or two
+  calls per active row on every MoE layer but the last (the adaptive walk,
+  then a one-layer prediction when the walk did not reach the next layer).
+  A union-overflow miss waits for its staged copy; host compute mode reads
+  each (token, expert) pair's hidden row back; each step ends with one
+  logits readback.  The paged KV layout adds none: its step prologue reads
+  positions that already live on the host, and each chunked-prefill call
+  reads back its logits as the reference does.
 * Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
   backend: a page pool with a radix prefix trie and copy-on-write, chunked
   prefill, and decode attention through the paged flash-decode kernel.
-
-Not ported yet (raise NotImplementedError): the per-expert reference path
-(``grouped=False``) and the host compute mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -54,8 +68,8 @@ import torch
 
 from repro_torch.core.cache import MultidimensionalCache
 from repro_torch.core.fleet_heat import FleetHeat
-from repro_torch.core.loader import (DynamicExpertLoader, StagingEngine,
-                                     measure_link_bps)
+from repro_torch.core.loader import (ON_DEMAND, DynamicExpertLoader, LoadTask,
+                                     StagingEngine, measure_link_bps)
 from repro_torch.core.policies import MULTIDIM, PolicyWeights
 from repro_torch.core.predictor import AdaptiveExpertPredictor
 from repro_torch.core.scoring import (PREC_HI, PREC_LO, PREC_SKIP, Thresholds,
@@ -66,7 +80,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
 from repro_torch.models.model import Model, unstack_layers
-from repro_torch.quant.quantize import PACK_FACTOR, expert_nbytes, quantize
+from repro_torch.quant.quantize import (PACK_FACTOR, QTensor, dequantize, expert_nbytes,
+                                        quantize)
 
 HI_NAMES = ("wi", "wo")
 LO_NAMES = ("wi_data", "wi_scale", "wo_data", "wo_scale")
@@ -83,8 +98,14 @@ class EngineConfig:
     group_size: int = 64
     dynamic_loading: bool = True     # ablation switch (Fig. 16)
     prefetch: bool = True            # ablation switch (Fig. 17)
-    compute_mode: str = "device"     # device only (host: a later slice)
-    grouped: bool = True             # grouped decode (per-expert: a later slice)
+    # device | host: host runs each expert on the CPU in float32 from host
+    # storage (the paper's CPU-helper mode, §4), on the per-expert path
+    compute_mode: str = "device"
+    # grouped decode: one fused gating kernel and one grouped lo launch pair
+    # per MoE layer.  False selects the per-expert reference path (host
+    # gating, synchronous loading, one expert at a time), the parity
+    # baseline; host compute mode always takes it
+    grouped: bool = True
     # stage prefetch copies on background streams so they overlap compute;
     # False drains them synchronously (the deterministic parity setting)
     async_prefetch: bool = True
@@ -107,17 +128,6 @@ class EngineConfig:
     prefix_sharing: bool = True
 
 
-def _check_ported(ecfg: EngineConfig) -> None:
-    if not ecfg.grouped:
-        raise NotImplementedError(
-            "the per-expert reference decode path (grouped=False) is not ported "
-            "yet (ROADMAP Queue 1, item 4)")
-    if ecfg.compute_mode != "device":
-        raise NotImplementedError(
-            f"compute_mode={ecfg.compute_mode!r} (CPU-helper mode) is not ported "
-            "yet (ROADMAP Queue 1, item 4)")
-
-
 def _spread(hist: Dict[int, int]) -> Dict:
     """launches, min, median and max of a {value: count} histogram (zeros
     when it is empty) and the histogram itself."""
@@ -130,7 +140,8 @@ def _spread(hist: Dict[int, int]) -> Dict:
 
 class OffloadEngine:
     def __init__(self, model: Model, params, ecfg: EngineConfig):
-        _check_ported(ecfg)
+        if ecfg.compute_mode not in ("device", "host"):
+            raise ValueError(f"compute_mode={ecfg.compute_mode!r}: want 'device' or 'host'")
         cfg = model.cfg
         if cfg.moe is None:
             raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has dense "
@@ -140,6 +151,7 @@ class OffloadEngine:
         self.ecfg = ecfg
         self.params = params
         self.device = params["embed"].device
+        self.grouped = ecfg.grouped and ecfg.compute_mode == "device"
         self.layer_params = unstack_layers(cfg, params)
         self.moe_layers = [i for i, m in enumerate(cfg.layer_is_moe()) if m]
         self.num_moe_layers = len(self.moe_layers)
@@ -157,10 +169,12 @@ class OffloadEngine:
                                     for n in HI_NAMES})
             self.storage_lo.append(self._quantize_layer(ffn["experts"]))
             self.routers.append(ffn["router"].to(torch.float32))
-        # routers stacked on device for the per-layer gating kernel
+        # routers stacked on device for the per-layer gating kernel, and a
+        # float32 host copy for the per-expert path's numpy gating
         self.routers_dev = torch.stack(self.routers).contiguous()   # (L, D, E)
+        self.routers_host: List[np.ndarray] = to_host(*self.routers)
 
-        # ---- device pools (overflow rows appended by _ensure_pools) ----
+        # ---- device pools (grouped path: overflow rows from _ensure_pools) ----
         self.pool_hi: Dict[str, torch.Tensor] = {}
         self.pool_lo: Dict[str, torch.Tensor] = {}
         self._ovf_rows = 0
@@ -240,9 +254,12 @@ class OffloadEngine:
 
     def _ensure_pools(self, overflow_rows: int) -> None:
         """Pool tensors with `overflow_rows` extra rows after the cache slots
-        (union-overflow experts of one layer).  Growing keeps the resident
+        (union-overflow experts of one layer; none on the per-expert path,
+        which admits them into the cache).  Growing keeps the resident
         slots' contents."""
-        if overflow_rows <= self._ovf_rows:
+        if not self.grouped:
+            overflow_rows = 0
+        if self.pool_hi and overflow_rows <= self._ovf_rows:
             return
         ecfg = self.ecfg
         lo0 = self.storage_lo[0]
@@ -308,6 +325,20 @@ class OffloadEngine:
         loader's 'cudaMemcpy')."""
         self._commit_one(precision, slot, self._stage(moe_idx, expert, precision))
 
+    def _fetch_many(self, items: List[Tuple[int, int, int, int]]) -> None:
+        """Blocking batched fetch into admitted pool slots: items =
+        [(moe_idx, expert, precision, slot)], staged one by one, committed
+        together and counted as loader traffic.  The decode paths stage and
+        commit through the loader and the staging engine; this is the
+        standalone entry point for warm-up, pre-population and tests."""
+        entries = []
+        for mi, e, prec, slot in items:
+            t = LoadTask(mi, e, int(prec), ON_DEMAND, self.expert_bytes[int(prec)])
+            entries.append((t, slot, self._stage(mi, e, int(prec))))
+            self.loader.loaded_bytes += t.bytes
+            self.loader.n_loads[t.precision] += 1
+        self._commit_staged(entries)
+
     # ------------------------------------------------------------------
     # serving state
     # ------------------------------------------------------------------
@@ -336,6 +367,10 @@ class OffloadEngine:
         self._pending_preds = []
         self._pending_joins = {}
         self._unclaimed_joins = {}
+
+    def start_sequence(self, max_len: int, batch: int = 1):
+        """``start_batch`` under the single-sequence API's argument order."""
+        self.start_batch(batch, max_len)
 
     def prefill_batch(self, prompts) -> np.ndarray:
         """Prefill the whole prompt batch through the dense model (prefill
@@ -468,9 +503,49 @@ class OffloadEngine:
     def decode_step_batch(self, tokens) -> np.ndarray:
         """One batched HOBBIT decode step.  tokens: (B,) int; returns logits
         (B, V).  Inactive slots ride through attention but take no part in
-        gating, loading, expert compute, the trace or position advance."""
+        gating, loading, expert compute, the trace or position advance.
+        The grouped path serves ``grouped=True`` in device compute mode; the
+        per-expert reference path serves the rest."""
         self._check_open()
-        return self._decode_step_batch_grouped(tokens)
+        if self.grouped:
+            return self._decode_step_batch_grouped(tokens)
+        return self._decode_step_batch_reference(tokens)
+
+    def decode_token(self, token: int) -> np.ndarray:
+        """One decode step at batch 1 (the single-sequence API).  Returns
+        logits (V,)."""
+        if self.batch != 1:
+            raise ValueError(f"decode_token is batch 1 (batch is {self.batch}); "
+                             "use decode_step_batch")
+        return self.decode_step_batch(np.asarray([int(token)], np.int64))[0]
+
+    def _step_tokens(self, tokens) -> np.ndarray:
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        if tokens.shape[0] != self.batch:
+            raise ValueError(f"{tokens.shape[0]} tokens for a batch of {self.batch}")
+        return tokens
+
+    def _step_prologue(self, rows) -> Tuple:
+        """Per-step attention state: positions on the device and, under paged
+        KV, each active slot's page chain grown for this step's token (COW
+        off shared pages first), the table exported once and the active mask."""
+        positions = to_device(self.positions, self.device)
+        if not self.ecfg.paged_kv:
+            return positions, None, None
+        table = self.kv_pool.prepare_decode(rows, self.positions)
+        return positions, table, to_device(self.active, self.device)
+
+    def _attn_layer(self, li: int, x: torch.Tensor, step: Tuple) -> torch.Tensor:
+        """Layer li's attention against whichever KV layout is active (its
+        state updated in place); returns the residual stream."""
+        positions, table, active_dev = step
+        p = self.layer_params[li]
+        h = L.apply_norm(p["pre_norm"], x, self.cfg)
+        if self.ecfg.paged_kv:
+            return x + L.paged_attn_decode(p["attn"], h, self.kv_pool.k[li],
+                                           self.kv_pool.v[li], table, positions,
+                                           active_dev, self.cfg)
+        return x + L.attn_decode(p["attn"], h, self.kv_cache[li], positions, self.cfg)
 
     def _score_pending_preds(self, mi: int, tops: Dict[int, np.ndarray]):
         still_pending = []
@@ -579,19 +654,12 @@ class OffloadEngine:
 
     def _decode_step_batch_grouped(self, tokens) -> np.ndarray:
         cfg, ecfg, mc = self.cfg, self.ecfg, self.cfg.moe
-        tokens = np.asarray(tokens, np.int64).reshape(-1)
-        if tokens.shape[0] != self.batch:
-            raise ValueError(f"{tokens.shape[0]} tokens for a batch of {self.batch}")
+        tokens = self._step_tokens(tokens)
         b, k = self.batch, mc.top_k
         rows = [r for r in range(b) if self.active[r]]
         self.cache.advance_token()
         x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
-        positions = to_device(self.positions, self.device)
-        if ecfg.paged_kv:
-            # grow each active slot's page chain for this step's token (COW
-            # off shared pages first); one table export per step
-            table = self.kv_pool.prepare_decode(rows, self.positions)
-            active_dev = to_device(self.active, self.device)
+        step = self._step_prologue(rows)
 
         row_trace = {r: [] for r in rows}
         for mi, li in enumerate(self.moe_layers):
@@ -599,13 +667,7 @@ class OffloadEngine:
             self.scheduler.set_deadline_clock(mi, self._layer_s_ema,
                                               self._layer_period_ema)
             p = self.layer_params[li]
-            h = L.apply_norm(p["pre_norm"], x, cfg)
-            if ecfg.paged_kv:
-                x = x + L.paged_attn_decode(p["attn"], h, self.kv_pool.k[li],
-                                            self.kv_pool.v[li], table, positions,
-                                            active_dev, cfg)
-            else:
-                x = x + L.attn_decode(p["attn"], h, self.kv_cache[li], positions, cfg)
+            x = self._attn_layer(li, x, step)
             hs = L.apply_norm(p["ffn_norm"], x, cfg)[:, 0]          # (B, D)
 
             # ---- gating: host sync 1 (hidden state), 2 (router result) ----
@@ -706,11 +768,182 @@ class OffloadEngine:
                 dt_full if self._layer_period_ema == 0.0
                 else 0.8 * self._layer_period_ema + 0.2 * dt_full)
 
+        return self._step_epilogue(x, rows, row_trace)
+
+    def _step_epilogue(self, x: torch.Tensor, rows, row_trace) -> np.ndarray:
+        """Advance the active slots, keep their trace rows and read the
+        step's logits (B, V) back."""
         self.positions = self.positions + self.active.astype(np.int64)
         for r in rows:
             self.trace.append(row_trace[r])
         lg = self.model.logits(self.params, x)[:, 0]
         return to_host(lg)[0]
+
+    # ---- per-expert reference path (the parity baseline) ----
+    def _decode_step_batch_reference(self, tokens) -> np.ndarray:
+        """The reference's per-expert step: gating on the host in numpy,
+        synchronous loading (whatever ``async_prefetch`` says: the staging
+        engine is not used), a union-overflow miss admitted into the cache
+        and fetched into its slot, then each active row's experts one at a
+        time, combined in float32 and renormalised by the kept gate mass."""
+        cfg, ecfg, mc = self.cfg, self.ecfg, self.cfg.moe
+        tokens = self._step_tokens(tokens)
+        rows = [r for r in range(self.batch) if self.active[r]]
+        self.cache.advance_token()
+        x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
+        step = self._step_prologue(rows)
+
+        row_trace = {r: [] for r in rows}
+        for mi, li in enumerate(self.moe_layers):
+            p = self.layer_params[li]
+            x = self._attn_layer(li, x, step)
+            h = L.apply_norm(p["ffn_norm"], x, cfg)                 # (B, 1, D)
+            (h_host,) = to_host(h[:, 0].to(torch.float32))          # host sync
+
+            # ---- gating on the host, per row, as the reference writes it ----
+            tops: Dict[int, np.ndarray] = {}
+            gates: Dict[int, np.ndarray] = {}
+            for r in rows:
+                logits = h_host[r] @ self.routers_host[mi]
+                probs = np.exp(logits - logits.max())
+                probs /= probs.sum()
+                tops[r] = np.argsort(-probs)[: mc.top_k]
+                gates[r] = probs[tops[r]]
+                for e, g in zip(tops[r], gates[r]):
+                    self.fleet.observe((mi, int(e)), float(g))
+
+            self._score_pending_preds(mi, tops)
+            pred_entry = {}
+            if ecfg.prefetch:
+                pred_entry = self._prefetch_predictions(mi, rows, h_host,
+                                                        use_async=False)
+
+            # ---- on-demand scoring + synchronous loading (union over rows) ----
+            self.loader.new_layer()
+            for r in rows:
+                self.loader.score_and_enqueue(mi, tops[r].tolist(), gates[r],
+                                              clear_pins=False)
+            self.loader.drain(mi)
+
+            # ---- expert compute, row by row, expert by expert ----
+            y = torch.zeros((self.batch, cfg.d_model), dtype=torch.float32,
+                            device=self.device)
+            for r in rows:
+                hr = h[r:r + 1]                                     # (1, 1, D)
+                dec = precision_decisions(gates[r], self.loader.th)
+                wsum = 0.0
+                for e, d_, w in zip(tops[r], dec, gates[r]):
+                    if d_ == PREC_SKIP:
+                        continue
+                    e, d_ = int(e), int(d_)
+                    is_hi = d_ == PREC_HI
+                    slot = self.cache.lookup((mi, e), is_hi)
+                    if slot is None:
+                        # union-overflow reload: a neighbour row's admission
+                        # evicted it this layer; the reference re-admits
+                        if is_hi:
+                            self.cache.stats.misses_hi += 1
+                        else:
+                            self.cache.stats.misses_lo += 1
+                        slot, _ = self.cache.admit((mi, e), is_hi, mi)
+                        self._fetch(mi, e, d_, slot)
+                        self.loader.loaded_bytes += self.expert_bytes[d_]
+                        self.loader.n_loads[d_] += 1
+                        self._union_reloads += 1
+                    if ecfg.compute_mode == "host":
+                        out = self._host_expert(mi, e, d_, hr)
+                    elif is_hi:
+                        out = self._hi_expert(slot, hr)
+                    else:
+                        out = self._lo_expert(slot, hr)
+                    y[r] += float(w) * out.reshape(-1).to(torch.float32)
+                    wsum += float(w)
+                if wsum > 0:
+                    y[r] /= wsum                                    # renormalise (skips)
+                row_trace[r].append(self._trace_entry(mi, r, tops, gates, pred_entry))
+            x = x + y[:, None, :].to(x.dtype)
+
+        return self._step_epilogue(x, rows, row_trace)
+
+    def _hi_expert(self, slot: int, h: torch.Tensor) -> torch.Tensor:
+        """One hi expert on its pool slot: two products in the model dtype
+        with the activation between them."""
+        z = h @ self.pool_hi["wi"][slot]
+        return L.activate(z, self.cfg) @ self.pool_hi["wo"][slot]
+
+    def _lo_expert(self, slot: int, h: torch.Tensor) -> torch.Tensor:
+        """One lo expert on its pool slot: each product through the dense
+        dequant-matmul (the kernel on the card, the reference's
+        ``h.astype(f32) @ dequantize(q)`` on the CPU), cast to the model
+        dtype as the reference casts it."""
+        ecfg, cfg = self.ecfg, self.cfg
+        pool = self.pool_lo
+        qi = QTensor(pool["wi_data"][slot], pool["wi_scale"][slot], ecfg.lo_bits,
+                     ecfg.group_size, cfg.d_model)
+        qo = QTensor(pool["wo_data"][slot], pool["wo_scale"][slot], ecfg.lo_bits,
+                     ecfg.group_size, cfg.moe.d_ff_expert)
+        z = L.activate(kops.dequant_matmul(h, qi).to(h.dtype), cfg)
+        return kops.dequant_matmul(z, qo).to(h.dtype)
+
+    def _host_expert(self, mi: int, e: int, d_: int, h: torch.Tensor) -> torch.Tensor:
+        """CPU-helper mode (§4): expert e of MoE layer mi on the CPU in
+        float32 from host storage (a hi expert's exact upcast; a lo
+        expert's codes dequantized), with the reference's activation
+        formulas.  Reads the hidden row back; returns it on h's device in
+        h's dtype."""
+        cfg, ecfg = self.cfg, self.ecfg
+        if d_ == PREC_HI:
+            src = self.storage_hi[mi]
+            wi = src["wi"][e].to(torch.float32)
+            wo = src["wo"][e].to(torch.float32)
+        else:
+            src = self.storage_lo[mi]
+            wi = dequantize(QTensor(src["wi_data"][e], src["wi_scale"][e], ecfg.lo_bits,
+                                    ecfg.group_size, cfg.d_model))
+            wo = dequantize(QTensor(src["wo_data"][e], src["wo_scale"][e], ecfg.lo_bits,
+                                    ecfg.group_size, cfg.moe.d_ff_expert))
+        z = h.to("cpu", torch.float32) @ wi                        # host sync
+        if cfg.ffn_activation == "swiglu":
+            g, u = torch.chunk(z, 2, dim=-1)
+            z = (g / (1 + torch.exp(-g))) * u
+        else:
+            z = 0.5 * z * (1 + torch.tanh(math.sqrt(2 / math.pi) * (z + 0.044715 * z ** 3)))
+        return (z @ wo).to(h.device, h.dtype)
+
+    # ------------------------------------------------------------------
+    # evaluation helpers (the single-sequence API)
+    # ------------------------------------------------------------------
+    def generate(self, prompt: List[int], new_tokens: int,
+                 max_len: Optional[int] = None) -> List[int]:
+        """Greedy decode of one sequence, its prompt fed token by token
+        through ``decode_token``.  Returns the new tokens."""
+        max_len = max_len or (len(prompt) + new_tokens + 1)
+        self.start_sequence(max_len)
+        lg = None
+        for t in prompt:
+            lg = self.decode_token(int(t))
+        out = []
+        for _ in range(new_tokens):
+            nxt = int(np.argmax(lg))
+            out.append(nxt)
+            lg = self.decode_token(nxt)
+        return out
+
+    def score_nll(self, tokens: List[int], max_len: Optional[int] = None) -> float:
+        """Teacher-forced mean NLL of one sequence through the offload path
+        (accuracy evaluations): the first token enters through
+        ``decode_token``, as every later one does."""
+        max_len = max_len or (len(tokens) + 1)
+        self.start_sequence(max_len)
+        nll, n = 0.0, 0
+        lg = self.decode_token(int(tokens[0]))
+        for t in tokens[1:]:
+            p = lg - lg.max()
+            p = p - np.log(np.exp(p).sum())
+            nll -= p[int(t)]
+            n += 1
+            lg = self.decode_token(int(t))
+        return float(nll / max(n, 1))
 
     # ------------------------------------------------------------------
     def close(self):

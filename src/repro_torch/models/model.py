@@ -24,7 +24,7 @@ then run the dequant-matmul kernel.  The decode cache is a list of per-layer
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +33,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kv_pages as kvp
 from repro_torch.models import layers, moe as moe_lib
+
+
+class Batch(NamedTuple):
+    """One batch of the data pipeline (``data.pipeline``)."""
+    tokens: torch.Tensor                          # (B, S) int32
+    loss_mask: torch.Tensor                       # (B, S) f32 (1 = predict this target)
+    prefix_embeds: Optional[torch.Tensor] = None  # (B, P, D) vlm patch embeds
+    audio_frames: Optional[torch.Tensor] = None   # (B, F, D_enc) whisper frames
 
 
 def check_supported(cfg: ModelConfig) -> None:

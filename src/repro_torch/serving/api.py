@@ -20,7 +20,8 @@ KV memory comes in two layouts, chosen per backend at construction: dense
 (``paged=True`` / ``EngineConfig(paged_kv=True)``: a shared
 `models.kv_pages.PagedKVPool` of page_size-token pages with prefix sharing,
 prompts prefilled in prefill_chunk-token chunks).  Logits cross to the host
-as float32 numpy arrays, as in the JAX package.
+as float32 numpy arrays, as in the JAX package.  ``generate`` and
+``score_nll`` drive any backend through this protocol.
 """
 
 from __future__ import annotations
@@ -365,3 +366,23 @@ def generate(backend: InferenceBackend, prompts, new_tokens: int, *,
         tok = sample_token(lg, gen, temperature)
     t2 = time.time()
     return GenerateResult(np.concatenate(out, axis=1), t1 - t0, t2 - t1, new_tokens)
+
+
+def score_nll(backend: InferenceBackend, tokens, *,
+              max_len: Optional[int] = None) -> float:
+    """Teacher-forced mean NLL through any backend's decode path: the first
+    token enters through a 1-token join, every later token is a decode step,
+    so offload backends are scored on their serving path."""
+    tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
+    max_len = max_len or (len(tokens) + 1)
+    backend.start_batch(1, max_len)
+    lg = backend.join(0, np.asarray(tokens[:1], np.int32))
+    nll, n = 0.0, 0
+    for t in tokens[1:]:
+        p = np.asarray(lg, np.float64)
+        p -= p.max()
+        p -= np.log(np.exp(p).sum())
+        nll -= p[t]
+        n += 1
+        lg = backend.step(np.asarray([t], np.int32))[0]
+    return float(nll / max(n, 1))

@@ -8,6 +8,9 @@ routed experts and their precision decisions, hi/lo load counts, cache
 hit/miss counts and union-overflow reloads.  The default asynchronous
 configuration is held to the dense model in the unconstrained setting
 (every expert resident at full precision), atol 1e-3 as tests/test_api.py.
+Every engine runs under the port's thread-confinement guard
+(``core.cache_guard.InstrumentedCache``).  The per-expert path, host compute
+mode and the single-sequence API are in test_torch_engine_modes.py.
 """
 
 import dataclasses
@@ -25,12 +28,23 @@ from repro.serving.api import DenseBackend as RefDense
 from repro.serving.api import HobbitBackend as RefHobbit
 from repro.training import checkpoint as ckpt
 from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+from repro_torch.core import engine as engine_mod
+from repro_torch.core.cache_guard import InstrumentedCache
 from repro_torch.core.scoring import precision_decisions
 from repro_torch.models import build_model
 from repro_torch.serving.api import DenseBackend, HobbitBackend
 from repro_torch.weights import from_jax_params, load_checkpoint
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def thread_confined_cache(monkeypatch):
+    """Build every port engine's cache as an `InstrumentedCache`, which
+    raises the moment a cache-metadata mutator runs off the serving thread
+    (the staging engine's copy threads may only copy bytes)."""
+    monkeypatch.setattr(engine_mod, "MultidimensionalCache", InstrumentedCache)
+    yield
 
 
 def _load(kind, capacity_factor=None):
@@ -185,10 +199,3 @@ def test_default_async_engine_matches_dense_unconstrained():
             np.testing.assert_allclose(lg_d, lg_r, atol=1e-4)
     finally:
         hob.close()
-
-
-def test_unported_engine_modes_raise():
-    _, _, _, port, tparams = _load("mixtral-smoke")
-    for kw in (dict(grouped=False), dict(compute_mode="host")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            OffloadEngine(port, tparams, EngineConfig(**kw))

@@ -58,6 +58,21 @@ def test_importing_every_port_module_loads_no_jax():
     assert res.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.cache_guard",
+                                    "repro_torch.data.pipeline"])
+def test_copied_reference_modules_import_no_jax(module):
+    """The port's copies of framework-free reference modules are under the
+    import check above and load neither JAX nor the reference package."""
+    assert PORT / (module.split(".", 1)[1].replace(".", "/") + ".py") in FILES
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
 def test_dispatch_has_no_fallback_or_env_switch():
     for name in ("ops.py", "ref.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
