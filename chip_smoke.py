@@ -45,7 +45,10 @@ and each printing its seconds:
                length greedy requests, with every kernel's launch counted,
                the engine's gating_s, the lo pairs and distinct slots per
                grouped launch, every grouped launch on the tensor-core
-               kernel;
+               kernel; every MoE layer's captured segment (attention, norm,
+               gating) and the step's embed and logits replayed as CUDA
+               graphs and never run eagerly, and one segment's replay on a
+               fixed input against the same segment called eagerly;
   5. parity  — the offload engine with every expert resident at full
                precision against the dense model, step by step;
   6. serve-paged — the same server and model on the paged KV layout
@@ -73,9 +76,18 @@ and each printing its seconds:
                seeded random bf16 weights) through DenseBackend(paged=True)
                under BatchingServer, once with bf16 FFN weights and once
                with them quantized by ``quantize_tree`` (4 bits), every
-               dense-FFN product then in the dequant-matmul kernel; then 3
-               decode steps of the quantized model under torch.profiler
-               (the device's busy share and its top kernels);
+               dense-FFN product then in the dequant-matmul kernel, the
+               decode step a replayed CUDA graph (``jit=True``, the
+               default); then 3 decode steps of the quantized model under
+               torch.profiler (the device's busy share and its top
+               kernels);
+  8b. serve-dense-jit — the quantized Granite's serve again with
+               ``DenseBackend(jit=False)`` (eager) and once on the dense KV
+               layout (captured): greedy outputs and per-op launch counts of
+               the captured and eager runs equal, the step's logits equal,
+               both runs' decode tok/s and median step wall, the profiler
+               window both ways, and ``decode.generate`` captured against
+               eager;
   9. dense parity — the quantized Granite at full width cut to 4 layers on
                the card (kernels) against the same weights on the CPU (plain
                versions), step by step.
@@ -1584,12 +1596,15 @@ class _FiniteLogits:
     def __init__(self, inner):
         self.inner = inner
         self.model = inner.model
+        self.step_s = []                    # host wall of each decode step
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
     def step(self, tokens):
-        lg = self.inner.step(tokens)
+        t0 = time.perf_counter()
+        lg = self.inner.step(tokens)        # logits on the host: the step is done
+        self.step_s.append(time.perf_counter() - t0)
         check(bool(np.isfinite(lg).all()), "non-finite decode logits")
         return lg
 
@@ -1606,8 +1621,9 @@ def mixtral_cut():
 
 
 def _gating_path(counts, es, label, grouped) -> None:
-    """Prints the engine's gating_s (host wall around each gating_topk call
-    and its results' copy back), the lo pairs each grouped launch carried
+    """Prints the engine's gating_s (host wall from each layer segment's
+    replay, gating_topk its last kernel, to its hidden state and routes on
+    the host), the lo pairs each grouped launch carried
     and the distinct pool slots among them; every grouped launch (`grouped`:
     ``ops.grouped_launches()`` of the run) must have gone to the
     tensor-core kernel."""
@@ -1617,11 +1633,57 @@ def _gating_path(counts, es, label, grouped) -> None:
         check(grouped.get(f"{op}.mmv", 0) == counts.get(f"{op}.cuda", 0) > 0,
               f"{label}: {op} launches {grouped} did not all take the tensor-core kernel")
     print(f"[{label}] gating_s {es['gating_s']:.4f} s over {calls} gating_topk calls "
-          f"({es['gating_s'] / max(calls, 1) * 1e3:.4f} ms per call, host wall with the copy "
-          f"back); lo pairs per grouped launch: min {lo['min']}, median {lo['median']}, max "
+          f"({es['gating_s'] / max(calls, 1) * 1e3:.4f} ms per call, host wall of the layer "
+          f"segment with the copy back); lo pairs per grouped launch: min {lo['min']}, median {lo['median']}, max "
           f"{lo['max']} over {lo['launches']} launches {lo['hist']}; distinct slots per launch: "
           f"min {sl['min']}, median {sl['median']}, max {sl['max']} {sl['hist']}; grouped "
           f"kernels {grouped}", flush=True)
+
+
+def engine_steps(eng) -> list:
+    """Names of the offload engine's captured steps (``core/engine.py``)."""
+    return (["engine_embed", "engine_logits"]
+            + [f"engine_layer{mi}" for mi in range(eng.num_moe_layers)])
+
+
+def _captured_path(counts, names, label) -> dict:
+    """Every captured step in `names` replayed as a CUDA graph and never ran
+    eagerly on the card; returns {name: [captures, replays]} and prints it."""
+    out = {}
+    for n in names:
+        check(counts.get(f"{n}.graph", 0) > 0, f"{label}: {n} never replayed a graph")
+        check(counts.get(f"{n}.eager", 0) == 0, f"{label}: {n} ran eagerly on the card")
+        out[n] = [counts.get(f"{n}.capture", 0), counts[f"{n}.graph"]]
+    print(f"[{label}] captured steps [captures, replays]: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _segment_replay_check(eng, label) -> float:
+    """MoE layer 0's captured segment replayed on a fixed input against the
+    same segment called eagerly on it (after the serve: the replay writes
+    this input's K/V at the last step's positions, and so does the eager
+    call, identically).  The same kernels on the same inputs: expect 0;
+    checked at PARITY_ATOL and equal routes."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=eng.device).manual_seed(SEED + 9)
+    x = torch.randn((eng.batch, 1, eng.cfg.d_model), generator=g, device=eng.device)
+    x = x.to(eng.params["embed"].dtype)
+    before = ops.dispatch_counts()
+    replay = [t.clone() for t in eng._layer_steps[0](x, key=eng._segment_key(eng.moe_layers[0]))]
+    after = ops.dispatch_counts()
+    check(after.get("engine_layer0.graph", 0) == before.get("engine_layer0.graph", 0) + 1
+          and after.get("engine_layer0.capture", 0) == before.get("engine_layer0.capture", 0),
+          f"{label}: the segment did not replay its graph")
+    eager = eng._layer_segment(0, x)
+    names = ("x", "hs", "hs32", "vals", "idx")
+    diff = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names, replay, eager)}
+    check(torch.equal(replay[4], eager[4]), f"{label}: replayed routes {replay[4].tolist()} != "
+                                            f"eager {eager[4].tolist()}")
+    worst = max(diff.values())
+    check(worst <= PARITY_ATOL, f"{label}: segment replay vs eager max |diff| {diff}")
+    print(f"[{label}] layer 0 segment, replay vs eager on one input: max |diff| {worst} "
+          f"({json.dumps(diff)})", flush=True)
+    return worst
 
 
 def phase_serve(dev, model, params) -> dict:
@@ -1656,6 +1718,8 @@ def phase_serve(dev, model, params) -> dict:
     grouped = ops.grouped_launches()
     st = srv.stats()
     es = eng.stats()
+    captured = _captured_path(counts, engine_steps(eng), "serve")
+    seg_diff = _segment_replay_check(eng, "serve")
     srv.close()
 
     check(len(srv.completed) == n_req, f"{len(srv.completed)}/{n_req} requests done")
@@ -1680,6 +1744,7 @@ def phase_serve(dev, model, params) -> dict:
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
         "lo_slots_per_launch": es["lo_slots_per_launch"], "grouped_kernels": grouped,
+        "captured_steps": captured, "segment_replay_vs_eager": seg_diff,
     }
     print(f"[serve] {json.dumps(summary)}", flush=True)
     return summary
@@ -1799,6 +1864,7 @@ def phase_serve_paged(dev, model, params) -> dict:
     grouped = ops.grouped_launches()
     st = srv.stats()
     es = eng.stats()
+    _captured_path(counts, engine_steps(eng), "serve-paged")
     srv.close()
 
     check(len(srv.completed) == n_req, f"{len(srv.completed)}/{n_req} requests done")
@@ -2208,21 +2274,25 @@ def _ffn_path(path, leaf) -> bool:
     return "ffn" in path
 
 
-def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
+def phase_serve_dense(dev, model, params, label: str, must_launch, *, jit: bool = True,
+                      paged: bool = True) -> dict:
     """DenseBackend(paged=True) at its defaults (64-token pages, 64-token
-    prefill chunks, prefix sharing, the dense-equivalent pool) under
-    BatchingServer(max_batch=4): 6 greedy requests, prompts of 32-64 seeded
-    tokens (the same for every call), 16 new tokens each."""
+    prefill chunks, prefix sharing, the dense-equivalent pool; the decode
+    step captured) under BatchingServer(max_batch=4): 6 greedy requests,
+    prompts of 32-64 seeded tokens (the same for every call), 16 new tokens
+    each.  `jit` False runs the decode step eagerly; `paged` False serves
+    on the dense KV layout.  A captured run's step must replay its graph
+    and never run eagerly."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import BackendConfig, make_backend
     from repro_torch.serving.batching import BatchingServer, Request
 
     cfg = model.cfg
-    backend = make_backend(BackendConfig(kind="dense", paged=True), model, params)
+    backend = make_backend(BackendConfig(kind="dense", jit=jit, paged=paged), model, params)
     rng = np.random.default_rng(SEED + 4)
     n_req, new_tokens, max_batch = 6, 16, 4
-    srv = BatchingServer(_FiniteLogits(backend), max_batch=max_batch,
-                         max_len=64 + new_tokens + 8)
+    probe = _FiniteLogits(backend)
+    srv = BatchingServer(probe, max_batch=max_batch, max_len=64 + new_tokens + 8)
     for i in range(n_req):
         plen = int(rng.integers(32, 65))
         srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
@@ -2257,41 +2327,52 @@ def phase_serve_dense(dev, model, params, label: str, must_launch) -> dict:
                                                "never launched")
         check(dq_kernels.get("gemv", 0) == 0, f"{label}: {dq_kernels.get('gemv', 0)} "
                                                  "launches on the gemv dequant-matmul kernel")
+    if jit:
+        _captured_path(counts, ["serve_step"], label)
+    else:
+        check(not any(k.startswith("serve_step.") for k in counts),
+              f"{label}: the eager backend went through the captured step")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
-        "layers": cfg.num_layers, "wall_s": wall, "decode_tok_s": st["decode_tok_s"],
+        "layers": cfg.num_layers, "jit": jit, "paged": paged, "wall_s": wall,
+        "decode_tok_s": st["decode_tok_s"], "decode_steps": len(probe.step_s),
+        "median_step_ms": statistics.median(probe.step_s) * 1e3,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "kernel_dispatch": counts, "dequant_matmul_kernels": dq_kernels,
     }
-    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers: wall {wall:.2f} s, "
-          f"{st['decode_tok_s']:.1f} decode tok/s; {json.dumps(summary)}", flush=True)
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {'captured' if jit else 'eager'} "
+          f"step, {'paged' if paged else 'dense'} KV: wall {wall:.2f} s, "
+          f"{st['decode_tok_s']:.1f} decode tok/s, median step "
+          f"{summary['median_step_ms']:.2f} ms; {json.dumps(summary)}", flush=True)
     summary["outputs"] = outputs
     return summary
 
 
-def _decode_window(model, params, steps: int = 3) -> dict:
-    """Where a decode step's time goes: DenseBackend(paged=True) with 4
-    slots holding 48-token prompts, `steps` steps under torch.profiler;
-    the kernels' device time (the summed time of every kernel event) over
-    the steps' wall time gives the device's busy share; the top kernels by
-    device time beside it, and the decode dequant-matmul kernel's own
-    (1.39 ms per step on the gemv kernel before it, PERF.md).  Reports "not
-    measured" when the profiler records no device time."""
+def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
+    """Where a decode step's time goes: DenseBackend(paged=True, jit=jit)
+    with 4 slots holding 48-token prompts, `steps` steps under
+    torch.profiler (two steps before them warm up and capture); the kernels'
+    device time (the summed time of every kernel event) over the steps'
+    wall time gives the device's busy share; the kernel launches per step,
+    the top kernels by device time beside it, and the decode dequant-matmul
+    kernel's own (1.39 ms per step on the gemv kernel before it, PERF.md).
+    Reports "not measured" when the profiler records no device time.  The
+    steps' logits come back under "logits" (popped by the caller)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import DenseBackend
 
-    be = DenseBackend(model, params, paged=True)
+    be = DenseBackend(model, params, jit=jit, paged=True)
     be.start_batch(4, 48 + steps + 8)
     rng = np.random.default_rng(SEED + 7)
     be.prefill(rng.integers(0, model.cfg.vocab_size, (4, 48)))
-    tokens = rng.integers(0, model.cfg.vocab_size, (steps, 4))
-    be.step(tokens[0])                                  # warm
+    tokens = rng.integers(0, model.cfg.vocab_size, (steps + 2, 4))
+    logits = [be.step(tokens[t]) for t in range(2)]     # warm (and capture)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(steps):
-            be.step(tokens[t])
+        for t in range(2, steps + 2):
+            logits.append(be.step(tokens[t]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel events only: the CPU-side ops and runtime calls that launched
@@ -2301,14 +2382,93 @@ def _decode_window(model, params, steps: int = 3) -> dict:
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     if busy_us <= 0:
-        return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured"}
+        return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured",
+                "logits": np.stack(logits)}
     mmv = [e for e in events if "dequant_mmv_kernel" in e.key]
     return {"step_ms": wall / steps * 1e3, "device_ms_per_step": busy_us / steps / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall,
+            "device_busy_share": busy_us / 1e6 / wall, "logits": np.stack(logits),
+            "kernels_per_step": sum(e.count for e in events) / steps,
             "mmv_ms_per_step": sum(e.self_device_time_total for e in mmv) / steps / 1e3,
             "mmv_launches_per_step": sum(e.count for e in mmv) / steps,
             "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
                                         for e in top}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the captured decode step against the eager one
+# ---------------------------------------------------------------------------
+def _kernel_counts(counts) -> dict:
+    """Per-op kernel launches, without the captured steps' own counters."""
+    return {k: v for k, v in counts.items() if not k.startswith("serve_step.")}
+
+
+def phase_serve_dense_jit(dev, model, params, captured: dict) -> dict:
+    """The quantized Granite's serve of phase 8 (`captured`: its run, the
+    decode step a replayed CUDA graph) against the same serve with
+    DenseBackend(jit=False): identical greedy outputs and equal per-op
+    launch counts (a replay adds the launches its capture recorded); one
+    more captured serve on the dense KV layout (its tokens' agreement with
+    the paged run printed: attention takes another kernel there); the
+    profiler window both ways, whose steps' logits must be equal (the same
+    kernels on the same inputs: expect 0, held at DENSE_PARITY_ATOL); and
+    ``decode.generate`` captured against eager, tokens equal.  Prints both
+    runs' decode tok/s and median step wall (no profiler), with the card."""
+    from repro_torch.serving import decode
+
+    eager = phase_serve_dense(dev, model, params, "serve-dense-q4-eager", DENSE_Q_OPS,
+                              jit=False)
+    for rid, out in captured["outputs"].items():
+        check(np.array_equal(out, eager["outputs"][rid]),
+              f"serve-dense-jit: request {rid}: captured {out.tolist()} != eager "
+              f"{eager['outputs'][rid].tolist()}")
+    kc, ke = _kernel_counts(captured["kernel_dispatch"]), _kernel_counts(eager["kernel_dispatch"])
+    check(kc == ke, f"serve-dense-jit: launches captured {kc} != eager {ke}")
+    check(captured["dequant_matmul_kernels"] == eager["dequant_matmul_kernels"],
+          f"serve-dense-jit: dequant kernels {captured['dequant_matmul_kernels']} != "
+          f"{eager['dequant_matmul_kernels']}")
+    dense_kv = phase_serve_dense(dev, model, params, "serve-dense-q4-dense-kv",
+                                 ("dequant_matmul",), paged=False)
+    same_kv = float(np.mean([np.mean(dense_kv["outputs"][r] == captured["outputs"][r])
+                             for r in captured["outputs"]]))
+
+    windows, logits = {}, {}
+    for jit in (True, False):
+        windows[jit] = _decode_window(model, params, jit=jit)
+        logits[jit] = windows[jit].pop("logits")
+    step_diff = float(np.abs(logits[True] - logits[False]).max())
+    check(step_diff <= DENSE_PARITY_ATOL,
+          f"serve-dense-jit: captured vs eager step logits differ by {step_diff}")
+
+    rng = np.random.default_rng(SEED + 8)
+    prompts = rng.integers(0, model.cfg.vocab_size, (4, 32))
+    gen = {jit: decode.generate(model, params, prompts, 8, jit=jit) for jit in (True, False)}
+    check(np.array_equal(gen[True].tokens, gen[False].tokens),
+          f"decode.generate: captured {gen[True].tokens[:, 32:].tolist()} != eager "
+          f"{gen[False].tokens[:, 32:].tolist()}")
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {
+        "card": card, "outputs_equal": True, "launches_equal": True,
+        "step_logits_max_abs_diff": step_diff, "dense_kv_tokens_equal_paged": same_kv,
+        "captured": {k: captured[k] for k in ("decode_tok_s", "median_step_ms", "wall_s")},
+        "eager": {k: eager[k] for k in ("decode_tok_s", "median_step_ms", "wall_s")},
+        "dense_kv_captured": {k: dense_kv[k] for k in ("decode_tok_s", "median_step_ms",
+                                                       "wall_s")},
+        "window_captured": windows[True], "window_eager": windows[False],
+        "generate": {"tokens_equal": True,
+                     "captured_decode_tok_s": gen[True].decode_tok_s,
+                     "eager_decode_tok_s": gen[False].decode_tok_s},
+    }
+    print(f"[serve-dense-jit] {card}: greedy outputs identical and per-op launches equal "
+          f"(captured vs eager); step logits max |diff| {step_diff}; decode tok/s captured "
+          f"{captured['decode_tok_s']:.1f} / eager {eager['decode_tok_s']:.1f}, median step "
+          f"{captured['median_step_ms']:.2f} / {eager['median_step_ms']:.2f} ms; dense KV "
+          f"captured {dense_kv['decode_tok_s']:.1f} tok/s, tokens equal to the paged run's "
+          f"in {same_kv:.3f} of positions; decode.generate captured = eager; "
+          f"{json.dumps(out)}", flush=True)
+    return out
 
 
 def _tree_to(tree, device):
@@ -2447,15 +2607,12 @@ def main() -> None:
           f"(group 128) on the card in {time.perf_counter() - t0:.1f} s", flush=True)
     with phase("serve-dense-q4"):
         dense_q = phase_serve_dense(dev, gmodel, qparams, "serve-dense-q4", DENSE_Q_OPS)
-    with phase("decode-window"):
-        window = _decode_window(gmodel, qparams)
-    print(f"[serve-dense-q4] decode window (4 slots, 3 steps under torch.profiler, apart "
-          f"from the run above): {json.dumps(window)}", flush=True)
-    dense_q["decode_window"] = window
     agree = float(np.mean([np.mean(dense["outputs"][r] == dense_q["outputs"][r])
                            for r in dense["outputs"]]))
     print(f"[serve-dense-q4] greedy tokens equal to the bf16 run's in {agree:.3f} of "
           "positions (4-bit FFN weights change the function)", flush=True)
+    with phase("serve-dense-jit"):
+        phase_serve_dense_jit(dev, gmodel, qparams, dense_q)
     del gmodel, gparams, qparams
     gc.collect()
     torch.cuda.empty_cache()

@@ -4,17 +4,24 @@ from repro_torch.core.loader import (DynamicExpertLoader, LoadTask, StagingEngin
                                      measure_link_bps)
 from repro_torch.core.policies import (FLD, LFU, LHU, LRU, MULTIDIM, NAMED_POLICIES,
                                        PolicyWeights)
-from repro_torch.core.predictor import AdaptiveExpertPredictor
+from repro_torch.core.predictor import AdaptiveExpertPredictor, gating_input_similarity
 from repro_torch.core.scoring import (PREC_HI, PREC_LO, PREC_SKIP, Thresholds,
-                                      precision_decisions)
-from repro_torch.core.simulator import (HARDWARE, HobbitSimConfig, TraceLayer,
-                                        simulate_systems)
+                                      calibrate_thresholds, gate_output_correlation,
+                                      precision_decisions, unimportance_scores)
+from repro_torch.core.simulator import (HARDWARE, JETSON_ORIN, RTX4090, TPU_V5E_HOST,
+                                        HobbitSimConfig, OffloadSimulator, TraceLayer,
+                                        cache_policy_penalty, simulate_systems)
 
+# the reference's names, less AsyncExpertScheduler (removed by design: use
+# StagingEngine(streams=1, ordered=True))
 __all__ = [
     "CacheStarvation", "CacheStats", "MultidimensionalCache", "EngineConfig",
-    "OffloadEngine", "DynamicExpertLoader", "LoadTask",
-    "StagingEngine", "measure_link_bps", "FLD", "LFU", "LHU", "LRU", "MULTIDIM",
-    "NAMED_POLICIES", "PolicyWeights", "AdaptiveExpertPredictor", "PREC_HI",
-    "PREC_LO", "PREC_SKIP", "Thresholds", "precision_decisions", "HARDWARE",
-    "HobbitSimConfig", "TraceLayer", "simulate_systems",
+    "OffloadEngine", "StagingEngine", "DynamicExpertLoader", "LoadTask",
+    "measure_link_bps", "FLD", "LFU", "LHU", "LRU", "MULTIDIM",
+    "NAMED_POLICIES", "PolicyWeights", "AdaptiveExpertPredictor",
+    "gating_input_similarity", "PREC_HI", "PREC_LO", "PREC_SKIP", "Thresholds",
+    "calibrate_thresholds", "gate_output_correlation", "precision_decisions",
+    "unimportance_scores", "HARDWARE", "HobbitSimConfig", "JETSON_ORIN",
+    "OffloadSimulator", "RTX4090", "TPU_V5E_HOST", "TraceLayer",
+    "cache_policy_penalty", "simulate_systems",
 ]

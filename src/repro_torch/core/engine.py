@@ -41,7 +41,8 @@ What changes on a card:
   per-expert path; neither materialises a float32 weight on the card.
 * The host blocks on the card where the reference does.  Per MoE layer it
   reads back the normed hidden state, and on the grouped path the gating
-  result (the scheduler runs on the host).  With prefetch on, each
+  result with it, in one synchronisation after the layer's captured
+  segment (the scheduler runs on the host).  With prefetch on, each
   predictor call reads back its stacked-gating probabilities: one or two
   calls per active row on every MoE layer but the last (the adaptive walk,
   then a one-layer prediction when the walk did not reach the next layer).
@@ -53,11 +54,24 @@ What changes on a card:
 * Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
   backend: a page pool with a radix prefix trie and copy-on-write, chunked
   prefill, and decode attention through the paged flash-decode kernel.
+* The grouped path's fixed-shape work is captured (``capture.CapturedStep``,
+  the counterpart of the reference's ``_jit``, always on as there): the
+  step's embedding, each MoE layer's segment — attention on either KV
+  layout, the FFN norm, the float32 copy of the normed hidden state the
+  host reads and the gating kernel — and the step's logits.  On the card
+  each is a CUDA graph per batch shape, replayed every step
+  ("engine_embed", "engine_layer<i>", "engine_logits" counters); on the CPU
+  each runs eagerly.  The segments read positions, the page table and the
+  active mask from step-state buffers that ``_step_prologue`` fills once
+  per step.  The grouped FFN and the hi pairs between the segments stay
+  eager: their pair counts vary from layer to layer and step to step.  So
+  do the per-expert path, host compute mode and every prefill.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 import time
@@ -66,6 +80,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.capture import CapturedStep, addresses
 from repro_torch.core.cache import MultidimensionalCache
 from repro_torch.core.fleet_heat import FleetHeat
 from repro_torch.core.loader import (ON_DEMAND, DynamicExpertLoader, LoadTask,
@@ -223,6 +238,14 @@ class OffloadEngine:
         self._admission: Optional[ChunkedPrefill] = None
         self._pending_joins: Dict[int, np.ndarray] = {}
         self._unclaimed_joins: Dict[int, np.ndarray] = {}
+        # the grouped path's captured steps and the step state they share
+        # (positions, page table, active mask; start_batch allocates it)
+        self._step_state: Optional[Tuple] = None
+        self._embed_step = CapturedStep(self._embed, "engine_embed")
+        self._layer_steps = [CapturedStep(functools.partial(self._layer_segment, mi),
+                                          f"engine_layer{mi}")
+                             for mi in range(self.num_moe_layers)]
+        self._logits_step = CapturedStep(self._logits, "engine_logits")
 
     # ------------------------------------------------------------------
     # host storage and device pools
@@ -359,8 +382,16 @@ class OffloadEngine:
                 prefix_sharing=self.ecfg.prefix_sharing)
             self._admission = ChunkedPrefill(self.model, self.params, self.kv_pool,
                                              chunk=self.ecfg.prefill_chunk)
+            table = torch.zeros(self.kv_pool.table.shape, dtype=torch.int32,
+                                device=self.device)
+            active = torch.ones((batch,), dtype=torch.bool, device=self.device)
         else:
             self.kv_cache = self.model.init_cache(batch, max_len, self.device)
+            table = active = None
+        self._step_state = (torch.zeros((batch,), dtype=torch.int64, device=self.device),
+                            table, active)
+        for captured in (self._embed_step, *self._layer_steps, self._logits_step):
+            captured.reset()            # the graphs bake in the buffers replaced here
         self.positions = np.zeros((batch,), np.int64)
         self.active = np.ones((batch,), bool)
         self.trace = []
@@ -389,7 +420,9 @@ class OffloadEngine:
             return logits
         logits, cache, positions = self.model.prefill(
             self.params, to_device(prompts, self.device), self.max_len)
-        self.kv_cache = cache
+        for dst, src in zip(self.kv_cache, cache):  # in place: the segments read it
+            dst["k"].copy_(src["k"])
+            dst["v"].copy_(src["v"])
         self.positions = positions
         self.active[:] = True
         return to_host(logits)[0]
@@ -526,14 +559,44 @@ class OffloadEngine:
         return tokens
 
     def _step_prologue(self, rows) -> Tuple:
-        """Per-step attention state: positions on the device and, under paged
-        KV, each active slot's page chain grown for this step's token (COW
-        off shared pages first), the table exported once and the active mask."""
-        positions = to_device(self.positions, self.device)
-        if not self.ecfg.paged_kv:
-            return positions, None, None
-        table = self.kv_pool.prepare_decode(rows, self.positions)
-        return positions, table, to_device(self.active, self.device)
+        """Per-step attention state, written into the step-state buffers
+        that every layer reads (the captured segments' shared static
+        inputs): positions and, under paged KV, each active slot's page
+        chain grown for this step's token (COW off shared pages first), the
+        table exported once and the active mask."""
+        positions, table, active = self._step_state
+        positions.copy_(to_device(self.positions, self.device))
+        if self.ecfg.paged_kv:
+            table.copy_(self.kv_pool.prepare_decode(rows, self.positions))
+            active.copy_(to_device(self.active, self.device))
+        return self._step_state
+
+    def _segment_key(self, li: int) -> tuple:
+        """The buffers layer li's captured segment reads or writes in place:
+        the step state and the layer's KV."""
+        if self.ecfg.paged_kv:
+            kv = (self.kv_pool.k[li], self.kv_pool.v[li])
+        else:
+            kv = (self.kv_cache[li]["k"], self.kv_cache[li]["v"])
+        return addresses(t for t in (*self._step_state, *kv) if t is not None)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.model.embed(self.params, tokens)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model.logits(self.params, x)[:, 0]
+
+    def _layer_segment(self, mi: int, x: torch.Tensor):
+        """MoE layer mi's fixed-shape segment: attention, the FFN norm and
+        the gating kernel.  Returns the residual stream, the normed hidden
+        state hs (B, D), its float32 copy (what the host reads) and the
+        router's top-k probabilities and experts (B, k)."""
+        li = self.moe_layers[mi]
+        x = self._attn_layer(li, x, self._step_state)
+        hs = L.apply_norm(self.layer_params[li]["ffn_norm"], x, self.cfg)[:, 0]
+        _, vals, idx = kops.gating_topk(hs, self.routers_dev[mi:mi + 1],
+                                        top_k=self.cfg.moe.top_k)
+        return x, hs, hs.to(torch.float32), vals[0], idx[0]
 
     def _attn_layer(self, li: int, x: torch.Tensor, step: Tuple) -> torch.Tensor:
         """Layer li's attention against whichever KV layout is active (its
@@ -653,29 +716,24 @@ class OffloadEngine:
         return y
 
     def _decode_step_batch_grouped(self, tokens) -> np.ndarray:
-        cfg, ecfg, mc = self.cfg, self.ecfg, self.cfg.moe
+        ecfg, mc = self.ecfg, self.cfg.moe
         tokens = self._step_tokens(tokens)
         b, k = self.batch, mc.top_k
         rows = [r for r in range(b) if self.active[r]]
         self.cache.advance_token()
-        x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
-        step = self._step_prologue(rows)
+        x = self._embed_step(to_device(tokens[:, None], self.device))
+        self._step_prologue(rows)
 
         row_trace = {r: [] for r in rows}
         for mi, li in enumerate(self.moe_layers):
             t_layer0 = time.perf_counter()
             self.scheduler.set_deadline_clock(mi, self._layer_s_ema,
                                               self._layer_period_ema)
-            p = self.layer_params[li]
-            x = self._attn_layer(li, x, step)
-            hs = L.apply_norm(p["ffn_norm"], x, cfg)[:, 0]          # (B, D)
-
-            # ---- gating: host sync 1 (hidden state), 2 (router result) ----
-            (h_host,) = to_host(hs.to(torch.float32))
+            # ---- the captured segment (attention, norm, gating), then one
+            # host sync for the hidden state and the router result ----
             tg0 = time.perf_counter()
-            _, vals_g, idx_g = kops.gating_topk(hs, self.routers_dev[mi:mi + 1],
-                                                top_k=k)
-            vals_np, idx_np = to_host(vals_g[0], idx_g[0])
+            x, hs, hs32, vals_g, idx_g = self._layer_steps[mi](x, key=self._segment_key(li))
+            h_host, vals_np, idx_np = to_host(hs32, vals_g, idx_g)
             self._gating_s += time.perf_counter() - tg0
             tops: Dict[int, np.ndarray] = {}
             gates: Dict[int, np.ndarray] = {}
@@ -768,15 +826,14 @@ class OffloadEngine:
                 dt_full if self._layer_period_ema == 0.0
                 else 0.8 * self._layer_period_ema + 0.2 * dt_full)
 
-        return self._step_epilogue(x, rows, row_trace)
+        return self._step_epilogue(self._logits_step(x), rows, row_trace)
 
-    def _step_epilogue(self, x: torch.Tensor, rows, row_trace) -> np.ndarray:
+    def _step_epilogue(self, lg: torch.Tensor, rows, row_trace) -> np.ndarray:
         """Advance the active slots, keep their trace rows and read the
         step's logits (B, V) back."""
         self.positions = self.positions + self.active.astype(np.int64)
         for r in rows:
             self.trace.append(row_trace[r])
-        lg = self.model.logits(self.params, x)[:, 0]
         return to_host(lg)[0]
 
     # ---- per-expert reference path (the parity baseline) ----
@@ -790,7 +847,7 @@ class OffloadEngine:
         tokens = self._step_tokens(tokens)
         rows = [r for r in range(self.batch) if self.active[r]]
         self.cache.advance_token()
-        x = self.model.embed(self.params, to_device(tokens[:, None], self.device))
+        x = self._embed(to_device(tokens[:, None], self.device))
         step = self._step_prologue(rows)
 
         row_trace = {r: [] for r in rows}
@@ -863,7 +920,7 @@ class OffloadEngine:
                 row_trace[r].append(self._trace_entry(mi, r, tops, gates, pred_entry))
             x = x + y[:, None, :].to(x.dtype)
 
-        return self._step_epilogue(x, rows, row_trace)
+        return self._step_epilogue(self._logits(x), rows, row_trace)
 
     def _hi_expert(self, slot: int, h: torch.Tensor) -> torch.Tensor:
         """One hi expert on its pool slot: two products in the model dtype
@@ -971,6 +1028,8 @@ class OffloadEngine:
             "loaded_bytes": self.loader.loaded_bytes,
             "pred_accuracy": {int(d): float(a)
                               for d, a in self.predictor.accuracy().items()},
+            # host wall from each grouped layer segment's launch (attention,
+            # norm, router) to its hidden state and routes on the host
             "gating_s": self._gating_s,
             # (row, expert) pairs each grouped lo launch pair carried, and
             # the distinct pool slots among them (each read once per launch

@@ -121,3 +121,23 @@ class AdaptiveExpertPredictor:
 
     def accuracy(self) -> dict[int, float]:
         return {d: c / t for d, (c, t) in sorted(self._acc.items()) if t}
+
+
+def gating_input_similarity(hiddens: np.ndarray, max_dist: int = 3) -> dict[int, float]:
+    """Mean cosine similarity of gating inputs between layer l and l+d
+    (Fig. 7a reproduction).  hiddens: (L, D) per-layer gating inputs for one
+    token (or (L, T, D) averaged over tokens)."""
+    h = np.asarray(hiddens, np.float64)
+    if h.ndim == 2:
+        h = h[:, None, :]
+    l = h.shape[0]
+    out = {}
+    for d in range(1, max_dist + 1):
+        sims = []
+        for i in range(l - d):
+            a, b = h[i], h[i + d]
+            num = (a * b).sum(-1)
+            den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12
+            sims.append(num / den)
+        out[d] = float(np.mean(sims))
+    return out

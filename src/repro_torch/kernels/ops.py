@@ -16,7 +16,10 @@ Every call records which implementation ran in a per-op counter keyed
 surfaces it as ``stats()["kernel_dispatch"]`` so a run can show that the
 serving path really went through the kernels.  A wrapper counts a launch
 exactly where it launches, and the CPU path counts one call of the plain
-version.  Wrappers allocate their outputs with ``torch.empty`` on the
+version.  ``capture.CapturedStep`` records its routes in the same counters
+(``"<step>.graph"``, ``".eager"``, ``".capture"``) and, since a graph
+replay calls no wrapper, adds the captured step's launches to them on every
+replay.  Wrappers allocate their outputs with ``torch.empty`` on the
 current stream and never synchronise.
 """
 
@@ -50,6 +53,12 @@ DEQUANT_BLOCKS_PER_SM = 6
 def _record(op: str, impl: str) -> None:
     key = f"{op}.{impl}"
     _DISPATCH_COUNTS[key] = _DISPATCH_COUNTS.get(key, 0) + 1
+
+
+def _counters() -> Tuple[Dict[str, int], Dict[str, int], Dict[str, int]]:
+    """The three live launch counters (per op, per dequant-matmul kernel, per
+    grouped kernel), which ``capture.CapturedStep`` advances on a replay."""
+    return _DISPATCH_COUNTS, _DEQUANT_MM_LAUNCHES, _GROUPED_LAUNCHES
 
 
 def dispatch_counts() -> Dict[str, int]:

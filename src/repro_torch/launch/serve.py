@@ -77,8 +77,9 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4,
                     help="scheduler slots for --serve-requests")
     ap.add_argument("--jit", action=argparse.BooleanOptionalAction, default=True,
-                    help="accepted for flag parity with the JAX launcher; "
-                         "PyTorch runs eagerly")
+                    help="--backend dense: capture the decode step as a CUDA "
+                         "graph on the card (--no-jit: the eager path); the "
+                         "offload engine always captures its layer segments")
     ap.add_argument("--paged-kv", action="store_true",
                     help="paged KV cache: slots draw pages from a shared pool "
                          "instead of each allocating max_len up front")
@@ -143,7 +144,7 @@ def main(argv=None):
         ordered=args.ordered, upgrade=args.upgrade, link_gbps=args.link_gbps,
         async_prefetch=args.async_prefetch)
     backend = make_backend(BackendConfig(
-        kind=kind, paged=args.paged_kv, page_size=args.page_size,
+        kind=kind, jit=args.jit, paged=args.paged_kv, page_size=args.page_size,
         kv_pages=args.kv_pages, prefill_chunk=args.prefill_chunk,
         prefix_sharing=args.prefix_sharing,
         engine=ecfg if kind == "hobbit" else None), model, params)

@@ -1,3 +1,3 @@
-from repro_torch.models.model import Model, build_model, unstack_layers
+from repro_torch.models.model import Batch, Model, build_model, unstack_layers
 
-__all__ = ["Model", "build_model", "unstack_layers"]
+__all__ = ["Batch", "Model", "build_model", "unstack_layers"]

@@ -63,7 +63,9 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     ex = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), ex)
+    # torch.full, not torch.tensor: a host scalar copied to the card would
+    # synchronise, which a CUDA-graph capture of the decode step refuses
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), ex)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -92,7 +94,7 @@ def mha(q, k, v, mask, softcap: float, scale: float) -> torch.Tensor:
     if softcap and softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device))
+                         torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.to(torch.float32))
     return out.reshape(b, sq, hq, hd).to(q.dtype)

@@ -74,7 +74,7 @@ def dispatch_indices(top_idx, mc: MoEConfig, capacity: int, token_mask=None):
     flat = top_idx.reshape(t * k).to(torch.long)
     onehot = F.one_hot(flat, e)                                  # (T*k, E)
     if token_mask is not None:
-        live = torch.repeat_interleave(token_mask.to(torch.long), k)
+        live = token_mask.to(torch.long)[:, None].expand(t, k).reshape(-1)
         onehot = onehot * live[:, None]
     pos = torch.cumsum(onehot, dim=0) - 1                        # arrival index
     pos = torch.sum(pos * onehot, dim=-1)                        # (T*k,)
@@ -102,7 +102,9 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, token_mask=None):
     cap = _capacity(t, mc)
     slot, keep = dispatch_indices(r.top_idx, mc, cap, token_mask)
     # inverse slot map: slot -> token row (t = the zero pad row)
-    tok_idx = torch.arange(t, device=x.device).repeat_interleave(mc.top_k)
+    # each token's row repeated top_k times (expand, not repeat_interleave:
+    # nothing here may synchronise inside a captured decode step)
+    tok_idx = torch.arange(t, device=x.device)[:, None].expand(t, mc.top_k).reshape(-1)
     gather_rows = torch.full((e * cap + 1,), t, dtype=torch.long, device=x.device)
     gather_rows[slot.reshape(-1)] = tok_idx
     xpad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype, device=x.device)])

@@ -22,17 +22,26 @@ KV memory comes in two layouts, chosen per backend at construction: dense
 prompts prefilled in prefill_chunk-token chunks).  Logits cross to the host
 as float32 numpy arrays, as in the JAX package.  ``generate`` and
 ``score_nll`` drive any backend through this protocol.
+
+``DenseBackend(jit=True)`` (the default, as the reference jits its steps)
+runs its decode step on either KV layout as a captured step
+(``capture.CapturedStep``): a CUDA graph per batch shape on the card, eager
+on the CPU.  Prefill, joins and chunked prefill stay eager.  The offload
+engine captures the fixed-shape part of each MoE layer itself, whatever
+``BackendConfig.jit`` says (``core/engine.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from repro_torch.capture import CapturedStep, addresses
 from repro_torch.device import to_device, to_host
 from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
 from repro_torch.models.model import Model, supports_paged_kv
@@ -88,19 +97,26 @@ class DenseBackend:
     """All weights resident on the parameters' device; prefill + decode
     through the dense model (capacity-dispatched MoE).
 
+    ``jit=True`` runs the decode step as a captured step ("serve_step": a
+    CUDA graph replayed per step on the card, keyed by the batch shape and
+    the KV buffers it writes; ``start_batch`` drops the graphs with the
+    buffers); ``jit=False`` runs it eagerly.
+
     ``paged=True`` swaps the per-slot (B, max_len) cache for a shared
     `PagedKVPool` (page_size-token pages, a pool of `kv_pages` pages —
     default the dense equivalent) and prefills prompts in
     `prefill_chunk`-token chunks."""
 
-    def __init__(self, model: Model, params, *, paged: bool = False, page_size: int = 64,
-                 kv_pages: Optional[int] = None, prefill_chunk: int = 64,
-                 prefix_sharing: bool = True):
+    def __init__(self, model: Model, params, *, jit: bool = True, paged: bool = False,
+                 page_size: int = 64, kv_pages: Optional[int] = None,
+                 prefill_chunk: int = 64, prefix_sharing: bool = True):
         if paged and not supports_paged_kv(model.cfg):
             raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout")
         self.model = model
         self.params = params
         self.device = params["embed"].device
+        self._jit = jit
+        self._step = CapturedStep(self._decode, "serve_step") if jit else None
         self.paged = paged
         self.page_size = page_size
         self.kv_pages = kv_pages
@@ -122,6 +138,8 @@ class DenseBackend:
         self.active = np.ones((batch,), bool)
         self._pending_joins = {}
         self._unclaimed_joins = {}
+        if self._step is not None:
+            self._step.reset()          # the graphs bake in the buffers replaced here
         if not self.paged:
             self.cache = self.model.init_cache(batch, max_len, self.device)
             return
@@ -139,8 +157,11 @@ class DenseBackend:
             self.positions = np.full(prompts.shape[:1], prompts.shape[1], np.int64)
             self.active[:] = True
             return logits
-        logits, self.cache, self.positions = self.model.prefill(
+        logits, cache, self.positions = self.model.prefill(
             self.params, to_device(prompts, self.device), self.max_len)
+        for dst, src in zip(self.cache, cache):     # in place: the step's graph reads it
+            dst["k"].copy_(src["k"])
+            dst["v"].copy_(src["v"])
         self.active[:] = True
         return to_host(logits)[0]
 
@@ -217,18 +238,29 @@ class DenseBackend:
         if self.paged and self.kv is not None:
             self.kv.release(slot)
 
+    def _decode(self, tokens, positions, active, table=None) -> torch.Tensor:
+        """The decode step on the current KV layout (its buffers written in
+        place): tokens (B, 1), positions (B,), active (B,), paged: the page
+        table (B, maxp) -> logits (B, V)."""
+        if self.paged:
+            return self.model.decode_step_paged(self.params, self.kv.k, self.kv.v, table,
+                                                tokens, positions, active)
+        return self.model.decode_step(self.params, self.cache, tokens, positions, active)
+
     def step(self, tokens) -> np.ndarray:
         tokens = np.asarray(tokens, np.int64).reshape(-1, 1)
-        tok_dev = to_device(tokens, self.device)
-        pos_dev = to_device(self.positions, self.device)
-        active_dev = to_device(self.active, self.device)
+        args = [to_device(tokens, self.device), to_device(self.positions, self.device),
+                to_device(self.active, self.device)]
         if self.paged:
-            table = self.kv.prepare_decode(np.flatnonzero(self.active), self.positions)
-            logits = self.model.decode_step_paged(self.params, self.kv.k, self.kv.v, table,
-                                                  tok_dev, pos_dev, active_dev)
+            # page growth and copy-on-write run here, before the step
+            args.append(self.kv.prepare_decode(np.flatnonzero(self.active), self.positions))
+            buffers = (*self.kv.k, *self.kv.v)
         else:
-            logits = self.model.decode_step(self.params, self.cache, tok_dev, pos_dev,
-                                            active_dev)
+            buffers = [c[n] for c in self.cache for n in ("k", "v")]
+        if self._step is None:
+            logits = self._decode(*args)
+        else:
+            logits = self._step(*args, key=addresses(buffers))
         # only active slots advance; freed slots idle at their last position
         self.positions = self.positions + self.active.astype(np.int64)
         return to_host(logits)[0]
@@ -307,6 +339,9 @@ class BackendConfig:
     """Typed backend construction config (mirrored by `launch/serve.py`).
 
     kind            "dense" (resident weights) or "hobbit" (offload engine)
+    jit             capture the dense decode step as a CUDA graph on the
+                    card (the offload engine captures its layer segments
+                    whatever this says)
     paged           paged KV layout (shared page pool) on either backend
     page_size       tokens per KV page
     kv_pages        pool size in pages (None: the dense equivalent)
@@ -316,6 +351,7 @@ class BackendConfig:
                     `paged=True` overrides its paged-KV fields
     """
     kind: str = "dense"
+    jit: bool = True
     paged: bool = False
     page_size: int = 64
     kv_pages: Optional[int] = None
@@ -324,13 +360,36 @@ class BackendConfig:
     engine: Optional[object] = None
 
 
-def make_backend(config, model: Model, params):
+_UNSET = object()   # distinguishes "not passed" from any explicit value
+
+
+def make_backend(kind, model: Model, params, *, engine_config=_UNSET, jit=_UNSET,
+                 paged=_UNSET, page_size=_UNSET, kv_pages=_UNSET, prefill_chunk=_UNSET,
+                 prefix_sharing=_UNSET):
     """``make_backend(BackendConfig(...), model, params)``; a bare kind string
-    stands for the all-defaults config."""
-    cfg = config if isinstance(config, BackendConfig) else BackendConfig(kind=config)
+    stands for the all-defaults config.  The historical keyword arguments
+    are DEPRECATED: they are folded into a BackendConfig behind a
+    DeprecationWarning, and a config together with them raises TypeError."""
+    legacy = {name: val for name, val in [
+        ("engine", engine_config), ("jit", jit), ("paged", paged),
+        ("page_size", page_size), ("kv_pages", kv_pages),
+        ("prefill_chunk", prefill_chunk), ("prefix_sharing", prefix_sharing),
+    ] if val is not _UNSET}
+    if isinstance(kind, BackendConfig):
+        if legacy:
+            raise TypeError("make_backend(BackendConfig(...)) takes no keyword "
+                            f"arguments; fold {sorted(legacy)} into the config")
+        cfg = kind
+    else:
+        if legacy:
+            warnings.warn("make_backend(kind, ..., **kwargs) is deprecated; pass "
+                          "make_backend(BackendConfig(kind=..., ...), model, params)",
+                          DeprecationWarning, stacklevel=2)
+        cfg = BackendConfig(kind=kind, **legacy)
     if cfg.kind == "dense":
-        return DenseBackend(model, params, paged=cfg.paged, page_size=cfg.page_size,
-                            kv_pages=cfg.kv_pages, prefill_chunk=cfg.prefill_chunk,
+        return DenseBackend(model, params, jit=cfg.jit, paged=cfg.paged,
+                            page_size=cfg.page_size, kv_pages=cfg.kv_pages,
+                            prefill_chunk=cfg.prefill_chunk,
                             prefix_sharing=cfg.prefix_sharing)
     if cfg.kind == "hobbit":
         from repro_torch.core.engine import EngineConfig, OffloadEngine

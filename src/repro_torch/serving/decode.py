@@ -1,11 +1,49 @@
-"""Token sampling and the generation result record."""
+"""Serving substrate of the port: prefill and decode step builders, token
+sampling and the model-level generate loop.
+
+`make_serve_step` is one new token against a dense KV cache of length
+max_len.  ``generate(jit=True)`` runs it as a captured step
+(``capture.CapturedStep``): a CUDA graph replayed per token on the card,
+eager on the CPU.  The prefill stays eager on both: the loop calls it once
+per prompt shape, so a graph would only add the cost of its capture.
+Sampling runs on the host with a ``torch.Generator``.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.capture import CapturedStep, addresses
+from repro_torch.device import to_device, to_host
+from repro_torch.models.model import Batch, Model
+
+
+def make_serve_step(model: Model) -> Callable:
+    """serve_step(params, cache, tokens (B, 1), positions (B,)) ->
+    (logits (B, V), cache).  The cache is written in place; the one passed
+    in comes back (the reference donates and returns it)."""
+
+    def serve_step(params, cache, tokens, positions):
+        return model.decode_step(params, cache, tokens, positions), cache
+
+    return serve_step
+
+
+def make_prefill_step(model: Model, max_len: int) -> Callable:
+    """prefill_step(params, batch: Batch) -> (last-token logits (B, V), a
+    decode cache padded to max_len, next positions (B,) on the host)."""
+
+    def prefill_step(params, batch: Batch):
+        if batch.prefix_embeds is not None or batch.audio_frames is not None:
+            raise NotImplementedError("frontend inputs arrive with the model classes "
+                                      "that take them (ROADMAP Queue 1, item 7)")
+        return model.prefill(params, batch.tokens, max_len)
+
+    return prefill_step
 
 
 def sample_token(logits, gen: Optional[torch.Generator] = None,
@@ -33,3 +71,47 @@ class GenerateResult(NamedTuple):
     @property
     def decode_tok_s(self) -> float:
         return self.tokens.shape[0] * self.steps / max(self.decode_s, 1e-9)
+
+
+def generate(model: Model, params, prompts, new_tokens: int, *,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             seed: int = 0, extra: Optional[dict] = None,
+             jit: bool = True) -> GenerateResult:
+    """Greedy/temperature generation on the parameters' device.  prompts:
+    (B, S) host array.  With `jit` the decode step is a captured step (one
+    CUDA graph for the call on the card); without, every step runs
+    eagerly."""
+    prompts = np.asarray(prompts, np.int32)
+    s = prompts.shape[1]
+    dev = params["embed"].device
+    max_len = max_len or (s + new_tokens + 1)
+    batch = Batch(tokens=to_device(prompts, dev),
+                  loss_mask=torch.ones(prompts.shape, dtype=torch.float32, device=dev),
+                  **(extra or {}))
+    prefill = make_prefill_step(model, max_len)
+    serve_step = make_serve_step(model)
+
+    t0 = time.time()
+    logits, cache, positions = prefill(params, batch)
+    (lg,) = to_host(logits)
+    t1 = time.time()
+
+    def step(tokens, pos):
+        return serve_step(params, cache, tokens, pos)[0]
+
+    captured = CapturedStep(step, "serve_step") if jit else None
+    key = addresses(c[n] for c in cache for n in ("k", "v"))
+    gen = torch.Generator().manual_seed(seed)
+    out = [prompts]
+    tok = sample_token(lg, gen, temperature)
+    for i in range(new_tokens):
+        out.append(tok[:, None])
+        if i == new_tokens - 1:
+            break
+        args = (to_device(tok[:, None], dev), to_device(positions, dev))
+        lg = step(*args) if captured is None else captured(*args, key=key)
+        (lg,) = to_host(lg)
+        positions = positions + 1
+        tok = sample_token(lg, gen, temperature)
+    t2 = time.time()
+    return GenerateResult(np.concatenate(out, axis=1), t1 - t0, t2 - t1, new_tokens)

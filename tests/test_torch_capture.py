@@ -1,0 +1,347 @@
+"""The port's captured steps (the counterpart of the reference's ``jit``)
+against the JAX reference, on the CPU where a captured step runs eagerly.
+
+* ``serving.decode.generate`` against the reference's
+  ``repro.serving.decode.generate`` on the same weights (carried across
+  with ``weights.from_jax_params``): the mixtral-smoke float32 model of
+  tests/test_api.py and the Granite smoke model of tests/test_serving.py,
+  with ``jit`` True and False on both sides.  Greedy tokens equal.
+* ``make_serve_step`` logits against the reference's at atol 1e-3 (the
+  ROADMAP's dense-vs-offload tolerance; float32 sums in another order).
+* ``DenseBackend(jit=True)`` equal to ``jit=False`` exactly on both KV
+  layouts, its counters showing the eager route, and equal to the
+  reference's ``decode.generate``; the engine's captured segments run
+  eagerly on the CPU, one per MoE layer and step.
+* ``launch.serve --jit`` / ``--no-jit`` reach ``BackendConfig.jit``.
+* ``make_backend``'s deprecated keyword form (twins of
+  tests/test_scheduling.py's shim tests) and the reference's package names.
+
+The card's side (a replay equals the eager step, launch counts grow on
+every replay, ``start_batch`` drops the graphs) is in
+tests/test_torch_capture_card.py, which imports no JAX.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref_core
+import repro.models as ref_models
+from repro.configs import get_config as ref_get_config
+from repro.configs import smoke_variant as ref_smoke_variant
+from repro.core.predictor import gating_input_similarity as ref_similarity
+from repro.models import build_model as build_ref
+from repro.models.model import Batch as RefBatch
+from repro.serving import decode as ref_decode
+from repro_torch import capture
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+from repro_torch.core.predictor import gating_input_similarity
+from repro_torch.kernels import ops
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.serving import api, decode
+from repro_torch.weights import from_jax_params
+
+torch.set_num_threads(2)
+ATOL = 1e-3
+NEW = 6
+
+
+def _mixtral(get, smoke):
+    cfg = smoke(get("mixtral-8x7b"), layers=4, d_model=128, vocab=256)
+    # ample capacity so the dense MoE dispatch never drops tokens at batch > 1
+    return dataclasses.replace(cfg, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def _granite(get, smoke):
+    return dataclasses.replace(smoke(get("granite-3-2b"), layers=2, d_model=64, vocab=128),
+                               dtype="float32")
+
+
+_SETUPS = {"mixtral": _mixtral, "granite": _granite}
+
+
+_MODELS = {}
+
+
+def _load(name):
+    """(name, reference model, its params, port model, the same params)."""
+    if name not in _MODELS:
+        make = _SETUPS[name]
+        ref = build_ref(make(ref_get_config, ref_smoke_variant))
+        params = ref.init(jax.random.PRNGKey(0))
+        port = build_model(make(get_config, smoke_variant))
+        tparams = from_jax_params(port.cfg, jax.tree_util.tree_map(np.asarray, params),
+                                  device="cpu")
+        _MODELS[name] = name, ref, params, port, tparams
+    return _MODELS[name]
+
+
+@pytest.fixture(scope="module", params=sorted(_SETUPS))
+def models(request):
+    return _load(request.param)
+
+
+def _prompts(cfg, b=2, s=8, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+_REF_TOKENS = {}
+
+
+def _ref_tokens(models, jit):
+    name, ref, params, port, _ = models
+    if (name, jit) not in _REF_TOKENS:
+        res = ref_decode.generate(ref, params, jnp.asarray(_prompts(port.cfg)), NEW, jit=jit)
+        _REF_TOKENS[name, jit] = np.asarray(res.tokens)
+    return _REF_TOKENS[name, jit]
+
+
+# --------------------------------------------------------------------------
+# decode.generate and make_serve_step against the reference
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("ref_jit", [True, False], ids=["ref-jit", "ref-eager"])
+@pytest.mark.parametrize("jit", [True, False], ids=["jit", "eager"])
+def test_generate_matches_reference(models, jit, ref_jit):
+    _, _, _, port, tparams = models
+    ops.reset_dispatch_counts()
+    res = decode.generate(port, tparams, _prompts(port.cfg), NEW, jit=jit)
+    counts = ops.dispatch_counts()
+    np.testing.assert_array_equal(res.tokens, _ref_tokens(models, ref_jit))
+    assert res.tokens.shape == (2, 8 + NEW) and res.steps == NEW and res.decode_tok_s > 0
+    # NEW tokens take NEW - 1 decode steps; on the CPU the captured step is eager
+    assert counts.get("serve_step.eager", 0) == (NEW - 1 if jit else 0)
+    assert not any(k.startswith("serve_step.") and not k.endswith(".eager") for k in counts)
+
+
+def test_serve_step_logits_match_reference(models):
+    _, ref, params, port, tparams = models
+    rng = np.random.default_rng(2)
+    b, s, steps, max_len = 2, 10, 4, 20
+    prompts = rng.integers(0, port.cfg.vocab_size, (b, s)).astype(np.int32)
+    teacher = rng.integers(0, port.cfg.vocab_size, (steps, b)).astype(np.int32)
+    lg_r, cache_r, pos_r = ref_decode.make_prefill_step(ref, max_len)(
+        params, RefBatch(tokens=jnp.asarray(prompts), loss_mask=jnp.ones((b, s))))
+    batch = decode.Batch(tokens=torch.from_numpy(prompts), loss_mask=torch.ones((b, s)))
+    lg_t, cache_t, pos_t = decode.make_prefill_step(port, max_len)(tparams, batch)
+    np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_r), atol=ATOL)
+    np.testing.assert_array_equal(pos_t, np.asarray(pos_r))
+    step_r, step_t = ref_decode.make_serve_step(ref), decode.make_serve_step(port)
+    for t in range(steps):
+        lg_r, cache_r = step_r(params, cache_r, jnp.asarray(teacher[t][:, None]), pos_r)
+        lg_t, same = step_t(tparams, cache_t, torch.from_numpy(teacher[t][:, None]),
+                            torch.from_numpy(pos_t))
+        assert same is cache_t                  # written in place and handed back
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_r), atol=ATOL)
+        pos_r, pos_t = pos_r + 1, pos_t + 1
+
+
+def test_prefill_step_refuses_frontend_inputs(models):
+    _, _, _, port, tparams = models
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    batch = decode.Batch(tokens=tokens, loss_mask=torch.ones((1, 4)),
+                         prefix_embeds=torch.zeros((1, 2, port.cfg.d_model)))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        decode.make_prefill_step(port, 8)(tparams, batch)
+
+
+# --------------------------------------------------------------------------
+# DenseBackend(jit=)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("paged", [False, True], ids=["dense-kv", "paged-kv"])
+def test_dense_backend_jit_equals_eager_and_reference(models, paged):
+    """Greedy tokens and per-step logits of jit=True equal jit=False exactly
+    (the same eager code on the CPU), and the tokens equal the reference's
+    decode.generate; only the captured run counts serve_step.eager."""
+    _, _, _, port, tparams = models
+    runs = {}
+    for jit in (True, False):
+        be = api.DenseBackend(port, tparams, jit=jit, paged=paged, page_size=4,
+                              prefill_chunk=4)
+        assert be._jit is jit
+        ops.reset_dispatch_counts()
+        res = api.generate(be, _prompts(port.cfg), NEW)
+        runs[jit] = res.tokens, ops.dispatch_counts()
+        be.start_batch(2, 16)
+        lg = [be.prefill(_prompts(port.cfg, seed=5))]
+        lg += [be.step(np.asarray([t, t + 1])) for t in range(3)]
+        runs[jit] += (np.stack(lg),)
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    np.testing.assert_array_equal(runs[True][2], runs[False][2])
+    np.testing.assert_array_equal(runs[True][0], _ref_tokens(models, True))
+    assert runs[True][1]["serve_step.eager"] == NEW - 1
+    assert "serve_step.eager" not in runs[False][1]
+    kernels = {k: v for k, v in runs[True][1].items() if not k.startswith("serve_step.")}
+    assert kernels == runs[False][1]            # the same launches on either route
+
+
+def test_engine_segments_run_eagerly_on_cpu():
+    """The grouped path's embed, per-layer segment and logits go through
+    their captured steps: on the CPU each step counts one eager call per
+    MoE layer; nothing is captured or replayed."""
+    models = _load("mixtral")
+    _, _, _, port, tparams = models
+    n = port.cfg.num_layers * port.cfg.moe.num_experts
+    eng = OffloadEngine(port, tparams, EngineConfig(
+        hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0), prefetch=False))
+    try:
+        ops.reset_dispatch_counts()
+        res = api.generate(api.HobbitBackend(eng), _prompts(port.cfg), NEW)
+        counts = ops.dispatch_counts()
+    finally:
+        eng.close()
+    np.testing.assert_array_equal(res.tokens, _ref_tokens(models, True))
+    steps = NEW - 1
+    want = {"engine_embed.eager": steps, "engine_logits.eager": steps}
+    want.update({f"engine_layer{mi}.eager": steps for mi in range(port.cfg.num_layers)})
+    got = {k: v for k, v in counts.items() if k.startswith("engine_")}
+    assert got == want
+    assert counts["gating_topk.torch"] == steps * port.cfg.num_layers
+
+
+# --------------------------------------------------------------------------
+# CapturedStep routing on the CPU
+# --------------------------------------------------------------------------
+def test_captured_step_routes_by_device():
+    calls = []
+
+    def fn(a, b):
+        calls.append(1)
+        return a + b
+
+    step = capture.CapturedStep(fn, "probe")
+    ops.reset_dispatch_counts()
+    x = torch.ones(3)
+    assert torch.equal(step(x, x, key=(1, 2)), 2 * x)
+    assert ops.dispatch_counts() == {"probe.eager": 1} and step.graphs == 0
+    with pytest.raises(ValueError, match="probe"):
+        step(torch.empty(3, device="meta"), torch.empty(3, device="meta"))
+    assert len(calls) == 1 and ops.dispatch_counts() == {"probe.eager": 1}
+
+
+# --------------------------------------------------------------------------
+# the launcher's --jit flag
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("flag", ["--jit", "--no-jit"])
+def test_launcher_jit_flag_reaches_backend_config(monkeypatch, capsys, flag):
+    seen = []
+
+    def recording(config, model, params):
+        seen.append(config)
+        return api.make_backend(config, model, params)
+
+    monkeypatch.setattr(launch_serve, "make_backend", recording)
+    ops.reset_dispatch_counts()
+    launch_serve.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+                       "--backend", "dense", "--prompt-len", "4", "--new-tokens", "3", flag])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jit = flag == "--jit"
+    assert len(seen) == 1 and seen[0].jit is jit
+    assert report["kernel_dispatch"].get("serve_step.eager", 0) == (2 if jit else 0)
+
+
+# --------------------------------------------------------------------------
+# make_backend's deprecated keyword form (tests/test_scheduling.py twins)
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def mixtral_port():
+    port = build_model(_mixtral(get_config, smoke_variant))
+    return port, port.init(0, device="cpu")
+
+
+def test_make_backend_legacy_kwargs_deprecated_and_equivalent(mixtral_port):
+    m, params = mixtral_port
+    with pytest.warns(DeprecationWarning):
+        old = api.make_backend("dense", m, params, jit=False, paged=True, page_size=32,
+                               kv_pages=24, prefill_chunk=16, prefix_sharing=False)
+    new = api.make_backend(api.BackendConfig(
+        kind="dense", jit=False, paged=True, page_size=32, kv_pages=24,
+        prefill_chunk=16, prefix_sharing=False), m, params)
+    for attr in ("paged", "page_size", "kv_pages", "prefill_chunk",
+                 "prefix_sharing", "_jit"):
+        assert getattr(old, attr) == getattr(new, attr), attr
+    assert old._jit is False and old._step is None
+
+    ecfg = EngineConfig(hi_slots=4, lo_slots=2)
+    with pytest.warns(DeprecationWarning):
+        old_h = api.make_backend("hobbit", m, params, engine_config=ecfg)
+    new_h = api.make_backend(api.BackendConfig(kind="hobbit", engine=ecfg), m, params)
+    try:
+        assert old_h.engine.ecfg == new_h.engine.ecfg
+    finally:
+        old_h.close()
+        new_h.close()
+
+
+def test_make_backend_rejects_config_plus_kwargs(mixtral_port):
+    m, params = mixtral_port
+    with pytest.raises(TypeError):
+        api.make_backend(api.BackendConfig(), m, params, paged=True)
+    with pytest.raises(TypeError):
+        api.make_backend(api.BackendConfig(), m, params, jit=False)
+
+
+def test_make_backend_default_config_captures(mixtral_port):
+    m, params = mixtral_port
+    assert api.BackendConfig().jit is True
+    assert api.make_backend("dense", m, params)._jit is True
+
+
+# --------------------------------------------------------------------------
+# the reference's package names
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("pkg", ["core", "models"])
+def test_reference_package_names_import_from_the_port(pkg):
+    import importlib
+    ref = {"core": ref_core, "models": ref_models}[pkg]
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    # AsyncExpertScheduler was removed by design (StagingEngine(streams=1,
+    # ordered=True) takes its place)
+    want = set(ref.__all__) - {"AsyncExpertScheduler"}
+    assert want <= set(port.__all__)
+    for name in want:
+        assert getattr(port, name) is not None, name
+
+
+@pytest.mark.parametrize("shape", [(6, 32), (5, 3, 16)], ids=["tokenwise", "averaged"])
+@pytest.mark.parametrize("max_dist", [1, 3])
+def test_gating_input_similarity_matches_reference(shape, max_dist):
+    rng = np.random.default_rng(sum(shape) + max_dist)
+    base = rng.standard_normal(shape[1:])
+    # a slowly drifting residual stream, as the predictor assumes
+    h = np.stack([base + 0.3 * i * rng.standard_normal(shape[1:]) for i in range(shape[0])])
+    want = ref_similarity(h.astype(np.float32), max_dist)
+    got = gating_input_similarity(h.astype(np.float32), max_dist)
+    assert got == want and sorted(got) == list(range(1, max_dist + 1))
+
+
+# --------------------------------------------------------------------------
+# nothing a captured step runs reads back to the host
+# --------------------------------------------------------------------------
+_HOST_READS = {"item", "cpu", "tolist", "nonzero", "numpy", "synchronize"}
+
+
+@pytest.mark.parametrize("module", ["models/layers.py", "models/moe.py", "models/model.py",
+                                    "kernels/ops.py", "capture.py"])
+def test_captured_code_has_no_host_reads(module):
+    """The decode steps and segments run inside a CUDA-graph capture on the
+    card, where a host read (or a host scalar copied to the card with
+    torch.tensor) fails the capture: none in the modules they run."""
+    import ast
+    import pathlib
+    path = pathlib.Path(capture.__file__).parent / module
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            name = node.func.attr
+            assert name not in _HOST_READS, f"{module}:{node.lineno} calls .{name}()"
+            owner = node.func.value
+            assert not (name == "tensor" and isinstance(owner, ast.Name)
+                        and owner.id == "torch"), f"{module}:{node.lineno} torch.tensor()"
