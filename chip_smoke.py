@@ -20,8 +20,15 @@ and each printing its seconds:
                then bits 8/2, float32 x, pads, passes of more
                than 8 pairs, groups, ragged N and every cluster size, each
                bit-identical over two calls on the kernel its shape names;
-               an out-of-range pool slot (a pad's too) must abort both
-               grouped kernels, and an out-of-range page id the paged
+               the grouped bf16 GEMV of the hi experts (``grouped_matmul``,
+               no TPU kernel: the reference's jitted hi einsum) at
+               Mixtral's wi and wo shapes, P = 1, 2, 4, 8, two pairs on one
+               slot and 8 pairs with 6 pads, timed beside its bytes bound
+               and torch.matmul on one pool view, then float32, ragged N,
+               K off the span and more than 8 pairs on a slot, each
+               bit-identical over two calls; an out-of-range pool slot (a
+               pad's too) must abort both grouped dequant kernels and the
+               grouped GEMV, and an out-of-range page id the paged
                flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
   3c. dequant_matmul — the dense dequant-matmul kernels at Granite-3.0-2B's
@@ -46,15 +53,22 @@ and each printing its seconds:
                the engine's gating_s, the lo pairs and distinct slots per
                grouped launch, every grouped launch on the tensor-core
                kernel; every MoE layer's captured segment (attention, norm,
-               gating) and the step's embed and logits replayed as CUDA
-               graphs and never run eagerly, and one segment's replay on a
-               fixed input against the same segment called eagerly;
+               gating) and grouped FFN (fixed pair count B * top_k, one
+               graph for every layer: as many FFN calls as layer steps, two
+               grouped_matmul and one of each grouped dequant launch per
+               layer step) and the step's embed and logits replayed as CUDA
+               graphs and never run eagerly; one segment's replay and one
+               FFN replay on a fixed input against the same function called
+               eagerly (the FFN's max |diff| must be 0);
   5. parity  — the offload engine with every expert resident at full
                precision against the dense model, step by step;
   6. serve-paged — the same server and model on the paged KV layout
                (``EngineConfig(paged_kv=True)`` defaults): requests sharing
                a 48-token system prompt, so a partial page is aliased and
-               copied on write; every kernel's launch counted;
+               copied on write; every kernel's launch counted; the grouped
+               FFN checked as in phase 4, and the admission chunks
+               replayed as CUDA graphs (``prefill_chunk``) after their
+               capture, never eagerly;
   7. paged parity — the unconstrained engine on paged KV against the same
                engine on dense KV, step by step;
   7b. per-expert — the per-expert reference path (``grouped=False``)
@@ -77,8 +91,9 @@ and each printing its seconds:
                under BatchingServer, once with bf16 FFN weights and once
                with them quantized by ``quantize_tree`` (4 bits), every
                dense-FFN product then in the dequant-matmul kernel, the
-               decode step a replayed CUDA graph (``jit=True``, the
-               default); then 3 decode steps of the quantized model under
+               decode step a replayed CUDA graph and each prefill chunk
+               captured (``jit=True``, the default); then 3 decode steps of
+               the quantized model under
                torch.profiler (the device's busy share and its top
                kernels);
   8b. serve-dense-jit — the quantized Granite's serve again with
@@ -276,6 +291,7 @@ def phase_kernels(dev) -> list:
 
     rows += _grouped_rows(dev, g)
     _other_instantiations(dev, g)
+    rows.append(_grouped_matmul_row(dev, g))
     _slot_faults()
     rows.append(_paged_decode_row(dev, g))
     return rows
@@ -771,7 +787,120 @@ def _other_instantiations(dev, g) -> None:
           f"{sorted(picked)}: {'; '.join(labels)})", flush=True)
 
 
-# A child process calls one dequant wrapper with one pool slot out of range;
+# ---------------------------------------------------------------------------
+# phase 3, the grouped bf16 GEMV of the hi experts (no TPU kernel: the
+# reference's jitted hi einsum, src/repro/core/engine.py:437-438)
+# ---------------------------------------------------------------------------
+# float32 sums over K <= 14336 in another order than the plain version's
+GMM_TOL = dict(rtol=1e-4, atol=1e-4)
+# pairs as the engine's fixed-shape FFN launches them: name -> each pair's
+# pool slot; pads repeat the last real pair's slot ("8 pairs, 6 pads": two
+# real pairs at batch 4, top-2)
+GMM_CASES = {
+    "P=1": [0], "P=2": [0, 1], "P=4": [0, 1, 2, 3], "P=8": list(range(8)),
+    "2 pairs on 1 slot": [0, 0], "8 pairs, 6 pads": [0, 1, 1, 1, 1, 1, 1, 1],
+}
+
+
+def _gmm_check(name, x, w, slot) -> float:
+    """Max abs error of ``grouped_matmul`` against its plain version; two
+    calls must be bit-identical and launch one kernel each."""
+    from repro_torch.kernels import ops, ref
+    before = ops.dispatch_counts().get("grouped_matmul.cuda", 0)
+    got = ops.grouped_matmul(x, w, slot)
+    again = ops.grouped_matmul(x, w, slot)
+    torch.cuda.synchronize()
+    check(ops.dispatch_counts().get("grouped_matmul.cuda", 0) == before + 2,
+          f"grouped_matmul {name}: not one launch per call")
+    check(torch.equal(got, again), f"grouped_matmul {name}: two calls differ")
+    want = ref.grouped_matmul_ref(x, w, slot)
+    check(tuple(got.shape) == tuple(want.shape), f"grouped_matmul {name}: shape")
+    return _close(f"grouped_matmul {name}", got, want, **GMM_TOL)
+
+
+def _grouped_matmul_row(dev, g) -> dict:
+    """``grouped_matmul`` at Mixtral-8x7B's hi-expert shapes (wi 4096 ->
+    28672, wo 14336 -> 4096, bf16), at every P of GMM_CASES, against the
+    plain version; timed from CUDA-graph replays with two pool copies in
+    turn (each expert matrix is larger than the 50 MB L2 anyway), beside
+    the bytes bound over the distinct slots and ``torch.matmul`` on one
+    pool view (M = 1).  Then edge variants at small shapes (float32, ragged
+    N, K off the span, more than 8 pairs on a slot), and the layout
+    constants held to ops.py's mirror."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    layout = ops.grouped_matmul_layout()
+    mirror = {n: getattr(ops, n) for n in layout}
+    check(layout == mirror, f"grouped_matmul.cu's layout {layout} != ops.py's {mirror}")
+    cfg = get_config(ARCH)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err, by_shape = 0.0, {}
+    for wname, (k, n) in (("wi", (d, 2 * f)), ("wo", (f, d))):
+        span, spans = ops.grouped_matmul_plan(k, n, 2, sms)
+        by_p = {}
+        for name, sl in GMM_CASES.items():
+            p, s_ = len(sl), max(sl) + 1
+            pools = [(torch.randn((s_, k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                     for _ in range(2)]
+            x = torch.randn((p, k), generator=g, device=dev).to(torch.bfloat16)
+            slot = torch.tensor(sl, dtype=torch.int32, device=dev)
+            err = max(err, _gmm_check(f"{wname} {name}", x, pools[0], slot))
+            calls = [lambda w=w: ops.grouped_matmul(x, w, slot) for w in pools]
+            ms = graph_ms(_cycling(calls))
+            call = cuda_ms(calls[0])
+            plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, pools[0], slot), warmup=1, iters=3)
+            lib = None
+            if p == 1:
+                views = [lambda w=w: torch.matmul(x, w[0]) for w in pools]
+                lib = graph_ms(_cycling(views))
+            distinct = len(set(sl))
+            moved = nbytes(x, slot) + p * n * 4 + distinct * k * n * 2
+            bms, by = bound(moved, 2 * p * k * n, BF16_FLOPS)
+            by_p[name] = dict(p=p, slots=distinct, ms=ms, call_ms=call, plain_ms=plain,
+                              library_ms=lib, bound_ms=bms, bound_by=by, of_bound=bms / ms,
+                              gbps=moved / ms / 1e6)
+            print(f"[kernels] grouped_matmul {wname} {name}: {ms:.4f} ms on the card "
+                  f"({moved / ms / 1e6:.0f} GB/s; {distinct} distinct slots; bound {bms:.4f} ms "
+                  f"by {by}, {bms / ms:.0%} of it), {call:.4f} ms per call, plain {plain:.3f} ms"
+                  + (f", torch.matmul on one pool view {lib:.4f} ms" if lib else ""), flush=True)
+            del pools, calls, x
+            torch.cuda.empty_cache()
+        by_shape[wname] = dict(k=k, n=n, span=span, spans=spans, by_pairs=by_p)
+    regs, local, blocks = ops.grouped_matmul_info(True, 8)
+    print(f"[kernels] grouped_matmul: wi spans {by_shape['wi']['spans']} x "
+          f"{by_shape['wi']['span']} rows, wo {by_shape['wo']['spans']} x "
+          f"{by_shape['wo']['span']}; {regs} registers, {local} bytes of local memory per "
+          f"thread, {blocks} blocks/SM (bf16, 8 pairs)", flush=True)
+    edges = []
+    for label, k, n, sl, dt in (
+            ("float32", 1024, 256, [0, 2, 2, 1], torch.float32),
+            ("ragged N=264, K=1000", 1000, 264, [1, 1, 0], torch.bfloat16),
+            ("float32 ragged N=132", 3000, 132, [0, 1], torch.float32),
+            ("9 pairs on 1 slot", 512, 256, [2] * 9, torch.bfloat16),
+            ("P=11 shared slots", 4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1], torch.bfloat16)):
+        x = torch.randn((len(sl), k), generator=g, device=dev).to(dt)
+        w = (torch.randn((max(sl) + 1, k, n), generator=g, device=dev) * 0.05).to(dt)
+        err = max(err, _gmm_check(label, x, w, torch.tensor(sl, dtype=torch.int32, device=dev)))
+        edges.append(label)
+    print(f"[kernels] grouped_matmul edge variants agree with the plain version, "
+          f"bit-identical over two calls: {'; '.join(edges)}", flush=True)
+    head = by_shape["wi"]["by_pairs"]["P=1"]
+    return dict(name="grouped_matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                replaces="src/repro/core/engine.py:437 (not a TPU kernel: the reference's "
+                         "jitted hi einsum)",
+                max_abs_err=err, ms=head["ms"], call_ms=head["call_ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                regs=regs, local_bytes=local, blocks_per_sm=blocks,
+                tolerance="rtol 1e-4 atol 1e-4", by_shape=by_shape,
+                note="ms, bound, plain and torch.matmul at wi (4096 x 28672), P = 1; wo "
+                     "and every P under by_shape")
+
+
+# A child process calls one grouped wrapper with one pool slot out of range;
 # the kernel must abort, so that synchronising raises.  It runs apart from
 # this process because an aborted kernel leaves its CUDA context unusable.
 _SLOT_FAULT_CHILD = r"""
@@ -788,7 +917,9 @@ x = torch.ones((2, 512), device=dev,
 slot = torch.tensor([0, bad], dtype=torch.int32, device=dev)
 kw = dict(bits=4, group_size=64)
 try:
-    if op == "grouped_dequant_matmul":
+    if op == "grouped_matmul":
+        ops.grouped_matmul(x, torch.zeros((2, 512, 256), dtype=x.dtype, device=dev), slot)
+    elif op == "grouped_dequant_matmul":
         ops.grouped_dequant_matmul(x, data, scale, slot, **kw)
     else:
         # the second pair is a pad (row == num_rows) when asked
@@ -808,10 +939,11 @@ os._exit(0)
 
 def _slot_faults() -> None:
     """An out-of-range pool slot (past the end, and negative; a pad's too)
-    must fail both grouped kernels (bf16 x: the tensor-core kernel; float32
-    x: the two-pass kernel), as it makes the plain versions raise
-    IndexError."""
-    cases = (("grouped_dequant_matmul", 2, "f32", "row"),
+    must fail both grouped dequant kernels (bf16 x: the tensor-core kernel;
+    float32 x: the two-pass kernel) and the grouped GEMV, as it makes the
+    plain versions raise IndexError."""
+    cases = (("grouped_matmul", 2, "bf16", "row"), ("grouped_matmul", -1, "f32", "row"),
+             ("grouped_dequant_matmul", 2, "f32", "row"),
              ("grouped_dequant_combine", -1, "f32", "row"),
              ("grouped_dequant_matmul", 2, "bf16", "row"),
              ("grouped_dequant_combine", -1, "bf16", "row"),
@@ -1623,12 +1755,13 @@ def mixtral_cut():
 def _gating_path(counts, es, label, grouped) -> None:
     """Prints the engine's gating_s (host wall from each layer segment's
     replay, gating_topk its last kernel, to its hidden state and routes on
-    the host), the lo pairs each grouped launch carried
-    and the distinct pool slots among them; every grouped launch (`grouped`:
+    the host, waiting also for the layer before's grouped FFN still on the
+    card), the real lo pairs each grouped launch carried and the distinct
+    pool slots among them, and the real hi pairs; every grouped launch (`grouped`:
     ``ops.grouped_launches()`` of the run) must have gone to the
     tensor-core kernel."""
     calls = counts.get("gating_topk.cuda", 0)
-    lo, sl = es["lo_pairs_per_launch"], es["lo_slots_per_launch"]
+    lo, sl, hi = es["lo_pairs_per_launch"], es["lo_slots_per_launch"], es["hi_pairs_per_launch"]
     for op in ("grouped_dequant_matmul", "grouped_dequant_combine"):
         check(grouped.get(f"{op}.mmv", 0) == counts.get(f"{op}.cuda", 0) > 0,
               f"{label}: {op} launches {grouped} did not all take the tensor-core kernel")
@@ -1636,14 +1769,62 @@ def _gating_path(counts, es, label, grouped) -> None:
           f"({es['gating_s'] / max(calls, 1) * 1e3:.4f} ms per call, host wall of the layer "
           f"segment with the copy back); lo pairs per grouped launch: min {lo['min']}, median {lo['median']}, max "
           f"{lo['max']} over {lo['launches']} launches {lo['hist']}; distinct slots per launch: "
-          f"min {sl['min']}, median {sl['median']}, max {sl['max']} {sl['hist']}; grouped "
-          f"kernels {grouped}", flush=True)
+          f"min {sl['min']}, median {sl['median']}, max {sl['max']} {sl['hist']}; hi pairs per "
+          f"grouped launch: min {hi['min']}, median {hi['median']}, max {hi['max']} "
+          f"{hi['hist']}; grouped kernels {grouped}", flush=True)
 
 
 def engine_steps(eng) -> list:
     """Names of the offload engine's captured steps (``core/engine.py``)."""
-    return (["engine_embed", "engine_logits"]
+    return (["engine_embed", "engine_ffn", "engine_logits"]
             + [f"engine_layer{mi}" for mi in range(eng.num_moe_layers)])
+
+
+def _ffn_captured(counts, label) -> dict:
+    """Every MoE layer's grouped FFN of the run went through its captured
+    step on the card: as many captures and replays as layer segments ran
+    (one gating_topk launch each), none eager; the grouped kernels launched
+    once per layer and step (grouped_matmul twice: wi, wo).  Returns the
+    launches per MoE layer and step."""
+    layer_steps = counts.get("gating_topk.cuda", 0)
+    ffn = counts.get("engine_ffn.capture", 0) + counts.get("engine_ffn.graph", 0)
+    check(layer_steps > 0 and ffn == layer_steps,
+          f"{label}: {ffn} grouped-FFN calls for {layer_steps} MoE layer steps")
+    check(counts.get("engine_ffn.eager", 0) == 0, f"{label}: the grouped FFN ran eagerly")
+    per = {op: counts.get(f"{op}.cuda", 0) / layer_steps
+           for op in ("grouped_matmul", "grouped_dequant_matmul", "grouped_dequant_combine")}
+    check(per == {"grouped_matmul": 2, "grouped_dequant_matmul": 1,
+                  "grouped_dequant_combine": 1},
+          f"{label}: grouped launches per MoE layer step {per}")
+    print(f"[{label}] grouped FFN: {ffn} MoE layer steps, "
+          f"{counts.get('engine_ffn.capture', 0)} captures and "
+          f"{counts.get('engine_ffn.graph', 0)} replays; per layer step {json.dumps(per)}",
+          flush=True)
+    return per
+
+
+def _ffn_replay_check(eng, label) -> float:
+    """The grouped FFN's graph replayed on a fixed input (hidden state and
+    residual seeded; the pair table the last layer left on the card)
+    against the same function called eagerly on it: the same kernels on the
+    same inputs, so max |diff| must be 0."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=eng.device).manual_seed(SEED + 10)
+    dt = eng.params["embed"].dtype
+    d = eng.cfg.d_model
+    hs = torch.randn((eng.batch, d), generator=g, device=eng.device).to(dt)
+    x = torch.randn((eng.batch, 1, d), generator=g, device=eng.device).to(dt)
+    before = ops.dispatch_counts()
+    replay = eng._ffn_step(hs, x, key=eng._ffn_key()).clone()
+    after = ops.dispatch_counts()
+    check(after.get("engine_ffn.graph", 0) == before.get("engine_ffn.graph", 0) + 1
+          and after.get("engine_ffn.capture", 0) == before.get("engine_ffn.capture", 0),
+          f"{label}: the grouped FFN did not replay its graph")
+    eager = eng._ffn(hs, x)
+    diff = float((replay.float() - eager.float()).abs().max())
+    check(diff == 0.0, f"{label}: grouped FFN replay vs eager max |diff| {diff}")
+    print(f"[{label}] grouped FFN, replay vs eager on one input: max |diff| {diff}", flush=True)
+    return diff
 
 
 def _captured_path(counts, names, label) -> dict:
@@ -1703,8 +1884,8 @@ def phase_serve(dev, model, params) -> dict:
           flush=True)
     rng = np.random.default_rng(SEED)
     n_req, new_tokens, max_batch = 6, 16, 4
-    srv = BatchingServer(_FiniteLogits(backend), max_batch=max_batch,
-                         max_len=64 + new_tokens + 8)
+    probe = _FiniteLogits(backend)
+    srv = BatchingServer(probe, max_batch=max_batch, max_len=64 + new_tokens + 8)
     for i in range(n_req):
         plen = int(rng.integers(32, 65))
         srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
@@ -1719,7 +1900,9 @@ def phase_serve(dev, model, params) -> dict:
     st = srv.stats()
     es = eng.stats()
     captured = _captured_path(counts, engine_steps(eng), "serve")
+    ffn_per_layer = _ffn_captured(counts, "serve")
     seg_diff = _segment_replay_check(eng, "serve")
+    ffn_diff = _ffn_replay_check(eng, "serve")
     srv.close()
 
     check(len(srv.completed) == n_req, f"{len(srv.completed)}/{n_req} requests done")
@@ -1743,8 +1926,11 @@ def phase_serve(dev, model, params) -> dict:
         "link_gbps": es["link_gbps"], "kernel_dispatch": counts,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
-        "lo_slots_per_launch": es["lo_slots_per_launch"], "grouped_kernels": grouped,
+        "lo_slots_per_launch": es["lo_slots_per_launch"],
+        "hi_pairs_per_launch": es["hi_pairs_per_launch"], "grouped_kernels": grouped,
         "captured_steps": captured, "segment_replay_vs_eager": seg_diff,
+        "ffn_replay_vs_eager": ffn_diff, "ffn_launches_per_layer_step": ffn_per_layer,
+        "median_step_ms": statistics.median(probe.step_s) * 1e3,
     }
     print(f"[serve] {json.dumps(summary)}", flush=True)
     return summary
@@ -1864,7 +2050,9 @@ def phase_serve_paged(dev, model, params) -> dict:
     grouped = ops.grouped_launches()
     st = srv.stats()
     es = eng.stats()
-    _captured_path(counts, engine_steps(eng), "serve-paged")
+    captured = _captured_path(counts, engine_steps(eng) + ["prefill_chunk"], "serve-paged")
+    ffn_per_layer = _ffn_captured(counts, "serve-paged")
+    ffn_diff = _ffn_replay_check(eng, "serve-paged")
     srv.close()
 
     check(len(srv.completed) == n_req, f"{len(srv.completed)}/{n_req} requests done")
@@ -1892,8 +2080,11 @@ def phase_serve_paged(dev, model, params) -> dict:
         "kv_page_fraction_peak": probe.peak,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
         "gating_s": es["gating_s"], "lo_pairs_per_launch": es["lo_pairs_per_launch"],
-        "lo_slots_per_launch": es["lo_slots_per_launch"], "grouped_kernels": grouped,
-        "kernel_dispatch": counts,
+        "lo_slots_per_launch": es["lo_slots_per_launch"],
+        "hi_pairs_per_launch": es["hi_pairs_per_launch"], "grouped_kernels": grouped,
+        "kernel_dispatch": counts, "captured_steps": captured,
+        "ffn_replay_vs_eager": ffn_diff, "ffn_launches_per_layer_step": ffn_per_layer,
+        "median_step_ms": statistics.median(probe.step_s) * 1e3,
     }
     print(f"[serve-paged] {st['decode_tok_s']:.1f} tok/s, load stall "
           f"{es['load_stall_s']:.3f} s, prefix hit ratio {summary['prefix_hit_ratio']:.3f} "
@@ -1953,7 +2144,8 @@ def phase_paged_parity(dev, cfg, params) -> None:
 # ---------------------------------------------------------------------------
 # phase 7b: the per-expert reference path against the grouped path
 # ---------------------------------------------------------------------------
-GROUPED_OPS = ("gating_topk", "grouped_dequant_matmul", "grouped_dequant_combine")
+GROUPED_OPS = ("gating_topk", "grouped_matmul", "grouped_dequant_matmul",
+               "grouped_dequant_combine")
 # a teacher-forced NLL is a log-softmax at one index: it moves by at most
 # twice the largest logit change, and logits agree within PARITY_ATOL
 NLL_ATOL = 2 * PARITY_ATOL
@@ -2329,9 +2521,17 @@ def phase_serve_dense(dev, model, params, label: str, must_launch, *, jit: bool 
                                                  "launches on the gemv dequant-matmul kernel")
     if jit:
         _captured_path(counts, ["serve_step"], label)
+        if paged:       # the chunked admissions: captured per (pending rows, chunk)
+            check(counts.get("prefill_chunk.capture", 0) > 0
+                  and counts.get("prefill_chunk.eager", 0) == 0,
+                  f"{label}: prefill chunks not captured: "
+                  f"{ {k: v for k, v in counts.items() if k.startswith('prefill_chunk.')} }")
+            print(f"[{label}] prefill chunks [captures, replays]: "
+                  f"[{counts['prefill_chunk.capture']}, "
+                  f"{counts.get('prefill_chunk.graph', 0)}]", flush=True)
     else:
-        check(not any(k.startswith("serve_step.") for k in counts),
-              f"{label}: the eager backend went through the captured step")
+        check(not any(k.startswith(("serve_step.", "prefill_chunk.")) for k in counts),
+              f"{label}: the eager backend went through a captured step")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
         "layers": cfg.num_layers, "jit": jit, "paged": paged, "wall_s": wall,
@@ -2399,7 +2599,8 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
 # ---------------------------------------------------------------------------
 def _kernel_counts(counts) -> dict:
     """Per-op kernel launches, without the captured steps' own counters."""
-    return {k: v for k, v in counts.items() if not k.startswith("serve_step.")}
+    return {k: v for k, v in counts.items()
+            if not k.startswith(("serve_step.", "prefill_chunk."))}
 
 
 def phase_serve_dense_jit(dev, model, params, captured: dict) -> dict:

@@ -1,6 +1,9 @@
 """Captured fixed-shape steps: the port's counterpart of the reference's
-``jax.jit`` on its decode steps (``serving/decode.py``, ``DenseBackend``,
-``OffloadEngine._jit``).
+``jax.jit`` on its decode steps and prefill chunks (``serving/decode.py``,
+``DenseBackend``, ``OffloadEngine._jit`` with its grouped FFN at the fixed
+pair count B * top_k, ``models/kv_pages.ChunkedPrefill``).  What stays
+eager: one-shot prefill (each prompt shape is called once, so a graph adds
+only its capture) and the engine's per-expert path.
 
 ``CapturedStep(fn, name)`` wraps a step whose tensor inputs have fixed
 shapes.  The device of the inputs decides the route, as in ``kernels.ops``:
@@ -27,7 +30,8 @@ replay of the same key: callers read or copy them before calling again.
 There is no fallback.  On CUDA a capture or a replay that fails raises; no
 path runs the step eagerly instead, and no environment variable switches
 capture off.  The eager path is the caller's choice of not wrapping the step
-(``DenseBackend(jit=False)``, ``decode.generate(jit=False)``).
+(``DenseBackend(jit=False)``, ``decode.generate(jit=False)``,
+``ChunkedPrefill(jit=False)``).
 
 Launch counts: the kernel wrappers count a launch when Python calls them
 (``ops.dispatch_counts``, ``ops.dequant_mm_launches``,

@@ -35,10 +35,12 @@ What changes on a card:
   kernels read every expert in place through a per-pair slot index.  The
   per-expert path admits an overflow expert into the cache instead, as the
   reference does, and its pools have no extra rows.
-* The hi half is one ``torch.matmul`` pair per (token, expert) on pool
-  views.  The lo half is the two grouped dequant kernels on the grouped
-  path and the dense dequant-matmul kernel, one call per product, on the
-  per-expert path; neither materialises a float32 weight on the card.
+* On the grouped path the hi half is the grouped bf16 GEMV
+  (``kops.grouped_matmul``) and the lo half the two grouped dequant
+  kernels, all reading experts in place in the pools by a per-pair slot.
+  The per-expert path runs one ``torch.matmul`` pair per hi expert on pool
+  views and the dense dequant-matmul kernel, one call per product, per lo
+  expert.  Neither path materialises a float32 weight on the card.
 * The host blocks on the card where the reference does.  Per MoE layer it
   reads back the normed hidden state, and on the grouped path the gating
   result with it, in one synchronisation after the layer's captured
@@ -54,18 +56,24 @@ What changes on a card:
 * Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
   backend: a page pool with a radix prefix trie and copy-on-write, chunked
   prefill, and decode attention through the paged flash-decode kernel.
-* The grouped path's fixed-shape work is captured (``capture.CapturedStep``,
+* The grouped path's device work is captured (``capture.CapturedStep``,
   the counterpart of the reference's ``_jit``, always on as there): the
   step's embedding, each MoE layer's segment — attention on either KV
   layout, the FFN norm, the float32 copy of the normed hidden state the
-  host reads and the gating kernel — and the step's logits.  On the card
-  each is a CUDA graph per batch shape, replayed every step
-  ("engine_embed", "engine_layer<i>", "engine_logits" counters); on the CPU
-  each runs eagerly.  The segments read positions, the page table and the
-  active mask from step-state buffers that ``_step_prologue`` fills once
-  per step.  The grouped FFN and the hi pairs between the segments stay
-  eager: their pair counts vary from layer to layer and step to step.  So
-  do the per-expert path, host compute mode and every prefill.
+  host reads and the gating kernel — each MoE layer's grouped FFN, and the
+  step's logits.  On the card each is a CUDA graph per batch shape,
+  replayed every step ("engine_embed", "engine_layer<i>", "engine_ffn",
+  "engine_logits" counters); on the CPU each runs eagerly.  The segments
+  read positions, the page table and the active mask from step-state
+  buffers that ``_step_prologue`` fills once per step.  The FFN
+  (``grouped_ffn``) runs at the reference's fixed pair count P = B * top_k,
+  one graph for every layer: the host keeps every decision (cache lookups,
+  downgrades, union-overflow commits before the replay, the stats) and
+  writes the layer's pairs into a pinned table, copied to the card with
+  one H2D copy per layer.  Paged admission captures each prefill chunk
+  (``ChunkedPrefill``, "prefill_chunk").  The per-expert path, host
+  compute mode and the one-shot dense-KV prefill stay eager: the reference
+  jits single experts there and each prompt shape comes once.
 """
 
 from __future__ import annotations
@@ -153,6 +161,86 @@ def _spread(hist: Dict[int, int]) -> Dict:
             "max": vals[-1], "hist": dict(sorted(hist.items()))}
 
 
+def pair_table_words(batch: int, top_k: int) -> int:
+    """int32 words of the grouped FFN's pair table: six (P,) index rows (hi
+    rows, ranks, slots; lo rows, ranks, slots) then the (B, k) float32 hi and
+    lo gate weights, P = batch * top_k."""
+    return 8 * batch * top_k
+
+
+def pack_pair_table(table: np.ndarray, hi_pairs, lo_pairs, w_hi: np.ndarray,
+                    w_lo: np.ndarray) -> None:
+    """Write one layer's pairs into `table`, a flat int32 array of
+    ``pair_table_words(B, k)`` words, in ``grouped_ffn``'s layout.
+    hi_pairs / lo_pairs: [(row, rank, pool slot)] in row order; w_hi / w_lo
+    (B, k) float32.  Pads: row B, rank 0, weight 0 and the slot of the
+    precision's last real pair (slot 0 when it has none), so a pad adds no
+    weight bytes to a kernel that streams each distinct slot once."""
+    b, k = w_hi.shape
+    p = b * k
+    idx = table[:6 * p].reshape(6, p)
+    for base, pairs in ((0, hi_pairs), (3, lo_pairs)):
+        idx[base] = b
+        idx[base + 1] = 0
+        idx[base + 2] = pairs[-1][2] if pairs else 0
+        if pairs:
+            idx[base:base + 3, :len(pairs)] = np.asarray(pairs, np.int32).T
+    w = table[6 * p:].view(np.float32).reshape(2, b, k)
+    w[0] = w_hi
+    w[1] = w_lo
+
+
+def grouped_ffn(hs: torch.Tensor, x: torch.Tensor, table: torch.Tensor, pool_hi, pool_lo,
+                cfg, *, top_k: int, lo_bits: int, group_size: int) -> torch.Tensor:
+    """All (row, expert) pairs of one MoE layer at the fixed pair count P =
+    B * top_k, the reference's ``OffloadEngine._grouped_ffn`` body
+    (``src/repro/core/engine.py:430-462``): one grouped hi product pair over
+    the hi pool (``kops.grouped_matmul``, rounded to the model dtype after
+    each product) and the grouped lo dequant pair over the lo pool, every
+    expert read in place by its pool slot.
+
+        hs     (B, D)   the normed hidden state
+        x      (B, 1, D) the residual stream
+        table  (pair_table_words(B, k),) int32: hi_rows, hi_ranks, hi_slots,
+               lo_rows, lo_ranks, lo_slots (each (P,)), then w_hi, w_lo
+               ((B, k) float32, bit for bit)
+        ->     x + y (B, 1, D), y each row's pairs combined in float32 and
+               divided by its kept gate mass (0 where none is kept)
+
+    Pad pairs carry row == B: their activations gather row B - 1 (as the
+    reference clips), the hi grid drops them and the combine kernel skips
+    them.  Hi outputs land in a (B, k, D) grid at their (row, rank) cells,
+    weighted and summed over the rank axis in order, as the reference's.
+    Fixed shapes and no host read: the engine captures it."""
+    b, d = hs.shape
+    p = b * top_k
+    idx = table[:6 * p].view(6, p)
+    hi_rows, hi_ranks, hi_slots, lo_rows, lo_ranks, lo_slots = idx
+    w_hi, w_lo = table[6 * p:].view(torch.float32).view(2, b, top_k)
+    # ---- hi: one grouped product pair ----
+    xh = hs.index_select(0, hi_rows.clamp(max=b - 1))
+    z = kops.grouped_matmul(xh, pool_hi["wi"], hi_slots).to(hs.dtype)
+    out_hi = kops.grouped_matmul(L.activate(z, cfg), pool_hi["wo"], hi_slots).to(hs.dtype)
+    # ---- lo: the grouped dequant GEMV, then GEMV + gated combine ----
+    lo_c = lo_rows.clamp(max=b - 1)
+    zl = kops.grouped_dequant_matmul(
+        hs.index_select(0, lo_c), pool_lo["wi_data"], pool_lo["wi_scale"], lo_slots,
+        bits=lo_bits, group_size=group_size).to(hs.dtype)
+    lo_w = torch.where(lo_rows < b, w_lo[lo_c.long(), lo_ranks.long()], 0.0)
+    # pairs arrive in row order, pads last: the combine's non-decreasing rows
+    y_lo = kops.grouped_dequant_combine(
+        L.activate(zl, cfg), pool_lo["wo_data"], pool_lo["wo_scale"], lo_slots, lo_rows,
+        lo_w, bits=lo_bits, group_size=group_size, num_rows=b)
+    # ---- hi combine: unique (row, rank) cells, pads to a dropped cell ----
+    cell = torch.where(hi_rows < b, hi_rows * top_k + hi_ranks, p).long()
+    grid = torch.zeros((p + 1, d), dtype=torch.float32, device=hs.device)
+    grid.index_copy_(0, cell, out_hi.to(torch.float32))
+    y = (grid[:p].view(b, top_k, d) * w_hi[..., None]).sum(dim=1) + y_lo
+    wsum = (w_hi + w_lo).sum(dim=1, keepdim=True)              # disjoint weights
+    y = torch.where(wsum > 0, y / torch.where(wsum > 0, wsum, 1.0), 0.0)
+    return x + y[:, None, :].to(x.dtype)
+
+
 class OffloadEngine:
     def __init__(self, model: Model, params, ecfg: EngineConfig):
         if ecfg.compute_mode not in ("device", "host"):
@@ -222,6 +310,7 @@ class OffloadEngine:
         self._pending_preds: List = []
         self.trace: List[List[TraceLayer]] = []
         self._gating_s = 0.0
+        self._hi_pairs: Dict[int, int] = {}     # hi pairs per grouped launch -> launches
         self._lo_pairs: Dict[int, int] = {}     # lo pairs per grouped launch -> launches
         self._lo_slots: Dict[int, int] = {}     # distinct lo slots per grouped launch -> launches
         self._expert_dispatches = 0
@@ -246,6 +335,12 @@ class OffloadEngine:
                                           f"engine_layer{mi}")
                              for mi in range(self.num_moe_layers)]
         self._logits_step = CapturedStep(self._logits, "engine_logits")
+        # the grouped FFN, one graph shared by every MoE layer (the pools are
+        # shared), reading the pair table that each layer's host work fills
+        # in pinned memory and copies over (start_batch allocates both)
+        self._ffn_step = CapturedStep(self._ffn, "engine_ffn")
+        self._ffn_table: Optional[torch.Tensor] = None
+        self._table_host: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     # host storage and device pools
@@ -390,7 +485,11 @@ class OffloadEngine:
             table = active = None
         self._step_state = (torch.zeros((batch,), dtype=torch.int64, device=self.device),
                             table, active)
-        for captured in (self._embed_step, *self._layer_steps, self._logits_step):
+        words = pair_table_words(batch, self.cfg.moe.top_k)
+        self._ffn_table = torch.zeros((words,), dtype=torch.int32, device=self.device)
+        self._table_host = torch.zeros((words,), dtype=torch.int32, pin_memory=self._pin)
+        for captured in (self._embed_step, *self._layer_steps, self._ffn_step,
+                         self._logits_step):
             captured.reset()            # the graphs bake in the buffers replaced here
         self.positions = np.zeros((batch,), np.int64)
         self.active = np.ones((batch,), bool)
@@ -674,46 +773,18 @@ class OffloadEngine:
             pred_experts=pe.experts if (pe and pe.layer == mi + 1) else None,
             pred_gate_vals=pe.gate_vals if (pe and pe.layer == mi + 1) else None)
 
-    def _grouped_ffn(self, hs: torch.Tensor, hi_pairs, lo_pairs,
-                     w_hi: np.ndarray, w_lo: np.ndarray, rows) -> torch.Tensor:
-        """All active (row, expert) pairs of one MoE layer.  hs: (B, D);
-        hi_pairs / lo_pairs: [(row, rank, pool slot)] in row order.  Hi: one
-        matmul pair per (token, expert) on pool views.  Lo: the grouped
-        dequant GEMV (up/gate) and the grouped dequant GEMV + gated combine
-        (down), both reading the pool in place.  Returns (B, D) float32,
-        each row renormalised by its kept gate mass."""
-        cfg, ecfg = self.cfg, self.ecfg
-        b, d = hs.shape
-        y = torch.zeros((b, d), dtype=torch.float32, device=hs.device)
-        for r, j, slot in hi_pairs:
-            z = hs[r:r + 1] @ self.pool_hi["wi"][slot]
-            out = L.activate(z, cfg) @ self.pool_hi["wo"][slot]
-            y[r] += float(w_hi[r, j]) * out[0].to(torch.float32)
-        if lo_pairs:
-            n = len(lo_pairs)
-            self._lo_pairs[n] = self._lo_pairs.get(n, 0) + 1
-            ns = len({s for _, _, s in lo_pairs})
-            self._lo_slots[ns] = self._lo_slots.get(ns, 0) + 1
-            ints = np.asarray([s for _, _, s in lo_pairs] + [r for r, _, _ in lo_pairs],
-                              np.int32)
-            idx = to_device(ints, hs.device)
-            slot_dev, rows_dev = idx[:n], idx[n:]
-            w_dev = to_device(np.asarray([w_lo[r, j] for r, j, _ in lo_pairs],
-                                         np.float32), hs.device)
-            zl = kops.grouped_dequant_matmul(
-                hs.index_select(0, rows_dev), self.pool_lo["wi_data"],
-                self.pool_lo["wi_scale"], slot_dev, bits=ecfg.lo_bits,
-                group_size=ecfg.group_size).to(hs.dtype)
-            # pairs arrive in row order: the combine's non-decreasing contract
-            y += kops.grouped_dequant_combine(
-                L.activate(zl, cfg), self.pool_lo["wo_data"], self.pool_lo["wo_scale"],
-                slot_dev, rows_dev, w_dev, bits=ecfg.lo_bits,
-                group_size=ecfg.group_size, num_rows=b)
-        wsum = (w_hi + w_lo).sum(axis=1)                 # disjoint weights
-        for r in rows:
-            if wsum[r] > 0:
-                y[r] /= float(wsum[r])
-        return y
+    def _ffn(self, hs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The layer's grouped FFN on the pair table this layer's host work
+        filled (``grouped_ffn``); returns the residual stream x + y."""
+        mc = self.cfg.moe
+        return grouped_ffn(hs, x, self._ffn_table, self.pool_hi, self.pool_lo, self.cfg,
+                           top_k=mc.top_k, lo_bits=self.ecfg.lo_bits,
+                           group_size=self.ecfg.group_size)
+
+    def _ffn_key(self) -> tuple:
+        """The buffers the captured FFN reads in place: every pool tensor
+        (``_ensure_pools`` reallocates them) and the pair table."""
+        return addresses((*self.pool_hi.values(), *self.pool_lo.values(), self._ffn_table))
 
     def _decode_step_batch_grouped(self, tokens) -> np.ndarray:
         ecfg, mc = self.ecfg, self.cfg.moe
@@ -810,9 +881,16 @@ class OffloadEngine:
                         lo_pairs.append((r, j, slot))
                         w_lo[r, j] = gates[r][j]
 
-            y = self._grouped_ffn(hs, hi_pairs, lo_pairs, w_hi, w_lo, rows)
+            for hist, n in ((self._hi_pairs, len(hi_pairs)), (self._lo_pairs, len(lo_pairs))):
+                hist[n] = hist.get(n, 0) + 1
+            ns = len({s_ for _, _, s_ in lo_pairs})
+            self._lo_slots[ns] = self._lo_slots.get(ns, 0) + 1
+            # the pinned table is rewritten only after this layer's readback
+            # synchronised the stream that copied it for the layer before
+            pack_pair_table(self._table_host.numpy(), hi_pairs, lo_pairs, w_hi, w_lo)
+            self._ffn_table.copy_(self._table_host, non_blocking=True)
+            x = self._ffn_step(hs, x, key=self._ffn_key())
             self._expert_dispatches += 1
-            x = x + y[:, None, :].to(x.dtype)
 
             for r in rows:
                 row_trace[r].append(self._trace_entry(mi, r, tops, gates,
@@ -1029,12 +1107,19 @@ class OffloadEngine:
             "pred_accuracy": {int(d): float(a)
                               for d, a in self.predictor.accuracy().items()},
             # host wall from each grouped layer segment's launch (attention,
-            # norm, router) to its hidden state and routes on the host
+            # norm, router) to its hidden state and routes on the host; the
+            # readback also waits for the device work still queued before
+            # the segment (the layer before's grouped FFN)
             "gating_s": self._gating_s,
-            # (row, expert) pairs each grouped lo launch pair carried, and
-            # the distinct pool slots among them (each read once per launch
-            # on the card)
+            # real (row, expert) pairs each grouped lo launch pair carried
+            # (one launch pair per MoE layer and step, at P = B * top_k; 0
+            # when it carries pads only), and the distinct pool slots among
+            # them (each read once per launch on the card)
             "lo_pairs_per_launch": _spread(self._lo_pairs),
+            # real pairs of each grouped hi launch pair: a launch of pads
+            # only (0) still streams one hi expert, as the reference's
+            # gather of P experts does
+            "hi_pairs_per_launch": _spread(self._hi_pairs),
             "lo_slots_per_launch": _spread(self._lo_slots),
             "expert_dispatches": self._expert_dispatches,
             "union_reloads": self._union_reloads,

@@ -27,7 +27,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gating", "dequant", "dequant_matmul", "flash_decode", "flash_decode_contig")
+SOURCES = ("gating", "dequant", "dequant_matmul", "flash_decode", "flash_decode_contig",
+           "grouped_matmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
@@ -71,6 +72,11 @@ SIGNATURES = {
         "flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_decode_blocks_per_sm": (_I, _I, _I, _IP),
+    },
+    "grouped_matmul": {
+        "grouped_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "grouped_matmul_info": (_I, _I, _IP, _IP, _IP),
+        "grouped_matmul_layout": (_IP,),
     },
 }
 

@@ -816,6 +816,104 @@ def _grouped_at(ranks: int, x, data, scale, slot, rows=None, weights=None, *, bi
 
 
 # --------------------------------------------------------------------------
+# grouped GEMV over the hi-expert pool (bf16 or float32 weights)
+# --------------------------------------------------------------------------
+
+# pairs one pass over a slot serves, the most K rows of a block and their
+# alignment, the most pairs of a launch (kGroup, kMaxSpan, kSpanAlign,
+# kMaxPairs in grouped_matmul.cu; ``grouped_matmul_layout`` reads them from
+# the built kernel)
+GMM_GROUP = 8
+GMM_MAX_SPAN = 2048
+GMM_SPAN_ALIGN = 32
+GMM_MAX_PAIRS = 1024
+_GMM_INFO: Dict[tuple, Tuple[int, int, int]] = {}
+
+
+def grouped_matmul_plan(k: int, n: int, elem_bytes: int, sm_count: int) -> Tuple[int, int]:
+    """(span, spans): the K rows of one block of the grouped GEMV and the
+    blocks that split K, from shapes only.  A block covers 32 lanes x 16
+    bytes of columns (256 bf16); K is cut so that the grid holds about two
+    blocks per SM (the kernel's occupancy), with at most GMM_MAX_SPAN rows
+    (the shared-memory x of a pass) and whole 32-row runs per block.  At
+    Mixtral's expert shapes on the H100: wi (4096 x 28672, 112 column tiles)
+    2 spans of 2048; wo (14336 x 4096, 16 tiles) 16 spans of 896."""
+    tiles = -(-n // (32 * (16 // elem_bytes)))
+    spans = max(-(-k // GMM_MAX_SPAN), (2 * sm_count) // tiles, 1)
+    span = -(-(-(-k // spans)) // GMM_SPAN_ALIGN) * GMM_SPAN_ALIGN
+    return span, -(-k // span)
+
+
+def grouped_matmul_info(w_bf16: bool, pairs: int) -> Tuple[int, int, int]:
+    """(registers, local bytes, blocks per SM at `pairs` pairs) of the
+    grouped GEMV's bf16 or float32 instantiation on the current card;
+    cached."""
+    key = (torch.cuda.current_device(), bool(w_bf16), pairs)
+    if key not in _GMM_INFO:
+        regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        _raise_on("grouped_matmul", build.library("grouped_matmul").grouped_matmul_info(
+            int(w_bf16), pairs, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)))
+        _GMM_INFO[key] = (regs.value, local.value, blocks.value)
+    return _GMM_INFO[key]
+
+
+def grouped_matmul_layout() -> Dict[str, int]:
+    """The built kernel's layout constants, by the names this module
+    mirrors them under (GMM_GROUP, ...)."""
+    names = ("GMM_GROUP", "GMM_MAX_SPAN", "GMM_SPAN_ALIGN", "GMM_MAX_PAIRS")
+    out = (ctypes.c_int * len(names))()
+    _raise_on("grouped_matmul", build.library("grouped_matmul").grouped_matmul_layout(out))
+    return dict(zip(names, out))
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """y[p] = x[p] @ w[slot[p]], float32: the hi experts' grouped product.
+
+        x     (P, K)      one activation row per (token, expert) pair
+        w     (S, K, N)   the pool of S expert matrices (x's dtype: bf16 or
+                          float32)
+        slot  (P,) int32  pool slot each pair reads
+        ->    (P, N) float32
+
+    The kernel reads each pair's expert in place in the pool and streams
+    each distinct slot once per launch for up to GMM_GROUP pairs on it
+    (pads that repeat a real pair's slot add no weight bytes).  A slot
+    outside 0..S-1 aborts the kernel (the next synchronisation raises); the
+    plain version raises IndexError."""
+    op = "grouped_matmul"
+    if _route(op, x, w, slot) == "torch":
+        _record(op, "torch")
+        return ref.grouped_matmul_ref(x, w, slot)
+    _check(op, x.dim() == 2 and w.dim() == 3 and slot.dim() == 1,
+           "want x (P, K), w (S, K, N), slot (P,)")
+    p, k = x.shape
+    s, kw, n = w.shape
+    _check(op, kw == k, f"w has K={kw}, x has K={k}")
+    _check(op, slot.shape[0] == p, f"slot has {slot.shape[0]} entries for {p} pairs")
+    _check(op, x.dtype == w.dtype and w.dtype in (torch.bfloat16, torch.float32),
+           f"x and w must both be bfloat16 or both float32, got {x.dtype} and {w.dtype}")
+    _check(op, slot.dtype == torch.int32, "slot must be int32")
+    _check(op, p <= GMM_MAX_PAIRS, f"P={p} above {GMM_MAX_PAIRS} pairs")
+    _check(op, s > 0 and n * w.element_size() % 16 == 0,
+           f"N={n} must fill whole 16-byte loads")
+    _check_contig(op, x=x, w=w, slot=slot)
+    lib = build.library("grouped_matmul")
+    _check(op, w.data_ptr() % 16 == 0, "w must be 16-byte aligned")
+    out = torch.empty((p, n), dtype=torch.float32, device=x.device)
+    if p == 0:
+        return out
+    span, spans = grouped_matmul_plan(k, n, w.element_size(), _sm_count(x.device))
+    part = (torch.empty((spans, p, n), dtype=torch.float32, device=x.device)
+            if spans > 1 else None)
+    _record(op, "cuda")
+    _raise_on(op, lib.grouped_matmul_launch(
+        x.data_ptr(), w.data_ptr(), slot.data_ptr(),
+        part.data_ptr() if part is not None else None, out.data_ptr(), p, k, n, s,
+        int(w.dtype == torch.bfloat16), span, _stream()))
+    return out
+
+
+# --------------------------------------------------------------------------
 # paged flash decode
 # --------------------------------------------------------------------------
 

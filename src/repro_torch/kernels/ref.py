@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 The CPU path runs these, the tests hold them against the JAX package, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.  The two
-grouped dequant functions take the expert pools plus a per-pair ``slot``
-index (the kernels read each expert in place); pass ``slot = arange(P)``
-with per-pair tensors for the JAX package's gathered signature.
+``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
+grouped functions (the two dequant ones and ``grouped_matmul_ref``) take the
+expert pools plus a per-pair ``slot`` index (the kernels read each expert in
+place); pass ``slot = arange(P)`` with per-pair tensors for the JAX
+package's gathered signature.
 """
 
 from __future__ import annotations
@@ -85,6 +86,17 @@ def grouped_dequant_combine_ref(x, data, scale, slot, rows, weights, *,
     keep = (rows >= 0) & (rows < num_rows)
     contrib = weights.to(torch.float32)[:, None] * y
     return out.index_add_(0, rows[keep].to(torch.long), contrib[keep])
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """y[p] = x[p] @ w[slot[p]] in float32 (the reference's
+    ``einsum("pd,pdc->pc", x, w[slot])``).  x (P, K); w (S, K, N); slot (P,)
+    int.  A slot outside 0..S-1 raises IndexError (negative ones do not
+    wrap).  Returns (P, N) float32."""
+    sl = slot.to(torch.long)
+    if bool(((sl < 0) | (sl >= w.shape[0])).any()):
+        raise IndexError(f"slot outside 0..{w.shape[0] - 1}: {slot.tolist()}")
+    return torch.einsum("pk,pkn->pn", x.to(torch.float32), w[sl].to(torch.float32))
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

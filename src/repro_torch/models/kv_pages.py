@@ -25,10 +25,14 @@ preemption snapshots.  What differs on a card:
 
 ``ChunkedPrefill`` is the shared admission driver: it feeds prompts through
 ``model.prefill_chunk_paged`` in fixed-size chunks (one batched call per
-chunk covering every request being admitted).  With prefix sharing it
-resumes feeding at the matched length (re-feeding at least the final prompt
-token so last-token logits exist) and passes a per-row ``wstart`` so re-fed
-positions attend but never re-write aliased pages.
+chunk covering every request being admitted), captured by default
+(``jit=True``, as the reference jits it): a CUDA graph per (pending rows,
+chunk) replayed on the card, with the host's ``ensure``, copy-on-write and
+table export before each replay and the logits read back right after it.
+With prefix sharing it resumes feeding at the matched length (re-feeding at
+least the final prompt token so last-token logits exist) and passes a
+per-row ``wstart`` so re-fed positions attend but never re-write aliased
+pages.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.capture import CapturedStep, addresses
 from repro_torch.device import DeviceLike, to_device, to_host
 
 
@@ -502,11 +507,17 @@ class ChunkedPrefill:
     logits of the requests whose prompt completed; ``run`` is the blocking
     loop."""
 
-    def __init__(self, model, params, pool: PagedKVPool, *, chunk: int = 64):
+    def __init__(self, model, params, pool: PagedKVPool, *, chunk: int = 64,
+                 jit: bool = True):
+        """chunk: tokens fed per step per request.  jit: run each chunk as a
+        captured step ("prefill_chunk": a CUDA graph per (pending rows,
+        chunk) on the card, eager on the CPU), as the reference jits it;
+        False runs it eagerly."""
         self.model = model
         self.params = params
         self.pool = pool
         self.chunk = int(chunk)
+        self._step = CapturedStep(self._prefill_chunk, "prefill_chunk") if jit else None
         # slot -> (prompt, fed, wstart): next feed offset + write floor
         self._pending: Dict[int, Tuple[np.ndarray, int, int]] = {}
         self._unclaimed: Dict[int, np.ndarray] = {}  # finished during run()
@@ -545,12 +556,13 @@ class ChunkedPrefill:
             self.pool.ensure(s, fed + n)
             self.pool.make_writable(s, max(fed, ws), fed + n)
         dev = self.pool.device
-        starts, ns, wstarts = to_device(ints, dev)
-        lg = self.model.prefill_chunk_paged(
-            self.params, self.pool.k, self.pool.v,
-            to_device(self.pool.table[slots], dev), to_device(toks, dev),
-            starts, ns, wstarts)
-        (lg,) = to_host(lg)
+        args = (to_device(self.pool.table[slots], dev), to_device(toks, dev),
+                *to_device(ints, dev))
+        if self._step is None:
+            lg = self._prefill_chunk(*args)
+        else:
+            lg = self._step(*args, key=addresses((*self.pool.k, *self.pool.v)))
+        (lg,) = to_host(lg)                 # read back before the next replay
         for i, s in enumerate(slots):
             prompt, fed, ws = self._pending[s]
             fed += int(ints[1, i])
@@ -561,6 +573,13 @@ class ChunkedPrefill:
             else:
                 self._pending[s] = (prompt, fed, ws)
         return finished
+
+    def _prefill_chunk(self, table, tokens, starts, ns, wstarts) -> torch.Tensor:
+        """One chunk for the pending rows (table (R, maxp), tokens (R, C),
+        starts / ns / wstarts (R,)): K/V written into the pool's pages in
+        place; the last valid token's logits (R, V)."""
+        return self.model.prefill_chunk_paged(self.params, self.pool.k, self.pool.v, table,
+                                              tokens, starts, ns, wstarts)
 
     def run_batch(self, prompts: np.ndarray, reserve_tokens: int) -> np.ndarray:
         """Prefill prompts (B, S) into slots 0..B-1, each reserving

@@ -24,11 +24,12 @@ as float32 numpy arrays, as in the JAX package.  ``generate`` and
 ``score_nll`` drive any backend through this protocol.
 
 ``DenseBackend(jit=True)`` (the default, as the reference jits its steps)
-runs its decode step on either KV layout as a captured step
-(``capture.CapturedStep``): a CUDA graph per batch shape on the card, eager
-on the CPU.  Prefill, joins and chunked prefill stay eager.  The offload
-engine captures the fixed-shape part of each MoE layer itself, whatever
-``BackendConfig.jit`` says (``core/engine.py``).
+runs its decode step on either KV layout, and on paged KV each chunk of
+chunked prefill, as a captured step (``capture.CapturedStep``): a CUDA
+graph per batch shape on the card, eager on the CPU.  The one-shot dense-KV
+prefill and joins stay eager (each prompt shape comes once).  The offload
+engine captures its decode step's device work and its chunked admission
+itself, whatever ``BackendConfig.jit`` says (``core/engine.py``).
 """
 
 from __future__ import annotations
@@ -100,7 +101,8 @@ class DenseBackend:
     ``jit=True`` runs the decode step as a captured step ("serve_step": a
     CUDA graph replayed per step on the card, keyed by the batch shape and
     the KV buffers it writes; ``start_batch`` drops the graphs with the
-    buffers); ``jit=False`` runs it eagerly.
+    buffers), and on paged KV each prefill chunk ("prefill_chunk");
+    ``jit=False`` runs both eagerly.
 
     ``paged=True`` swaps the per-slot (B, max_len) cache for a shared
     `PagedKVPool` (page_size-token pages, a pool of `kv_pages` pages —
@@ -147,7 +149,7 @@ class DenseBackend:
                                         page_size=self.page_size, num_pages=self.kv_pages,
                                         prefix_sharing=self.prefix_sharing)
         self._admission = ChunkedPrefill(self.model, self.params, self.kv,
-                                         chunk=self.prefill_chunk)
+                                         chunk=self.prefill_chunk, jit=self._jit)
 
     def prefill(self, prompts) -> np.ndarray:
         """Full-batch prefill; paged: chunked, every row reserving max_len."""

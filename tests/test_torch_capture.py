@@ -159,7 +159,8 @@ def test_prefill_step_refuses_frontend_inputs(models):
 def test_dense_backend_jit_equals_eager_and_reference(models, paged):
     """Greedy tokens and per-step logits of jit=True equal jit=False exactly
     (the same eager code on the CPU), and the tokens equal the reference's
-    decode.generate; only the captured run counts serve_step.eager."""
+    decode.generate; only the captured run counts serve_step.eager, and on
+    paged KV prefill_chunk.eager (8-token prompts in 4-token chunks)."""
     _, _, _, port, tparams = models
     runs = {}
     for jit in (True, False):
@@ -177,15 +178,18 @@ def test_dense_backend_jit_equals_eager_and_reference(models, paged):
     np.testing.assert_array_equal(runs[True][2], runs[False][2])
     np.testing.assert_array_equal(runs[True][0], _ref_tokens(models, True))
     assert runs[True][1]["serve_step.eager"] == NEW - 1
-    assert "serve_step.eager" not in runs[False][1]
-    kernels = {k: v for k, v in runs[True][1].items() if not k.startswith("serve_step.")}
+    assert runs[True][1].get("prefill_chunk.eager", 0) == (2 if paged else 0)
+    assert not any(k.startswith(("serve_step.", "prefill_chunk.")) for k in runs[False][1])
+    kernels = {k: v for k, v in runs[True][1].items()
+               if not k.startswith(("serve_step.", "prefill_chunk."))}
     assert kernels == runs[False][1]            # the same launches on either route
 
 
 def test_engine_segments_run_eagerly_on_cpu():
-    """The grouped path's embed, per-layer segment and logits go through
-    their captured steps: on the CPU each step counts one eager call per
-    MoE layer; nothing is captured or replayed."""
+    """The grouped path's embed, per-layer segment, grouped FFN and logits
+    go through their captured steps: on the CPU the segment and the FFN
+    count one eager call per MoE layer and step, the embed and the logits
+    one per step; nothing is captured or replayed."""
     models = _load("mixtral")
     _, _, _, port, tparams = models
     n = port.cfg.num_layers * port.cfg.moe.num_experts
@@ -201,9 +205,72 @@ def test_engine_segments_run_eagerly_on_cpu():
     steps = NEW - 1
     want = {"engine_embed.eager": steps, "engine_logits.eager": steps}
     want.update({f"engine_layer{mi}.eager": steps for mi in range(port.cfg.num_layers)})
+    want["engine_ffn.eager"] = steps * port.cfg.num_layers
     got = {k: v for k, v in counts.items() if k.startswith("engine_")}
     assert got == want
     assert counts["gating_topk.torch"] == steps * port.cfg.num_layers
+    # the fixed-shape FFN: one launch of each grouped kernel per MoE layer and step
+    for op, per_layer in (("grouped_matmul", 2), ("grouped_dequant_matmul", 1),
+                          ("grouped_dequant_combine", 1)):
+        assert counts[f"{op}.torch"] == per_layer * steps * port.cfg.num_layers, op
+
+
+# --------------------------------------------------------------------------
+# ChunkedPrefill(jit=)
+# --------------------------------------------------------------------------
+def _admissions(adm, pool, prompts):
+    """Three admissions through a ChunkedPrefill of chunk 5 on a pool of
+    4-token pages: the first two blocking (the second aliases the first's
+    prefix and copies a shared partial page on write), the third stepped.
+    Returns the last-token logits of each."""
+    out = [adm.run(slot, p, len(p) + 8) for slot, p in enumerate(prompts[:2])]
+    adm.begin(2, prompts[2], 12)
+    done = {}
+    while 2 not in done:
+        done.update(adm.step())
+    return np.stack(out + [done[2]])
+
+
+def _shared_prompts(vocab):
+    rng = np.random.default_rng(3)
+    sys_p = rng.integers(0, vocab, 10)
+    return (sys_p, np.concatenate([sys_p, rng.integers(0, vocab, 6)]),
+            rng.integers(0, vocab, 7))
+
+
+@pytest.mark.parametrize("ref_jit", [True, False], ids=["ref-jit", "ref-eager"])
+def test_chunked_prefill_jit_equals_eager_and_reference(models, ref_jit):
+    """ChunkedPrefill(jit=True) gives jit=False's logits and pool contents
+    exactly (the same eager code on the CPU) and counts one
+    prefill_chunk.eager per chunk step; both equal the reference's
+    ChunkedPrefill(jit=ref_jit) on the same weights and pool (the
+    reference's model tolerance, atol 1e-3)."""
+    from repro.models import kv_pages as rkv
+    from repro_torch.models import kv_pages as tkv
+    _, ref, params, port, tparams = models
+    prompts = _shared_prompts(port.cfg.vocab_size)
+    kw = dict(paged=True, page_size=4)
+    runs = {}
+    for jit in (True, False):
+        pool = port.init_cache(3, 40, "cpu", **kw)
+        adm = tkv.ChunkedPrefill(port, tparams, pool, chunk=5, jit=jit)
+        ops.reset_dispatch_counts()
+        runs[jit] = _admissions(adm, pool, prompts), pool, ops.dispatch_counts()
+    rpool = ref.init_cache(3, 40, **kw)
+    want = _admissions(rkv.ChunkedPrefill(ref, params, rpool, chunk=5, jit=ref_jit), rpool,
+                       prompts)
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    for a, b in zip((*runs[True][1].k, *runs[True][1].v), (*runs[False][1].k, *runs[False][1].v)):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(runs[True][0], want, atol=ATOL)
+    # chunks of 5: the first prompt's 10 tokens in 2, the second's 6 past its
+    # 10 shared tokens in 2, the third's 7 in 2
+    counts = runs[True][2]
+    steps = counts["prefill_chunk.eager"]
+    assert steps == 2 + 2 + 2 and runs[True][1].cow_copies == rpool.cow_copies >= 1
+    assert not any(k.startswith("prefill_chunk.") for k in runs[False][2])
+    kernels = {k: v for k, v in counts.items() if not k.startswith("prefill_chunk.")}
+    assert kernels == runs[False][2]
 
 
 # --------------------------------------------------------------------------
@@ -328,6 +395,17 @@ def test_gating_input_similarity_matches_reference(shape, max_dist):
 _HOST_READS = {"item", "cpu", "tolist", "nonzero", "numpy", "synchronize"}
 
 
+def _assert_no_host_reads(tree, where: str) -> None:
+    import ast
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            name = node.func.attr
+            assert name not in _HOST_READS, f"{where}:{node.lineno} calls .{name}()"
+            owner = node.func.value
+            assert not (name == "tensor" and isinstance(owner, ast.Name)
+                        and owner.id == "torch"), f"{where}:{node.lineno} torch.tensor()"
+
+
 @pytest.mark.parametrize("module", ["models/layers.py", "models/moe.py", "models/model.py",
                                     "kernels/ops.py", "capture.py"])
 def test_captured_code_has_no_host_reads(module):
@@ -337,11 +415,29 @@ def test_captured_code_has_no_host_reads(module):
     import ast
     import pathlib
     path = pathlib.Path(capture.__file__).parent / module
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
-            name = node.func.attr
-            assert name not in _HOST_READS, f"{module}:{node.lineno} calls .{name}()"
-            owner = node.func.value
-            assert not (name == "tensor" and isinstance(owner, ast.Name)
-                        and owner.id == "torch"), f"{module}:{node.lineno} torch.tensor()"
+    _assert_no_host_reads(ast.parse(path.read_text()), module)
+
+
+@pytest.mark.parametrize("module,function", [
+    ("core/engine.py", "grouped_ffn"),
+    ("core/engine.py", "OffloadEngine._ffn"),
+    ("core/engine.py", "OffloadEngine._layer_segment"),
+    ("core/engine.py", "OffloadEngine._attn_layer"),
+    ("core/engine.py", "OffloadEngine._embed"),
+    ("core/engine.py", "OffloadEngine._logits"),
+    ("models/kv_pages.py", "ChunkedPrefill._prefill_chunk"),
+    ("serving/api.py", "DenseBackend._decode"),
+])
+def test_captured_functions_have_no_host_reads(module, function):
+    """The functions captured from modules that also hold host code (the
+    engine's segment and grouped FFN, the chunked-prefill step, the dense
+    backend's decode step) read nothing back to the host either."""
+    import ast
+    import pathlib
+    tree = ast.parse((pathlib.Path(capture.__file__).parent / module).read_text())
+    scope = tree.body
+    for part in function.split("."):
+        node = next(n for n in scope if isinstance(n, (ast.ClassDef, ast.FunctionDef))
+                    and n.name == part)
+        scope = node.body
+    _assert_no_host_reads(node, f"{module}:{function}")

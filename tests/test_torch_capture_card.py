@@ -10,7 +10,15 @@ runs on the machine with the card:
   the eager run (a replay adds its captured launches);
 * ``start_batch`` drops the graphs with the buffers they bake in;
 * ``CapturedStep`` around one kernel: replays agree with the plain version
-  and count one launch each.
+  and count one launch each;
+* the offload engine's grouped FFN (one graph for every MoE layer, fixed
+  pair count B * top_k) on both KV layouts: every call after the first
+  replays, and a replay on a fixed input equals the eager call bit for bit;
+* ``ChunkedPrefill(jit=True)``: chunks after the first replay, and the
+  logits and the pool's pages equal ``jit=False``'s bit for bit;
+* ``kops.grouped_matmul`` against its plain version (rtol/atol 1e-4:
+  float32 sums in another order), pads and shared slots, one and several
+  K spans, ragged N, bf16 and float32, two calls bit-identical.
 """
 
 import dataclasses
@@ -21,8 +29,10 @@ import torch
 
 from repro_torch import capture
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.kernels import ops
+from repro_torch.core import EngineConfig, OffloadEngine
+from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model
+from repro_torch.models.kv_pages import ChunkedPrefill
 from repro_torch.serving import api
 
 
@@ -62,7 +72,11 @@ def test_dense_backend_replay_equals_eager_on_card(card, paged):
     counts = logits[True][1]
     assert counts["serve_step.capture"] == 1 and counts["serve_step.graph"] == 4
     assert "serve_step.eager" not in counts
-    kernels = {k: v for k, v in counts.items() if not k.startswith("serve_step.")}
+    # paged: the prefill's one chunk is the captured chunk step's warm-up
+    assert counts.get("prefill_chunk.capture", 0) == (1 if paged else 0)
+    assert "prefill_chunk.eager" not in counts
+    kernels = {k: v for k, v in counts.items()
+               if not k.startswith(("serve_step.", "prefill_chunk."))}
     assert kernels == logits[False][1]          # launches grow on every replay
 
 
@@ -93,3 +107,82 @@ def test_captured_step_counts_launches_on_replay(card):
     for out in outs:
         for got, w in zip(out, want):
             torch.testing.assert_close(got.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+def _mixtral():
+    cfg = smoke_variant(get_config("mixtral-8x7b"), layers=2, d_model=256, vocab=512)
+    return build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense-kv", "paged-kv"])
+def test_engine_ffn_replay_equals_eager_on_card(card, paged):
+    port = _mixtral()
+    eng = OffloadEngine(port, port.init(0, device=card), EngineConfig(
+        hi_slots=3, lo_slots=2, async_prefetch=False, paged_kv=paged))
+    hob = api.HobbitBackend(eng)
+    rng = np.random.default_rng(1)
+    steps = 4
+    try:
+        hob.start_batch(2, 32)
+        ops.reset_dispatch_counts()
+        hob.prefill(_prompts(port.cfg))
+        for _ in range(steps):
+            hob.step(rng.integers(0, port.cfg.vocab_size, 2))
+        counts = ops.dispatch_counts()
+        calls = steps * eng.num_moe_layers
+        assert counts["engine_ffn.capture"] == 1 and counts["engine_ffn.graph"] == calls - 1
+        assert "engine_ffn.eager" not in counts and eng._ffn_step.graphs == 1
+        assert counts["grouped_matmul.cuda"] == 2 * calls
+        assert counts["grouped_dequant_combine.cuda"] == calls
+        g = torch.Generator(device=card).manual_seed(2)
+        hs = torch.randn((2, port.cfg.d_model), generator=g, device=card).to(torch.bfloat16)
+        x = torch.randn((2, 1, port.cfg.d_model), generator=g, device=card).to(torch.bfloat16)
+        replay = eng._ffn_step(hs, x, key=eng._ffn_key()).clone()
+        assert ops.dispatch_counts()["engine_ffn.graph"] == calls
+        eager = eng._ffn(hs, x)
+        assert torch.equal(replay, eager)
+    finally:
+        hob.close()
+
+
+@pytest.mark.cuda
+def test_chunked_prefill_replay_equals_eager_on_card(card):
+    port = _granite()
+    params = port.init(0, device=card)
+    prompts = np.random.default_rng(4).integers(0, port.cfg.vocab_size, (2, 20))
+    runs = {}
+    for jit in (True, False):
+        pool = port.init_cache(2, 40, card, paged=True, page_size=16)
+        adm = ChunkedPrefill(port, params, pool, chunk=4, jit=jit)
+        ops.reset_dispatch_counts()
+        runs[jit] = adm.run_batch(prompts, 40), pool, ops.dispatch_counts()
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    for a, b in zip((*runs[True][1].k, *runs[True][1].v), (*runs[False][1].k, *runs[False][1].v)):
+        assert torch.equal(a, b)
+    counts = runs[True][2]
+    assert counts["prefill_chunk.capture"] == 1 and counts["prefill_chunk.graph"] == 4
+    assert "prefill_chunk.eager" not in counts
+    kernels = {k: v for k, v in counts.items() if not k.startswith("prefill_chunk.")}
+    assert kernels == runs[False][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k,n,slots", [
+    (64, 256, [0]), (1000, 264, [1, 1]), (3000, 512, [0, 2, 2, 2, 2, 2, 2, 2]),
+    (4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1]), (512, 128, [3] * 9)],
+    ids=["one pair", "2 on 1 slot, ragged", "8 pairs 6 pads", "P=11 shared", "9 on 1 slot"])
+def test_grouped_matmul_equals_plain_on_card(card, dtype, k, n, slots):
+    g = torch.Generator(device=card).manual_seed(k + n)
+    dt = getattr(torch, dtype)
+    x = torch.randn((len(slots), k), generator=g, device=card).to(dt)
+    w = (torch.randn((max(slots) + 1, k, n), generator=g, device=card) * 0.05).to(dt)
+    slot = torch.tensor(slots, dtype=torch.int32, device=card)
+    ops.reset_dispatch_counts()
+    got = ops.grouped_matmul(x, w, slot)
+    again = ops.grouped_matmul(x, w, slot)
+    torch.cuda.synchronize()
+    assert ops.dispatch_counts() == {"grouped_matmul.cuda": 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.grouped_matmul_ref(x, w, slot), rtol=1e-4, atol=1e-4)

@@ -148,26 +148,70 @@ def test_join_release_pause_resume_match_reference(models):
 
 def test_lo_pairs_per_launch_counts_every_grouped_launch(models):
     """stats()["lo_pairs_per_launch"]: one histogram entry per grouped lo
-    launch pair, each the number of (row, expert) pairs it carried."""
+    launch pair — one per MoE layer and decode step, at the fixed pair
+    count B * top_k, as the reference launches them — each the number of
+    real (row, expert) pairs it carried (0 for a launch of pads only); the
+    real pairs add up to the lo decisions of the trace."""
+    from repro_torch.core.scoring import PREC_LO
     from repro_torch.kernels import ops as kops
     cfg, _, _, port, tparams = models
     eng = OffloadEngine(port, tparams, EngineConfig(hi_slots=3, lo_slots=2,
                                                     async_prefetch=False))
     tb = HobbitBackend(eng)
     rng = np.random.default_rng(3)
+    steps = 4
     try:
         tb.start_batch(2, 32)
         kops.reset_dispatch_counts()
         tb.prefill(rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32))
-        for _ in range(4):
+        for _ in range(steps):
             tb.step(rng.integers(0, cfg.vocab_size, 2).astype(np.int32))
         st = eng.stats()
         lo = st["lo_pairs_per_launch"]
         launches = st["kernel_dispatch"].get("grouped_dequant_matmul.torch", 0)
-        assert launches > 0 and lo["launches"] == launches
+        assert launches == steps * eng.num_moe_layers and lo["launches"] == launches
+        assert st["kernel_dispatch"]["grouped_dequant_combine.torch"] == launches
         assert sum(lo["hist"].values()) == launches
-        assert 1 <= lo["min"] <= lo["median"] <= lo["max"] <= 2 * cfg.moe.top_k
+        assert 0 <= lo["min"] <= lo["median"] <= lo["max"] <= 2 * cfg.moe.top_k
         assert lo["min"] == min(lo["hist"]) and lo["max"] == max(lo["hist"])
+        lo_decisions = sum(int((precision_decisions(np.asarray(t.gate_vals),
+                                                    eng.loader.th) == PREC_LO).sum())
+                           for row in eng.trace for t in row)
+        assert lo_decisions > 0
+        assert sum(n * c for n, c in lo["hist"].items()) == lo_decisions
+    finally:
+        tb.close()
+
+
+def test_hi_pairs_per_launch_counts_every_grouped_launch(models):
+    """stats()["hi_pairs_per_launch"]: one histogram entry per MoE layer and
+    decode step (the grouped hi product pair launches on every layer at
+    the fixed pair count), each its real hi pairs, adding up to the hi
+    decisions of the trace (synchronous loading: no downgrades)."""
+    from repro_torch.core.scoring import PREC_HI
+    from repro_torch.kernels import ops as kops
+    cfg, _, _, port, tparams = models
+    eng = OffloadEngine(port, tparams, EngineConfig(hi_slots=3, lo_slots=2,
+                                                    async_prefetch=False))
+    tb = HobbitBackend(eng)
+    rng = np.random.default_rng(5)
+    steps = 4
+    try:
+        tb.start_batch(2, 32)
+        kops.reset_dispatch_counts()
+        tb.prefill(rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32))
+        for _ in range(steps):
+            tb.step(rng.integers(0, cfg.vocab_size, 2).astype(np.int32))
+        st = eng.stats()
+        hi = st["hi_pairs_per_launch"]
+        assert hi["launches"] == steps * eng.num_moe_layers == sum(hi["hist"].values())
+        assert st["kernel_dispatch"]["grouped_matmul.torch"] == 2 * hi["launches"]
+        assert 0 <= hi["min"] <= hi["median"] <= hi["max"] <= 2 * cfg.moe.top_k
+        hi_decisions = sum(int((precision_decisions(np.asarray(t.gate_vals),
+                                                    eng.loader.th) == PREC_HI).sum())
+                           for row in eng.trace for t in row)
+        assert hi_decisions > 0
+        assert sum(n * c for n, c in hi["hist"].items()) == hi_decisions
     finally:
         tb.close()
 

@@ -22,7 +22,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 # the port, chip_smoke.py and the root timing scripts that import the port
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "router_host_time.py",
-                                      ROOT / "grouped_dequant_time.py"]
+                                      ROOT / "grouped_dequant_time.py",
+                                      ROOT / "engine_step_time.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -95,7 +96,7 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
         pytest.skip("a CUDA card is present; chip_smoke.py runs the kernels")
     for fn in ("gating_topk_ref", "stacked_gating_ref", "grouped_dequant_matmul_ref",
                "grouped_dequant_combine_ref", "paged_flash_decode_ref", "dequant_matmul_ref",
-               "flash_decode_ref"):
+               "flash_decode_ref", "grouped_matmul_ref"):
         monkeypatch.setattr(ref, fn, _fail_if_called)
     ops.reset_dispatch_counts()
     with FakeTensorMode():
@@ -123,6 +124,8 @@ def test_cuda_tensors_without_cuda_raise_instead_of_falling_back(monkeypatch):
                 torch.empty(2, 8, 128, device=dev, dtype=torch.bfloat16),
                 torch.empty(2, 64, 2, 128, device=dev, dtype=torch.bfloat16),
                 torch.empty(2, 64, 2, 128, device=dev, dtype=torch.bfloat16), slot),
+            lambda: ops.grouped_matmul(x, torch.empty(3, 128, 64, device=dev,
+                                                      dtype=torch.bfloat16), slot),
         ]
         for call in calls:
             with pytest.raises(RuntimeError):
