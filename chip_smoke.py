@@ -24,9 +24,10 @@ and each printing its seconds:
                no TPU kernel: the reference's jitted hi einsum) at
                Mixtral's wi and wo shapes, P = 1, 2, 4, 8, two pairs on one
                slot and 8 pairs with 6 pads, timed beside its bytes bound
-               and torch.matmul on one pool view, then float32, ragged N,
-               K off the span and more than 8 pairs on a slot, each
-               bit-identical over two calls; an out-of-range pool slot (a
+               and torch.matmul on the pool views (P in one graph), with
+               its plan and weight bytes per SM, then float32, ragged N,
+               K off the ring's stage, 9 and 17 pairs on a slot and 1024
+               pairs, each bit-identical over two calls; an out-of-range pool slot (a
                pad's too) must abort both grouped dequant kernels and the
                grouped GEMV, and an out-of-range page id the paged
                flash-decode kernel (checked in child processes);
@@ -823,10 +824,12 @@ def _grouped_matmul_row(dev, g) -> dict:
     28672, wo 14336 -> 4096, bf16), at every P of GMM_CASES, against the
     plain version; timed from CUDA-graph replays with two pool copies in
     turn (each expert matrix is larger than the 50 MB L2 anyway), beside
-    the bytes bound over the distinct slots and ``torch.matmul`` on one
-    pool view (M = 1).  Then edge variants at small shapes (float32, ragged
-    N, K off the span, more than 8 pairs on a slot), and the layout
-    constants held to ops.py's mirror."""
+    the bytes bound over the distinct slots, ``torch.matmul`` on one pool
+    view (M = 1) and P such products in one graph (the yardstick at every
+    P), with the plan (ranks, clusters) and the schedule's weight tiles per
+    SM.  Then edge variants at small shapes (float32, ragged N, K off the
+    ring's stage, more than 8 pairs on a slot, the 1024-pair maximum), and
+    the layout constants held to ops.py's mirror."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
 
@@ -838,7 +841,6 @@ def _grouped_matmul_row(dev, g) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err, by_shape = 0.0, {}
     for wname, (k, n) in (("wi", (d, 2 * f)), ("wo", (f, d))):
-        span, spans = ops.grouped_matmul_plan(k, n, 2, sms)
         by_p = {}
         for name, sl in GMM_CASES.items():
             p, s_ = len(sl), max(sl) + 1
@@ -851,35 +853,49 @@ def _grouped_matmul_row(dev, g) -> dict:
             ms = graph_ms(_cycling(calls))
             call = cuda_ms(calls[0])
             plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, pools[0], slot), warmup=1, iters=3)
-            lib = None
-            if p == 1:
-                views = [lambda w=w: torch.matmul(x, w[0]) for w in pools]
-                lib = graph_ms(_cycling(views))
+            # P products, each on its pair's pool view, as one graph would run them
+            views = [lambda w=w: [torch.matmul(x[i:i + 1], w[sl[i]]) for i in range(p)]
+                     for w in pools]
+            matmul = graph_ms(_cycling(views))
+            plan = ops._grouped_matmul_plan_for(k, n, p, dev)
+            groups = len(ops.grouped_matmul_groups(sl))
+            # each block's weight MB: its tiles by its rank's rows (edges included)
+            mb = [sum(w for _, _, w, _, _ in work) * ops.GMM_TILE_N * plan.rows * 2 / 1e6
+                  for work in ops.grouped_matmul_schedule(plan, groups)]
             distinct = len(set(sl))
             moved = nbytes(x, slot) + p * n * 4 + distinct * k * n * 2
             bms, by = bound(moved, 2 * p * k * n, BF16_FLOPS)
             by_p[name] = dict(p=p, slots=distinct, ms=ms, call_ms=call, plain_ms=plain,
-                              library_ms=lib, bound_ms=bms, bound_by=by, of_bound=bms / ms,
-                              gbps=moved / ms / 1e6)
+                              matmul_ms=matmul, library_ms=matmul if p == 1 else None,
+                              bound_ms=bms, bound_by=by, of_bound=bms / ms,
+                              gbps=moved / ms / 1e6, ranks=plan.ranks, clusters=plan.clusters,
+                              sm_mb_max=max(mb), sm_mb_min=min(mb))
             print(f"[kernels] grouped_matmul {wname} {name}: {ms:.4f} ms on the card "
                   f"({moved / ms / 1e6:.0f} GB/s; {distinct} distinct slots; bound {bms:.4f} ms "
-                  f"by {by}, {bms / ms:.0%} of it), {call:.4f} ms per call, plain {plain:.3f} ms"
-                  + (f", torch.matmul on one pool view {lib:.4f} ms" if lib else ""), flush=True)
-            del pools, calls, x
+                  f"by {by}, {bms / ms:.0%} of it), {call:.4f} ms per call, plain {plain:.3f} ms, "
+                  f"torch.matmul on the pool views ({p} in one graph) {matmul:.4f} ms; "
+                  f"{plan.ranks} ranks x {plan.clusters} clusters, weight MB per SM "
+                  f"{min(mb):.2f}-{max(mb):.2f} over {len(mb)} blocks", flush=True)
+            del pools, calls, views, x
             torch.cuda.empty_cache()
-        by_shape[wname] = dict(k=k, n=n, span=span, spans=spans, by_pairs=by_p)
-    regs, local, blocks = ops.grouped_matmul_info(True, 8)
-    print(f"[kernels] grouped_matmul: wi spans {by_shape['wi']['spans']} x "
-          f"{by_shape['wi']['span']} rows, wo {by_shape['wo']['spans']} x "
-          f"{by_shape['wo']['span']}; {regs} registers, {local} bytes of local memory per "
-          f"thread, {blocks} blocks/SM (bf16, 8 pairs)", flush=True)
+        by_shape[wname] = dict(k=k, n=n, by_pairs=by_p)
+    info = ops.grouped_matmul_info(True, 8)
+    print(f"[kernels] grouped_matmul: {info.regs} registers, {info.local_bytes} bytes of local "
+          f"memory per thread, {info.blocks_per_sm} blocks/SM, {info.smem} bytes of shared "
+          f"memory per block (bf16, 8 pairs); clusters at once by ranks {info.clusters}",
+          flush=True)
     edges = []
+    rng = np.random.default_rng(5)
     for label, k, n, sl, dt in (
             ("float32", 1024, 256, [0, 2, 2, 1], torch.float32),
             ("ragged N=264, K=1000", 1000, 264, [1, 1, 0], torch.bfloat16),
             ("float32 ragged N=132", 3000, 132, [0, 1], torch.float32),
             ("9 pairs on 1 slot", 512, 256, [2] * 9, torch.bfloat16),
-            ("P=11 shared slots", 4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1], torch.bfloat16)):
+            ("P=11 shared slots", 4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1], torch.bfloat16),
+            ("17 pairs on 1 slot, K=520, N=136", 520, 136, [3] * 17, torch.bfloat16),
+            ("1024 pairs", 192, 200, rng.integers(0, 40, 1024).tolist(), torch.bfloat16),
+            ("float32 1024 pairs", 192, 200, rng.integers(0, 40, 1024).tolist(),
+             torch.float32)):
         x = torch.randn((len(sl), k), generator=g, device=dev).to(dt)
         w = (torch.randn((max(sl) + 1, k, n), generator=g, device=dev) * 0.05).to(dt)
         err = max(err, _gmm_check(label, x, w, torch.tensor(sl, dtype=torch.int32, device=dev)))
@@ -894,8 +910,8 @@ def _grouped_matmul_row(dev, g) -> dict:
                 max_abs_err=err, ms=head["ms"], call_ms=head["call_ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
-                regs=regs, local_bytes=local, blocks_per_sm=blocks,
-                tolerance="rtol 1e-4 atol 1e-4", by_shape=by_shape,
+                regs=info.regs, local_bytes=info.local_bytes, blocks_per_sm=info.blocks_per_sm,
+                smem_bytes=info.smem, tolerance="rtol 1e-4 atol 1e-4", by_shape=by_shape,
                 note="ms, bound, plain and torch.matmul at wi (4096 x 28672), P = 1; wo "
                      "and every P under by_shape")
 

@@ -26,7 +26,9 @@ Reports, beside the card's name and power limit, one JSON line:
     steps' routes (``ops.dispatch_counts()``);
   * a ``torch.profiler`` window of 3 steps: kernels per step, device busy
     share, and the host's launch calls per step by name (kernel launches,
-    graph launches, async copies) — what the host issues for the card.
+    graph launches, async copies) — what the host issues for the card;
+    and the device time per step of the 10 kernels that take the most,
+    by name, with their launches per step.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ WINDOW = 3
 # host runtime calls that hand the card work
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync")
+TOP_KERNELS = 10
 
 
 def main() -> int:
@@ -120,6 +123,7 @@ def main() -> int:
     for e in events:
         if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS:
             calls[e.key] = calls.get(e.key, 0) + e.count / WINDOW
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_KERNELS]
     layer_steps = steps * eng.num_moe_layers
     per_layer = {k: v / layer_steps for k, v in sorted(counts.items())
                  if not k.startswith(("engine_embed.", "engine_logits.", "serve_step."))
@@ -139,6 +143,11 @@ def main() -> int:
         "window_device_busy_share": (busy_us / 1e6 / window_s if busy_us > 0
                                      else "not measured"),
         "window_host_launch_calls_per_step": calls,
+        "window_kernel_ms_per_step": (busy_us / 1e3 / WINDOW if busy_us > 0
+                                      else "not measured"),
+        "window_top_kernels": [{"name": e.key[:160],
+                                "ms_per_step": e.self_device_time_total / 1e3 / WINDOW,
+                                "launches_per_step": e.count / WINDOW} for e in top],
     }
     print(json.dumps(out), flush=True)
     return 0

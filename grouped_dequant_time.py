@@ -1,5 +1,5 @@
-"""Device and host time of the grouped lo-expert pair on the card, for one
-checkout.
+"""Device and host time of the grouped lo-expert pair, or of the hi experts'
+grouped GEMV, on the card, for one checkout.
 
     python3 grouped_dequant_time.py [--src DIR] [--calls N] [--op OP]
 
@@ -28,8 +28,16 @@ codes, group 64, bf16 x; seeded random codes and scales):
     synchronisation): median, 10th and 90th percentiles of N calls after 20
     untimed ones.
 
-``--op`` times one of the two ops.  Needs one CUDA card and ``nvcc``;
-prints the card's name and power limit, then one JSON line.
+``--op`` times one of the two ops.  ``--op grouped_matmul`` times the hi
+experts' grouped GEMV instead, at Mixtral-8x7B's hi shapes in bf16 (wi: K
+4096, N 28672; wo: K 14336, N 4096; seeded random weights) for the pair
+cases of ``chip_smoke.py``'s GMM_CASES (P = 1, 2, 4, 8 on as many slots,
+two pairs on one slot, 8 pairs of which 6 pads repeat a slot), cold in L2
+as above, device, spaced and host time as above, beside P ``torch.matmul``
+products on the pairs' pool views in one graph (``matmul_ms``).  The
+wrapper's signature is the same in every commit that has it, so this
+times two commits' kernels.  Needs one CUDA card and ``nvcc``; prints the
+card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -54,6 +62,10 @@ CASES = [("P=1", 1, [0], [0]), ("P=2", 1, [0, 0], [0, 1]),
          ("P=5", 3, [0, 0, 1, 1, 2], [0, 1, 2, 3, 4]),
          ("P=8", 4, [0, 0, 1, 1, 2, 2, 3, 3], list(range(8))),
          ("P=2 one slot", 1, [0, 0], [0, 0])]
+# the hi GEMV's cases: (name, each pair's pool slot); pads repeat the last
+# real pair's slot, as the engine pads
+GMM_CASES = [("P=1", [0]), ("P=2", [0, 1]), ("P=4", [0, 1, 2, 3]), ("P=8", list(range(8))),
+             ("2 pairs on 1 slot", [0, 0]), ("8 pairs, 6 pads", [0, 1, 1, 1, 1, 1, 1, 1])]
 
 
 def graph_ms(fn, launches: int = 20, replays: int = 20, between=None) -> float:
@@ -102,7 +114,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   "src"))
     ap.add_argument("--calls", type=int, default=200)
-    ap.add_argument("--op", choices=("grouped_dequant_matmul", "grouped_dequant_combine"))
+    ap.add_argument("--op", choices=("grouped_dequant_matmul", "grouped_dequant_combine",
+                                     "grouped_matmul"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("grouped_dequant_time.py: no CUDA card", file=sys.stderr)
@@ -119,6 +132,8 @@ def main() -> int:
     one = torch.zeros(1, device=dev)
     spacer = one.add_                       # a one-element PyTorch kernel
     out["spacer_ms"] = graph_ms(lambda: spacer(1.0))
+    if args.op == "grouped_matmul":
+        return time_grouped_matmul(ops, dev, g, out, spacer, args.calls)
     pack = 8 // BITS
     for op in ("grouped_dequant_matmul", "grouped_dequant_combine"):
         if args.op and op != args.op:
@@ -158,6 +173,40 @@ def main() -> int:
                       file=sys.stderr)
                 return 1
             del pools, calls, cycle
+            torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def time_grouped_matmul(ops, dev, g, out: dict, spacer, calls_n: int) -> int:
+    """``--op grouped_matmul``: the hi GEMV at Mixtral's wi and wo shapes for
+    every GMM_CASES entry; prints the JSON line."""
+    for wname, (k, n) in (("wi", (D, 2 * F)), ("wo", (F, D))):
+        for name, slots in GMM_CASES:
+            p, s = len(slots), max(slots) + 1
+            per = s * k * n * 2
+            pools = [(torch.randn((s, k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                     for _ in range(max(2, -(-L2_CYCLE_BYTES // per)))]
+            x = torch.randn((p, k), generator=g, device=dev).to(torch.bfloat16)
+            slot = torch.tensor(slots, dtype=torch.int32, device=dev)
+            calls = [lambda w=w: ops.grouped_matmul(x, w, slot) for w in pools]
+            views = [lambda w=w: [torch.matmul(x[i:i + 1], w[slots[i]]) for i in range(p)]
+                     for w in pools]
+            cycle = itertools.cycle(calls)
+            vcycle = itertools.cycle(views)
+            ops.reset_dispatch_counts()
+            out[f"grouped_matmul {wname} {name}"] = {
+                "k": k, "n": n, "p": p, "slots": len(set(slots)), "pool_copies": len(pools),
+                "device_ms": graph_ms(lambda: next(cycle)()),
+                "spaced_ms": graph_ms(lambda: next(cycle)(), between=lambda: spacer(1.0)),
+                "host_ms": host_ms(calls[0], calls_n),
+                "matmul_ms": graph_ms(lambda: next(vcycle)())}
+            counts = ops.dispatch_counts()
+            if any(key.endswith(".torch") for key in counts):
+                print(f"grouped_dequant_time.py: plain versions ran on the card: {counts}",
+                      file=sys.stderr)
+                return 1
+            del pools, calls, views, cycle, vcycle, x
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

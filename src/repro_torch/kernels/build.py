@@ -74,8 +74,9 @@ SIGNATURES = {
         "flash_decode_blocks_per_sm": (_I, _I, _I, _IP),
     },
     "grouped_matmul": {
-        "grouped_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "grouped_matmul_info": (_I, _I, _IP, _IP, _IP),
+        "grouped_matmul_tensor_map": (_P, _I, _I, _I, _P),
+        "grouped_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "grouped_matmul_info": (_I, _I, _I, _IP, _IP, _IP, _IP, _IP),
         "grouped_matmul_layout": (_IP,),
     },
 }

@@ -300,43 +300,12 @@ static_assert(kMmvWarps * kMmvStages * (kMmvCodeBytes + mmv_x_bytes(8)) >=
                   (kMmvWarps + 1) * kPairElems * 4,
               "the warps' sums and the pairs' fit in a ring of 2 stages");
 
-// Cluster barrier halves (PTX): an arrive that releases nothing beyond the
-// fence before it, and the wait; and a full barrier.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
-}
-// The shared-memory address `addr` of this block in the block of `rank`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
 // 4 bytes into another block's shared memory, completing on its mbarrier.
 __device__ __forceinline__ void store_async(uint32_t dst, float v, uint32_t bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
                    dst),
                "r"(__float_as_uint(v)), "r"(bar)
                : "memory");
-}
-// Waits for phase `parity` of an mbarrier that other blocks complete.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
 }
 
 // Block (rank, column tile) of kMmvThreads threads -> columns [128 y,

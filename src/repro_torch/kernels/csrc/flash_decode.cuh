@@ -160,23 +160,6 @@ struct Ring {
   static constexpr int kBytes = kBars + 2 * 8 * kStages;
 };
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Programmatic dependent launch: pass 1 lets the split combine's grid be
-// scheduled early; the combine waits in griddep_wait (mma.cuh) until pass 1
-// is done and visible.
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-// Arrive on mbarrier `bar` once this thread's earlier cp.async copies land
-// (the barrier's expected count includes the arrival).
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
 // Pass 1 (bf16 K/V): block (b * Hkv + h, split) of kRingThreads threads ->
 // the g query heads of kv head h over the split's share of the slot's tokens.
 template <int G, int HD, bool PAGED>

@@ -1,8 +1,9 @@
 // PTX helpers for tensor-core kernels on Hopper (sm_90a), shared by the
-// flash-decode kernels (flash_decode.cuh) and the dense dequant-matmul
-// (dequant_matmul.cu): cp.async copies into shared memory, mbarriers, the
-// wait of a programmatic dependent launch, ldmatrix loads of bf16
-// fragments, mma.sync m16n8k16 bf16 -> float32, and bf16 packing.
+// flash-decode kernels (flash_decode.cuh), the dequant kernels
+// (dequant_matmul.cu, dequant.cu) and the grouped GEMV (grouped_matmul.cu):
+// cp.async copies into shared memory, mbarriers, programmatic dependent
+// launch, thread-block cluster barriers and addresses, ldmatrix loads of
+// bf16 fragments, mma.sync m16n8k16 bf16 -> float32, and bf16 packing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +51,54 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // done and its writes are visible.
 __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: the next grid's blocks may be scheduled
+// (they wait in griddep_wait until this grid is done and visible).
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive on mbarrier `bar` once this thread's earlier cp.async copies land
+// (the barrier's expected count includes the arrival).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Cluster barrier halves (PTX): an arrive that releases nothing beyond the
+// fence before it, and the wait; and a full barrier.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared-memory address `addr` of this block in the block of `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Waits for phase `parity` of an mbarrier that other blocks complete.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {

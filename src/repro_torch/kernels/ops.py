@@ -819,51 +819,175 @@ def _grouped_at(ranks: int, x, data, scale, slot, rows=None, weights=None, *, bi
 # grouped GEMV over the hi-expert pool (bf16 or float32 weights)
 # --------------------------------------------------------------------------
 
-# pairs one pass over a slot serves, the most K rows of a block and their
-# alignment, the most pairs of a launch (kGroup, kMaxSpan, kSpanAlign,
-# kMaxPairs in grouped_matmul.cu; ``grouped_matmul_layout`` reads them from
-# the built kernel)
+# pairs one pass over a slot serves, columns of a tile, rows of a TMA box
+# (a ring stage), ring stages, most tiles a block streams side by side, the
+# most ranks of a cluster and the most pairs of a launch (kGroup, kTileN,
+# kBoxRows, kStages, kSweep, kMaxCluster, kMaxPairs in grouped_matmul.cu;
+# ``grouped_matmul_layout`` reads them from the built kernel)
 GMM_GROUP = 8
-GMM_MAX_SPAN = 2048
-GMM_SPAN_ALIGN = 32
+GMM_TILE_N = 64
+GMM_BOX_ROWS = 128
+GMM_STAGES = 8
+GMM_SWEEP = 8
+GMM_MAX_CLUSTER = 2
 GMM_MAX_PAIRS = 1024
-_GMM_INFO: Dict[tuple, Tuple[int, int, int]] = {}
+# cluster sizes the bf16 kernel launches at
+GMM_RANKS = tuple(range(1, GMM_MAX_CLUSTER + 1))
+_GMM_INFO: Dict[tuple, "GroupedMatmulInfo"] = {}
+_GMM_PLANS: Dict[tuple, "GroupedMatmulPlan"] = {}
 
 
-def grouped_matmul_plan(k: int, n: int, elem_bytes: int, sm_count: int) -> Tuple[int, int]:
-    """(span, spans): the K rows of one block of the grouped GEMV and the
-    blocks that split K, from shapes only.  A block covers 32 lanes x 16
-    bytes of columns (256 bf16); K is cut so that the grid holds about two
-    blocks per SM (the kernel's occupancy), with at most GMM_MAX_SPAN rows
-    (the shared-memory x of a pass) and whole 32-row runs per block.  At
-    Mixtral's expert shapes on the H100: wi (4096 x 28672, 112 column tiles)
-    2 spans of 2048; wo (14336 x 4096, 16 tiles) 16 spans of 896."""
-    tiles = -(-n // (32 * (16 // elem_bytes)))
-    spans = max(-(-k // GMM_MAX_SPAN), (2 * sm_count) // tiles, 1)
-    span = -(-(-(-k // spans)) // GMM_SPAN_ALIGN) * GMM_SPAN_ALIGN
-    return span, -(-k // span)
+class GroupedMatmulPlan(NamedTuple):
+    """How the bf16 grouped GEMV cuts one launch (``grouped_matmul_plan``):
+    a persistent grid of `clusters` thread-block clusters of `ranks` blocks,
+    one block per SM.  The launch's tiles are (group of up to GMM_GROUP pairs
+    on a slot, GMM_TILE_N columns), group-major; cluster c takes a
+    contiguous range of them and rank r streams rows [r * rows, (r + 1) *
+    rows) of K of each, up to GMM_SWEEP tiles side by side
+    (``grouped_matmul_schedule``)."""
+    ranks: int      # blocks of a cluster, each one K range of every tile
+    clusters: int   # clusters of the grid
+    tiles: int      # column tiles of N
+    rows: int       # rows of K a rank streams (whole GMM_BOX_ROWS)
+
+    def ranges(self, k: int):
+        """[k0, k1) rows of K of each rank, in rank order; the last may be
+        empty (its rows past K read as zeros)."""
+        return [(min(k, r * self.rows), min(k, (r + 1) * self.rows))
+                for r in range(self.ranks)]
 
 
-def grouped_matmul_info(w_bf16: bool, pairs: int) -> Tuple[int, int, int]:
-    """(registers, local bytes, blocks per SM at `pairs` pairs) of the
-    grouped GEMV's bf16 or float32 instantiation on the current card;
-    cached."""
+def _even_share(tiles: int, k: int, ranks: int, clusters: int, sm_count: int) -> float:
+    """The busiest block's rows x tiles against an even split of all
+    `tiles` tiles' K rows over the card's SMs (1.0: every SM streams the
+    same bytes)."""
+    units = -(-k // GMM_BOX_ROWS)
+    return tiles * units / sm_count / (-(-tiles // clusters) * -(-units // ranks))
+
+
+def grouped_matmul_plan(k: int, n: int, pairs: int, sm_count: int,
+                        clusters: Dict[int, int]) -> GroupedMatmulPlan:
+    """The bf16 grouped GEMV's grid for `pairs` pairs against K x N expert
+    matrices, from shapes and the card's cluster fit only (the kernel groups
+    the pairs by slot on the card, so the plan cannot know the group count).
+    `clusters`: ranks -> clusters of that size the card runs at once
+    (``grouped_matmul_info``).  For each size in GMM_RANKS the grid is as
+    many clusters as run at once and fit the SMs, and its worth is the
+    busiest block's share of an even split at the worst group count (1 to
+    `pairs`); the best size wins, a smaller one on a tie.  Mixtral's hi
+    shapes on the H100 (132 SMs, 66 clusters of 2): wi (4096 x 28672, 448
+    tiles) and wo (14336 x 4096, 64 tiles) both take 2 ranks, 97% of an
+    even split (one rank alone: 85% and 48%)."""
+    tiles = -(-n // GMM_TILE_N)
+    units = -(-k // GMM_BOX_ROWS)
+    best, best_share = None, -1.0
+    for ranks in GMM_RANKS:
+        grid = min(clusters.get(ranks, 0), sm_count // ranks)
+        if ranks > units or grid < 1:
+            continue
+        share = min(_even_share(g * tiles, k, ranks, grid, sm_count)
+                    for g in range(1, pairs + 1))
+        if share > best_share + 1e-9:
+            best = GroupedMatmulPlan(ranks, grid, tiles, -(-units // ranks) * GMM_BOX_ROWS)
+            best_share = share
+    if best is None:
+        raise ValueError(f"grouped_matmul: no cluster size fits the card ({clusters})")
+    return best
+
+
+def grouped_matmul_groups(slots) -> list:
+    """The kernel's grouping of a launch's pairs (``group_pairs`` in
+    grouped_matmul.cu): (slot, pairs) per group, slots in order of their
+    first pair, each slot's pairs in pair order, GMM_GROUP a group."""
+    by_slot: Dict[int, list] = {}
+    for p, s in enumerate(slots):
+        by_slot.setdefault(int(s), []).append(p)
+    return [(s, ps[i:i + GMM_GROUP]) for s, ps in by_slot.items()
+            for i in range(0, len(ps), GMM_GROUP)]
+
+
+def grouped_matmul_schedule(plan: GroupedMatmulPlan, groups: int) -> list:
+    """Each block's sweeps in the order it streams them, as the kernel walks
+    them (``Sweeps`` in grouped_matmul.cu): block c * ranks + r (cluster c,
+    rank r) gets (group, first tile, tiles, row0, row1) for its cluster's
+    range [c T // clusters, (c + 1) T // clusters) of the T = `groups` *
+    tiles tiles (group-major), cut into runs of at most GMM_SWEEP tiles of
+    one group."""
+    total = groups * plan.tiles
+    out = []
+    for c in range(plan.clusters):
+        t, t1 = c * total // plan.clusters, (c + 1) * total // plan.clusters
+        sweeps = []
+        while t < t1:
+            g, tile0 = divmod(t, plan.tiles)
+            w = min(GMM_SWEEP, t1 - t, plan.tiles - tile0)
+            sweeps.append((g, tile0, w))
+            t += w
+        out += [[(g, tile0, w, r * plan.rows, (r + 1) * plan.rows) for g, tile0, w in sweeps]
+                for r in range(plan.ranks)]
+    return out
+
+
+class GroupedMatmulInfo(NamedTuple):
+    """What the card reports for one instantiation of the grouped GEMV
+    (``grouped_matmul_info``)."""
+    regs: int                 # registers per thread
+    local_bytes: int          # local memory per thread (spills)
+    blocks_per_sm: int        # blocks an SM holds at once
+    smem: int                 # dynamic shared memory of a block
+    clusters: Dict[int, int]  # bf16: ranks -> clusters the card runs at once
+
+
+def grouped_matmul_info(w_bf16: bool, pairs: int) -> GroupedMatmulInfo:
+    """The card's report on the grouped GEMV's bf16 or float32 kernel at
+    `pairs` pairs; cached per card."""
     key = (torch.cuda.current_device(), bool(w_bf16), pairs)
     if key not in _GMM_INFO:
-        regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-        _raise_on("grouped_matmul", build.library("grouped_matmul").grouped_matmul_info(
-            int(w_bf16), pairs, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)))
-        _GMM_INFO[key] = (regs.value, local.value, blocks.value)
+        lib = build.library("grouped_matmul")
+        regs, local, blocks, smem = (ctypes.c_int(0) for _ in range(4))
+        fit = {}
+        for ranks in GMM_RANKS if w_bf16 else (1,):
+            c = ctypes.c_int(0)
+            _raise_on("grouped_matmul", lib.grouped_matmul_info(
+                int(w_bf16), pairs, ranks, ctypes.byref(regs), ctypes.byref(local),
+                ctypes.byref(blocks), ctypes.byref(smem), ctypes.byref(c)))
+            if w_bf16:
+                fit[ranks] = c.value
+        _GMM_INFO[key] = GroupedMatmulInfo(regs.value, local.value, blocks.value, smem.value,
+                                           fit)
     return _GMM_INFO[key]
 
 
 def grouped_matmul_layout() -> Dict[str, int]:
     """The built kernel's layout constants, by the names this module
     mirrors them under (GMM_GROUP, ...)."""
-    names = ("GMM_GROUP", "GMM_MAX_SPAN", "GMM_SPAN_ALIGN", "GMM_MAX_PAIRS")
+    names = ("GMM_GROUP", "GMM_TILE_N", "GMM_BOX_ROWS", "GMM_STAGES", "GMM_SWEEP",
+             "GMM_MAX_CLUSTER", "GMM_MAX_PAIRS")
     out = (ctypes.c_int * len(names))()
     _raise_on("grouped_matmul", build.library("grouped_matmul").grouped_matmul_layout(out))
     return dict(zip(names, out))
+
+
+def _grouped_matmul_plan_for(k: int, n: int, pairs: int,
+                             device: torch.device) -> GroupedMatmulPlan:
+    """``grouped_matmul_plan`` with the card's SM count and cluster fit
+    (asked at the most pairs' shared memory); cached per card and shape."""
+    key = (device.index, k, n, pairs)
+    if key not in _GMM_PLANS:
+        fit = grouped_matmul_info(True, GMM_MAX_PAIRS).clusters
+        _GMM_PLANS[key] = grouped_matmul_plan(k, n, pairs, _sm_count(device), fit)
+    return _GMM_PLANS[key]
+
+
+@functools.lru_cache(maxsize=64)
+def _gmm_tensor_map(device: int, ptr: int, s: int, k: int, n: int):
+    """The 128-byte TMA tensor map of the bf16 kernel over the pool (S, K, N)
+    at `ptr`; it depends only on these arguments, so it is built once per
+    pool tensor rather than on every call."""
+    buf = ctypes.create_string_buffer(128)
+    _raise_on("grouped_matmul", build.library("grouped_matmul").grouped_matmul_tensor_map(
+        ptr, s, k, n, buf))
+    return buf
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -877,7 +1001,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torc
 
     The kernel reads each pair's expert in place in the pool and streams
     each distinct slot once per launch for up to GMM_GROUP pairs on it
-    (pads that repeat a real pair's slot add no weight bytes).  A slot
+    (pads that repeat a real pair's slot add no weight bytes).  bf16 needs
+    K % 8 == 0 and 16-byte aligned x and w (TMA and 16-byte copies).  A slot
     outside 0..S-1 aborts the kernel (the next synchronisation raises); the
     plain version raises IndexError."""
     op = "grouped_matmul"
@@ -896,20 +1021,24 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torc
     _check(op, p <= GMM_MAX_PAIRS, f"P={p} above {GMM_MAX_PAIRS} pairs")
     _check(op, s > 0 and n * w.element_size() % 16 == 0,
            f"N={n} must fill whole 16-byte loads")
+    bf16 = w.dtype == torch.bfloat16
+    _check(op, not bf16 or k % 8 == 0, f"K={k} must be a multiple of 8 (16-byte rows of x)")
     _check_contig(op, x=x, w=w, slot=slot)
     lib = build.library("grouped_matmul")
-    _check(op, w.data_ptr() % 16 == 0, "w must be 16-byte aligned")
+    _check(op, w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0,
+           "x and w must be 16-byte aligned")
     out = torch.empty((p, n), dtype=torch.float32, device=x.device)
     if p == 0:
         return out
-    span, spans = grouped_matmul_plan(k, n, w.element_size(), _sm_count(x.device))
-    part = (torch.empty((spans, p, n), dtype=torch.float32, device=x.device)
-            if spans > 1 else None)
+    plan, w_map = None, None
+    if bf16:
+        plan = _grouped_matmul_plan_for(k, n, p, x.device)
+        w_map = _gmm_tensor_map(x.device.index, w.data_ptr(), s, k, n)
     _record(op, "cuda")
     _raise_on(op, lib.grouped_matmul_launch(
-        x.data_ptr(), w.data_ptr(), slot.data_ptr(),
-        part.data_ptr() if part is not None else None, out.data_ptr(), p, k, n, s,
-        int(w.dtype == torch.bfloat16), span, _stream()))
+        x.data_ptr(), w.data_ptr(), w_map, slot.data_ptr(), out.data_ptr(), p, k, n, s,
+        int(bf16), plan.ranks if plan else 1, plan.clusters if plan else 1,
+        plan.rows if plan else GMM_BOX_ROWS, _stream()))
     return out
 
 

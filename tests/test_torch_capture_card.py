@@ -17,8 +17,9 @@ runs on the machine with the card:
 * ``ChunkedPrefill(jit=True)``: chunks after the first replay, and the
   logits and the pool's pages equal ``jit=False``'s bit for bit;
 * ``kops.grouped_matmul`` against its plain version (rtol/atol 1e-4:
-  float32 sums in another order), pads and shared slots, one and several
-  K spans, ragged N, bf16 and float32, two calls bit-identical.
+  float32 sums in another order), pads and shared slots, the 1024-pair
+  maximum, 9 and 17 pairs on one slot, K off the ring's 64-row stage and
+  ragged N, bf16 and float32, two calls bit-identical.
 """
 
 import dataclasses
@@ -171,8 +172,11 @@ def test_chunked_prefill_replay_equals_eager_on_card(card):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("k,n,slots", [
     (64, 256, [0]), (1000, 264, [1, 1]), (3000, 512, [0, 2, 2, 2, 2, 2, 2, 2]),
-    (4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1]), (512, 128, [3] * 9)],
-    ids=["one pair", "2 on 1 slot, ragged", "8 pairs 6 pads", "P=11 shared", "9 on 1 slot"])
+    (4096, 512, [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1]), (512, 128, [3] * 9),
+    (192, 200, np.random.default_rng(3).integers(0, 40, 1024).tolist()), (520, 136, [5] * 17),
+    (72, 72, [0, 1, 0])],
+    ids=["one pair", "2 on 1 slot, ragged", "8 pairs 6 pads", "P=11 shared", "9 on 1 slot",
+         "1024 pairs", "17 on 1 slot, ragged", "K off the ring's tile"])
 def test_grouped_matmul_equals_plain_on_card(card, dtype, k, n, slots):
     g = torch.Generator(device=card).manual_seed(k + n)
     dt = getattr(torch, dtype)

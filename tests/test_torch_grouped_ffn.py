@@ -214,17 +214,146 @@ def test_grouped_matmul_slot_out_of_range_raises(bad):
         ops.grouped_matmul(x, w, torch.tensor([0, bad], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("k,n,elem", [(4096, 28672, 2), (14336, 4096, 2), (4096, 28672, 4),
-                                      (64, 256, 2), (100, 8, 4), (6144, 4096, 2),
-                                      (128, 128, 2)])
-def test_grouped_matmul_plan_covers_k(k, n, elem):
-    """Spans are whole 32-row runs of at most GMM_MAX_SPAN rows that cover
-    K exactly once; at Mixtral's shapes on 132 SMs, wi is cut in 2 and wo
-    in 16 (about two blocks per SM)."""
-    span, spans = ops.grouped_matmul_plan(k, n, elem, 132)
-    assert span % ops.GMM_SPAN_ALIGN == 0 and 0 < span <= ops.GMM_MAX_SPAN
-    assert (spans - 1) * span < k <= spans * span
-    if (k, n, elem) == (4096, 28672, 2):
-        assert (span, spans) == (2048, 2)
-    if (k, n, elem) == (14336, 4096, 2):
-        assert (span, spans) == (896, 16)
+# a card's SM count and its cluster fit for the bf16 kernel (ranks ->
+# clusters at once): the H100 (every SM pair holds a cluster), and a small
+# card
+CARDS = {"h100": (132, {1: 132, 2: 66}), "small": (8, {1: 8, 2: 4})}
+# at Mixtral's hi shapes, P = 1 and P = 8, the plan on the H100
+MIXTRAL_PLANS = {(4096, 28672): (2, 66, 448, 2048), (14336, 4096): (2, 66, 64, 7168)}
+
+
+@pytest.mark.parametrize("k,n,pairs", [(4096, 28672, 1), (14336, 4096, 1), (4096, 28672, 8),
+                                       (14336, 4096, 8), (64, 256, 2), (100, 8, 4),
+                                       (6144, 4096, 2), (128, 128, 2), (1000, 264, 17),
+                                       (3000, 132, 1024)])
+def test_grouped_matmul_plan_covers_k(k, n, pairs):
+    """The ranks' K ranges are whole GMM_BOX_ROWS (128-row) units that cover
+    K once, in rank order (the last may run past K, read as zeros, by less
+    than one unit per rank); the grid's clusters fit the card's SMs and its
+    fit; the tiles cover N.  At Mixtral's hi shapes on the H100 both wi and
+    wo take 2 ranks on 66 clusters (every SM), at 97% of an even split."""
+    for sms, fit in CARDS.values():
+        plan = ops.grouped_matmul_plan(k, n, pairs, sms, fit)
+        assert plan.ranks in ops.GMM_RANKS
+        assert 1 <= plan.clusters <= fit[plan.ranks] and plan.clusters * plan.ranks <= sms
+        assert (plan.tiles - 1) * ops.GMM_TILE_N < n <= plan.tiles * ops.GMM_TILE_N
+        ranges = plan.ranges(k)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+        assert plan.rows % ops.GMM_BOX_ROWS == 0
+        units = -(-k // ops.GMM_BOX_ROWS)
+        assert units <= plan.ranks * plan.rows // ops.GMM_BOX_ROWS < units + plan.ranks
+    if (k, n) in MIXTRAL_PLANS:
+        plan = ops.grouped_matmul_plan(k, n, pairs, *CARDS["h100"])
+        assert tuple(plan) == MIXTRAL_PLANS[(k, n)]
+        assert ops._even_share(plan.tiles, k, 2, 66, 132) == pytest.approx(0.9697, abs=1e-4)
+        assert ops._even_share(plan.tiles, k, 1, 132, 132) < 0.86
+
+
+# each pair's slot; "6 pads" repeats the last real pair's slot, "1024" is
+# the most pairs of a launch
+SCHEDULE_SLOTS = {
+    "P=1": [0], "P=8 distinct": list(range(8)), "8 pairs, 6 pads": [0, 1, 1, 1, 1, 1, 1, 1],
+    "17 on one slot": [2] * 17, "P=11 shared": [4, 0, 4, 1, 2, 2, 3, 0, 5, 5, 1],
+    "1024": np.random.default_rng(7).integers(0, 40, 1024).tolist(),
+}
+
+
+def test_grouped_matmul_groups_follow_the_kernel_order():
+    """Slots in order of their first pair, each slot's pairs in pair order,
+    at most GMM_GROUP a group: 17 pairs on one slot are 3 passes."""
+    assert ops.grouped_matmul_groups([2] * 17) == [
+        (2, list(range(8))), (2, list(range(8, 16))), (2, [16])]
+    assert ops.grouped_matmul_groups([4, 0, 4, 1, 0]) == [(4, [0, 2]), (0, [1, 4]), (1, [3])]
+    for sl in SCHEDULE_SLOTS.values():
+        groups = ops.grouped_matmul_groups(sl)
+        pairs = [p for _, ps in groups for p in ps]
+        assert sorted(pairs) == list(range(len(sl)))
+        assert all(1 <= len(ps) <= ops.GMM_GROUP and all(sl[p] == s for p in ps)
+                   for s, ps in groups)
+
+
+def _tiles_of(work):
+    """The (group, tile) pairs of a block's sweeps, in order."""
+    return [(g, tile0 + i) for g, tile0, w, _, _ in work for i in range(w)]
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+@pytest.mark.parametrize("k,n", [(4096, 28672), (14336, 4096), (1000, 264), (3000, 132)])
+@pytest.mark.parametrize("case", sorted(SCHEDULE_SLOTS))
+def test_grouped_matmul_schedule_is_even_and_covers_every_job_once(case, k, n, card):
+    """Every (group, tile) is streamed once by each rank, over that rank's
+    K range, in sweeps of at most GMM_SWEEP adjacent tiles of one group, so
+    every (pair, column, K row) is covered once; every block of the grid
+    streams the same number of tiles within one (its weight bytes within
+    one unit, a tile's K range, of every other block's and of an even split
+    over the card); and the schedule is a function of the plan and the
+    group count alone (the reduction order cannot change between calls)."""
+    sl = SCHEDULE_SLOTS[case]
+    sms, fit = CARDS[card]
+    plan = ops.grouped_matmul_plan(k, n, len(sl), sms, fit)
+    groups = len(ops.grouped_matmul_groups(sl))
+    sched = ops.grouped_matmul_schedule(plan, groups)
+    assert sched == ops.grouped_matmul_schedule(plan, groups)
+    assert len(sched) == plan.clusters * plan.ranks
+    for work in sched:
+        assert all(1 <= w <= ops.GMM_SWEEP and tile0 + w <= plan.tiles
+                   for _, tile0, w, _, _ in work)
+    for r in range(plan.ranks):
+        blocks = range(r, len(sched), plan.ranks)
+        tiles = [t for b in blocks for t in _tiles_of(sched[b])]
+        assert sorted(tiles) == [(g, t) for g in range(groups) for t in range(plan.tiles)]
+        assert {(r0, r1) for b in blocks for *_, r0, r1 in sched[b]} <= {
+            (r * plan.rows, (r + 1) * plan.rows)}
+    count = [len(_tiles_of(work)) for work in sched]
+    assert max(count) - min(count) <= 1
+    if plan.clusters * plan.ranks == sms:
+        # an even split over the card: the busiest block within one tile's
+        # K range of the mean
+        assert max(count) - groups * plan.tiles * plan.ranks / sms <= 1
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+@pytest.mark.parametrize("case", ["P=1", "8 pairs, 6 pads", "17 on one slot", "P=11 shared"])
+def test_grouped_matmul_schedule_sums_in_rank_order(case, card):
+    """The kernel's arithmetic replayed in numpy from the schedule at a small
+    ragged shape: each rank's partial tile over its K range, the owner
+    adding the ranks' partials in rank order.  Each (pair, column, K row)
+    is added exactly once; two replays are bit-identical and agree with
+    the reference's einsum (float32 sums in another order)."""
+    sl = SCHEDULE_SLOTS[case]
+    k, n = 200, 136                            # 2 rank units, 3 tiles, both ragged
+    sms, fit = CARDS[card]
+    plan = ops.grouped_matmul_plan(k, n, len(sl), sms, fit)
+    rng = np.random.default_rng(len(sl))
+    x = rng.standard_normal((len(sl), k)).astype(np.float32)
+    w = rng.standard_normal((max(sl) + 1, k, n)).astype(np.float32)
+
+    def replay():
+        groups = ops.grouped_matmul_groups(sl)
+        seen = np.zeros((len(sl), n, k), np.int32)
+        parts = {}
+        for b, work in enumerate(ops.grouped_matmul_schedule(plan, len(groups))):
+            r = b % plan.ranks
+            for g, t in _tiles_of(work):
+                s, pairs = groups[g]
+                r0, r1 = plan.ranges(k)[r]
+                cols = slice(t * ops.GMM_TILE_N, min(n, (t + 1) * ops.GMM_TILE_N))
+                seen[np.ix_(pairs, range(n)[cols], range(r0, r1))] += 1
+                parts[(g, t, r)] = x[pairs][:, r0:r1] @ w[s][r0:r1, cols]
+        y = np.full((len(sl), n), np.nan, np.float32)
+        for (g, t, r), v in sorted(parts.items()):
+            if r:
+                continue
+            for q in range(1, plan.ranks):
+                v = v + parts[(g, t, q)]
+            cols = slice(t * ops.GMM_TILE_N, min(n, (t + 1) * ops.GMM_TILE_N))
+            assert np.isnan(y[groups[g][1], cols]).all()
+            y[groups[g][1], cols] = v
+        assert (seen == 1).all()
+        return y
+
+    y = replay()
+    np.testing.assert_array_equal(y, replay())
+    want = np.asarray(jnp.einsum("pd,pdc->pc", jnp.asarray(x), jnp.asarray(w)[jnp.asarray(sl)]))
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-4)
