@@ -32,6 +32,13 @@ and each printing its seconds:
                grouped GEMV, and an out-of-range page id the paged
                flash-decode kernel (checked in child processes);
                paged flash decode also at 4 x 4096 and 1 x 32768 tokens;
+  3b. g = 6    — paged flash decode at Nemotron-4-15B's and InternVL2-26B's
+               heads (48 query heads on 8 kv heads, hd 128): the Nemotron
+               serve's shape, 4 x 4096 and 1 x 32768 tokens, lengths 0 and
+               1 in a ragged batch, float32 K/V and a NaN-poisoned pool,
+               each bit-identical over two calls, timed beside its bytes
+               bound and SDPA, with the pass-1 kernels' registers and
+               spills and the blocks per SM the runtime gives;
   3c. dequant_matmul — the dense dequant-matmul kernels at Granite-3.0-2B's
                FFN shapes (decode M = 1-4 on the tensor-core decode kernel,
                timed beside the gemv kernel; prefill M = 64 / 256 on the
@@ -43,11 +50,17 @@ and each printing its seconds:
                took; then the decode kernel at Mixtral-8x7B's expert shapes
                (wi 4096 -> 28672, wo 14336 -> 4096, M = 1, group 64, the
                weight a pool slot's view), as the per-expert engine path
-               calls it, beside its bound and torch.matmul;
+               calls it, beside its bound and torch.matmul; and at
+               Nemotron-4-15B's FFN (wi 6144 -> 24576, wo 24576 -> 6144,
+               192 groups of K; 4 bits, group 128): decode M = 1-4 and
+               prefill M = 64, 256, two calls bit-identical, timed beside
+               its bound and torch.matmul;
   3d. flash_decode — the contiguous flash-decode kernel at (a) Granite's
                serving shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (the
                paged kernel's shapes), then length 0 and 1, S off the tile,
                g = 1, float32 K/V; SDPA on the same cache as the yardstick;
+               then the same three shapes at g = 6 (48/8 heads), lengths 0
+               and 1 in a ragged batch and float32 K/V;
   4. serve   — HobbitBackend under BatchingServer on full-width Mixtral-8x7B
                (depth cut to 4 layers, seeded random bf16 weights): mixed-
                length greedy requests, with every kernel's launch counted,
@@ -106,7 +119,22 @@ and each printing its seconds:
                eager;
   9. dense parity — the quantized Granite at full width cut to 4 layers on
                the card (kernels) against the same weights on the CPU (plain
-               versions), step by step.
+               versions), step by step;
+  10. serve-nemotron — Nemotron-4-15B at full width and depth (32 layers,
+               ~15.6 B parameters, ~31 GB of seeded bf16: layernorm,
+               squared-ReLU FFN, the untied 6144 x 256000 head) served as in
+               phase 8 (paged flash decode at g = 6, decode steps replayed
+               graphs), once in bf16 and once with the FFN quantized in
+               place to 4 bits (the bf16 FFN freed first; the dequant-matmul
+               kernels launched): decode tok/s, median step wall, peak device
+               memory, the seconds to seed and to quantize, a 3-step profiler
+               window, and the logits' float32 head cast timed alone;
+  10b. nemotron-parity — Nemotron at full width cut to 2 layers, bf16, on
+               the card against the CPU, step by step, as phase 9;
+  11. internvl2 — InternVL2-26B at full width cut to 8 layers with 256
+               seeded patch embeddings per row: ``decode.generate`` with the
+               prefix captured against eager (tokens and every step's logits
+               equal), then a text-only paged serve (g = 6 launches).
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -141,6 +169,8 @@ SEED = 0
 ARCH = "mixtral-8x7b"
 LAYERS = 4
 GRANITE = "granite-3-2b"
+NEMOTRON = "nemotron-4-15b"
+INTERNVL = "internvl2-26b"
 
 
 def fail(msg: str) -> None:
@@ -295,6 +325,7 @@ def phase_kernels(dev) -> list:
     rows.append(_grouped_matmul_row(dev, g))
     _slot_faults()
     rows.append(_paged_decode_row(dev, g))
+    rows.append(_paged_decode_g6_row(dev, g))
     return rows
 
 
@@ -505,11 +536,13 @@ def phase_kernels_dense(dev) -> list:
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     with phase("kernels-3c"):
         dq = _dequant_matmul_row(dev, g)
+        dq_n = _dq_nemotron(dev, g)
     torch.cuda.empty_cache()
     with phase("kernels-3d"):
         fd = _flash_decode_row(dev, g)
+        fd6 = _flash_decode_g6_row(dev, g)
     torch.cuda.empty_cache()
-    return [dq, fd]
+    return [dq, dq_n, fd, fd6]
 
 
 # ---------------------------------------------------------------------------
@@ -1048,12 +1081,50 @@ def _paged_bytes(q, pk, table, lengths, out) -> int:
     return 2 * tokens * hkv * hd * pk.element_size() + nbytes(q, table, lengths, out)
 
 
+def _paged_shape(dev, g, label, b, lengths, hq, hkv, hd):
+    """One timed shape of the paged kernel (64-token pages, bf16): checked
+    against its plain version, two calls bit-identical, device ms from
+    graph replays beside its bytes bound, the plain version and SDPA on the
+    pre-gathered cache; with the blocks per SM, splits and ring stages the
+    wrapper picks.  Returns (max abs error, the shape's numbers)."""
+    from repro_torch.kernels import build, ops, ref
+    args = _paged_case(dev, g, b, hq, hkv, hd, 64, lengths)
+    q, pk, pv, table, ln = args
+    err = _paged_check(label, args)
+    out, again = ops.paged_flash_decode(*args), ops.paged_flash_decode(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{label}: two calls differ")
+    moved = _paged_bytes(q, pk, table, ln, out)
+    bms, by = bound(moved, 4 * hq * hd * sum(lengths), BF16_FLOPS)
+    ms = graph_ms(lambda: ops.paged_flash_decode(*args))
+    call = cuda_ms(lambda: ops.paged_flash_decode(*args))
+    plain = cuda_ms(lambda: ref.paged_flash_decode_ref(*args), warmup=1, iters=5)
+    sdpa = _sdpa_call(*args)
+    lib = graph_ms(sdpa)
+    lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
+    blocks = ops._decode_blocks_per_sm(build.library("flash_decode"), 1, hq // hkv, hd,
+                                       table.shape[1])
+    splits = ops.decode_splits(b, hkv, table.shape[1], blocks * ops._sm_count(q.device))
+    stages = ops.decode_stages(1, hd)
+    print(f"[kernels] {label} B={b} Hq/Hkv {hq}/{hkv} tokens={lengths}: {ms:.4f} ms on the "
+          f"card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), {call:.4f} ms per call "
+          f"(plain {plain:.3f} ms per call; SDPA on the pre-gathered view {lib:.4f} ms on the "
+          f"card, max |diff| {lib_err:.1e}); {blocks} blocks/SM, {splits} splits, {stages} "
+          "stages", flush=True)
+    del args, q, pk, pv, table, ln, out, again, sdpa
+    torch.cuda.empty_cache()
+    return err, dict(b=b, tokens=lengths, hq=hq, hkv=hkv, maxp=-(-max(lengths) // 64),
+                     blocks_per_sm=blocks, splits=splits, stages=stages, ms=ms, call_ms=call,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                     library_max_abs_diff=lib_err, gbps=moved / ms / 1e6)
+
+
 def _paged_decode_row(dev, g) -> dict:
     """Paged flash decode against its plain version at (a) the serving
     shape, (b) 4 x 4096 and (c) 1 x 32768 tokens (Mixtral's max_seq_len;
     exercises the page split), then every compiled variant and the edge
     cases, then the page-id fault."""
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ops
 
     shapes = {
         "a": dict(b=4, lengths=[70, 95, 112, 57]),        # serving run's range
@@ -1062,35 +1133,9 @@ def _paged_decode_row(dev, g) -> dict:
     }
     per, err = {}, 0.0
     for key, sh in shapes.items():
-        args = _paged_case(dev, g, sh["b"], 32, 8, 128, 64, sh["lengths"])
-        q, pk, pv, table, ln = args
-        err = max(err, _paged_check(f"paged_flash_decode ({key})", args))
-        out = ops.paged_flash_decode(*args)
-        moved = _paged_bytes(q, pk, table, ln, out)
-        bms, by = bound(moved, 4 * 32 * 128 * sum(sh["lengths"]), BF16_FLOPS)
-        ms = graph_ms(lambda: ops.paged_flash_decode(*args))
-        call = cuda_ms(lambda: ops.paged_flash_decode(*args))
-        plain = cuda_ms(lambda: ref.paged_flash_decode_ref(*args), warmup=1, iters=5)
-        sdpa = _sdpa_call(*args)
-        lib = graph_ms(sdpa)
-        lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
-        blocks = ops._decode_blocks_per_sm(build.library("flash_decode"), 1, 4, 128,
-                                           table.shape[1])
-        splits = ops.decode_splits(sh["b"], 8, table.shape[1],
-                                   blocks * ops._sm_count(q.device))
-        stages = ops.decode_stages(1, 128)
-        per[key] = dict(b=sh["b"], tokens=sh["lengths"], maxp=table.shape[1],
-                        blocks_per_sm=blocks, splits=splits, stages=stages, ms=ms,
-                        call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                        library_ms=lib, library_max_abs_diff=lib_err,
-                        gbps=moved / ms / 1e6)
-        print(f"[kernels] paged_flash_decode ({key}) B={sh['b']} tokens={sh['lengths']}: "
-              f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
-              f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA on the "
-              f"pre-gathered view {lib:.4f} ms on the card, max |diff| {lib_err:.1e}); "
-              f"{blocks} blocks/SM, {splits} splits, {stages} stages", flush=True)
-        del args, q, pk, pv, table, ln, out, sdpa
-        torch.cuda.empty_cache()
+        e, per[key] = _paged_shape(dev, g, f"paged_flash_decode ({key})", sh["b"],
+                                   sh["lengths"], 32, 8, 128)
+        err = max(err, e)
 
     n_checked = 0
     for kv_dt in (torch.bfloat16, torch.float32):
@@ -1142,7 +1187,7 @@ def _paged_decode_row(dev, g) -> dict:
                 shapes=per, tolerance="rtol 1e-4 atol 1e-4")
 
 
-def _paged_nan_check(dev, g) -> float:
+def _paged_nan_check(dev, g, hq=32, hkv=8, hd=128) -> float:
     """Rows past each slot's length and the pages no slot uses hold NaN: the
     kernel never reads them (a tile's rows past the length repeat a valid
     row), so its output is finite and matches the plain version.  The plain
@@ -1150,7 +1195,7 @@ def _paged_nan_check(dev, g) -> float:
     with those rows zero-filled when its output on the poisoned pool is not
     finite."""
     from repro_torch.kernels import ops, ref
-    q, pk, pv, table, ln = _paged_case(dev, g, 4, 32, 8, 128, 16, [0, 37, 64, 65], maxp=6,
+    q, pk, pv, table, ln = _paged_case(dev, g, 4, hq, hkv, hd, 16, [0, 37, 64, 65], maxp=6,
                                        num_pages=30)
     _, psz, _, _ = pk.shape
     poison = torch.ones(pk.shape[:2], dtype=torch.bool)           # (P, psz) rows
@@ -1172,7 +1217,8 @@ def _paged_nan_check(dev, g) -> float:
         note = "on a zero-filled copy (on the poisoned pool it gives NaN)"
     err = _close("paged_flash_decode NaN past the lengths", got, want, **PAGED_TOL)
     check(bool((got[0] == 0).all()), "paged_flash_decode: length-0 row with NaN pages")
-    print(f"[kernels] paged_flash_decode NaN-poisoned pool ({int(poison.sum())} of "
+    print(f"[kernels] paged_flash_decode Hq/Hkv {hq}/{hkv} NaN-poisoned pool "
+          f"({int(poison.sum())} of "
           f"{poison.numel()} rows): finite, max abs err {err:.1e} against the plain "
           f"version {note}", flush=True)
     return err
@@ -1224,6 +1270,82 @@ def _page_fault() -> None:
               f"abort (exit {proc.returncode}): {tail}")
         print(f"[kernels] paged_flash_decode table row [{row}], pool of 4 pages: {tail}",
               flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b, g = 6: paged flash decode at Nemotron-4-15B's and InternVL2-26B's heads
+# ---------------------------------------------------------------------------
+G6_HEADS = dict(hq=48, hkv=8, hd=128)       # g = 6, as both models publish
+
+
+def _decode_regs(paged: bool) -> str:
+    """Registers and spill bytes per thread of the g = 6, hd 128 pass-1
+    kernels (bf16 ring, float32 body) beside g = 4's."""
+    from repro_torch.kernels import ops
+    out = []
+    for kvb, body in ((1, "ring"), (0, "float32")):
+        for grp in (4, 6):
+            r = ops.decode_kernel_regs(kvb, grp, 128, paged)
+            out.append(f"{body} g={grp}: {r['regs']} registers, {r['local_bytes']} B local")
+    return "; ".join(out)
+
+
+def _paged_decode_g6_row(dev, g) -> dict:
+    """Paged flash decode at g = 6 (48 query heads on 8 kv heads, hd 128)
+    against its plain version at (a) the Nemotron serve's shape (4 slots of
+    32-80 tokens), (b) 4 x 4096 and (c) 1 x 32768 tokens, bit-identical over
+    two calls, timed from graph replays beside its bytes bound (the bytes
+    of g = 4 at 8 kv heads) and SDPA on the same cache; then lengths 0 and
+    1 in a ragged batch, float32 K/V and a NaN-poisoned pool.  Prints the
+    pass-1 kernels' registers and spills and the blocks per SM the runtime
+    gives (``decode_splits`` sizes the grid from it)."""
+    from repro_torch.kernels import build, ops
+
+    hq, hkv, hd = G6_HEADS["hq"], G6_HEADS["hkv"], G6_HEADS["hd"]
+    shapes = {
+        "a": dict(b=4, lengths=[41, 64, 80, 33]),         # Nemotron serve's range
+        "b": dict(b=4, lengths=[4096] * 4),
+        "c": dict(b=1, lengths=[32768]),
+    }
+    per, err, same = {}, 0.0, 0
+    for key, sh in shapes.items():
+        e, per[key] = _paged_shape(dev, g, f"paged_flash_decode g=6 ({key})", sh["b"],
+                                   sh["lengths"], hq, hkv, hd)
+        err = max(err, e)
+        same += 1
+
+    n_checked = 0
+    for kv_dt in (torch.bfloat16, torch.float32):
+        args = _paged_case(dev, g, 5, hq, hkv, hd, 64, [0, 1, 700, 129, 64], maxp=12,
+                           num_pages=64, dtype=kv_dt)
+        name = f"paged_flash_decode g=6 {str(kv_dt)[6:]} K/V, lengths 0/1/ragged"
+        err = max(err, _paged_check(name, args))
+        a, b = ops.paged_flash_decode(*args), ops.paged_flash_decode(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{name}: two calls differ")
+        same += 1
+        n_checked += 1
+    err = max(err, _paged_nan_check(dev, g, **G6_HEADS))
+    n_checked += 1
+    f32_blocks = ops._decode_blocks_per_sm(build.library("flash_decode"), 0, 6, hd, 12)
+    print(f"[kernels] paged_flash_decode g=6: {n_checked} further variants (bf16 and float32 "
+          "K/V with lengths 0/1/ragged, NaN past the lengths) agree with the plain version; "
+          f"{same} cases bit-identical over two calls; pass-1 kernels at hd 128: "
+          f"{_decode_regs(True)}; float32 body {f32_blocks} blocks/SM (ring: "
+          f"{per['b']['blocks_per_sm']})", flush=True)
+    a = per["a"]
+    return dict(name="paged_flash_decode (g=6)", op="paged_flash_decode",
+                paths=("serve_nemotron", "serve_nemotron_q4", "serve_internvl2"), route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:183", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=a["library_ms"],
+                library="scaled_dot_product_attention(enable_gqa=True) on the "
+                        "pre-gathered dense K/V view, gather not timed",
+                shapes=per, float32_blocks_per_sm=f32_blocks,
+                regs={f"{body} g={grp}": ops.decode_kernel_regs(kvb, grp, 128, True)
+                      for kvb, body in ((1, "ring"), (0, "float32")) for grp in (4, 6)},
+                tolerance="rtol 1e-4 atol 1e-4")
 
 
 # ---------------------------------------------------------------------------
@@ -1567,6 +1689,68 @@ def _dq_mixtral_expert(dev, g) -> dict:
     return out
 
 
+def _dq_nemotron(dev, g) -> dict:
+    """The dense dequant-matmul kernels at Nemotron-4-15B's FFN (squared
+    ReLU, not gated): wi 6144 -> 24576 and wo 24576 -> 6144 (192 quant
+    groups of K), 4-bit codes, group 128, bf16 x; decode M = 1-4 and chunked
+    prefill M = 64, 256 against the plain version, two calls bit-identical,
+    timed with the weight cold in L2 beside its bound and torch.matmul on
+    the dequantized bf16 weight; each shape prints its kernel and plan."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.quantize import dequantize
+
+    cfg = get_config(NEMOTRON)
+    mats = {"wi": (cfg.d_model, cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
+    per, err = {}, 0.0
+    for name, (k, n) in mats.items():
+        for m in (1, 2, 3, 4, 64, 256):
+            x, q = _dq_case(dev, g, m, k, n)
+            label = f"dequant_matmul nemotron {name} M={m}"
+            e, kern = _dq_check(label, x, q)
+            check(kern == ("mmv" if m <= 4 else "mma"), f"{label}: took the {kern} kernel")
+            err = max(err, e)
+            out, again = ops.dequant_matmul(x, q), ops.dequant_matmul(x, q)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"{label}: two calls differ")
+            qs = _copies(q, nbytes(q.data, q.scale))
+            ms = graph_ms(_cycling([lambda c=c: ops.dequant_matmul(x, c) for c in qs]))
+            call = cuda_ms(lambda: ops.dequant_matmul(x, q))
+            plain = cuda_ms(lambda: ref.dequant_matmul_ref(x, q), warmup=1, iters=3)
+            wb = dequantize(q, dtype=torch.bfloat16)
+            wbs = [wb] + [wb.clone() for _ in range(-(-L2_CYCLE_BYTES // nbytes(wb)) - 1)]
+            mm = graph_ms(_cycling([lambda w=w: torch.matmul(x, w) for w in wbs]))
+            moved = nbytes(x, q.data, q.scale, out)
+            bms, by = bound(moved, 2 * m * k * n, BF16_FLOPS)
+            tile, splits, blocks, regs = _dq_plan(kern, x, q)
+            per[f"{name} M={m}"] = dict(
+                m=m, k=k, n=n, bits=4, group=128, kernel=kern, tile=tile,
+                **({"cluster": splits} if kern == "mmv" else {"splits": splits}),
+                blocks_per_sm=blocks, regs=regs, ms=ms, call_ms=call, plain_ms=plain,
+                bound_ms=bms, bound_by=by, gbps=moved / ms / 1e6, matmul_bf16_ms=mm,
+                max_abs_err=e)
+            split = f"cluster of {splits}" if kern == "mmv" else f"{splits} splits"
+            print(f"[kernels] {label} K={k} N={n}: {kern} kernel, tile {tile}, {split}, "
+                  f"{blocks} blocks/SM, {regs} registers: {ms:.4f} ms on the card, L2 cold "
+                  f"({moved / ms / 1e6:.0f} GB/s; bound {bms:.4f} ms by {by}, {bms / ms:.0%} "
+                  f"of it); {call:.4f} ms per call (plain {plain:.3f} ms per call; "
+                  f"torch.matmul on the dequantized bf16 weight {mm:.4f} ms, {ms / mm:.2f}x); "
+                  f"max abs err {e:.2e}", flush=True)
+            del x, q, qs, wb, wbs, out, again
+        torch.cuda.empty_cache()
+    a = per["wo M=1"]
+    return dict(name="dequant_matmul (nemotron)", op="dequant_matmul",
+                paths=("serve_nemotron_q4",), route="cuda",
+                source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                replaces="src/repro/kernels/dequant_matmul.py:90", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+                library="none: no single PyTorch call dequantizes and multiplies; the "
+                        "yardstick is torch.matmul on the pre-dequantized bf16 weight, "
+                        "under shapes as matmul_bf16_ms (the row's ms: wo M=1)",
+                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: flash decode over a contiguous cache
 # ---------------------------------------------------------------------------
@@ -1633,60 +1817,71 @@ def _flash_bytes(q, k, lengths, out) -> int:
     return 2 * rows * hkv * hd * k.element_size() + nbytes(q, lengths, out)
 
 
+def _flash_shape(dev, g, label, b, s, lengths, hq, hkv, hd):
+    """One timed shape of the contiguous kernel (bf16): checked against its
+    plain version, two calls bit-identical, device ms from graph replays
+    beside its bytes bound, the plain version and SDPA with enable_gqa on a
+    (B, H, S, hd) view transposed beforehand (not timed); with the blocks
+    per SM, splits and ring stages.  Returns (max abs error, numbers)."""
+    from repro_torch.kernels import build, ops
+    F = torch.nn.functional
+    args = _flash_case(dev, g, b, s, hq, hkv, hd, lengths)
+    q, k, v, ln = args
+    err = _flash_check(label, args)
+    out, again = ops.flash_decode(*args), ops.flash_decode(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{label}: two calls differ")
+    moved = _flash_bytes(q, k, ln, out)
+    rows = sum(min(n, s) for n in lengths)
+    bms, by = bound(moved, 4 * hq * hd * rows, BF16_FLOPS)
+    ms = graph_ms(lambda: ops.flash_decode(*args))
+    call = cuda_ms(lambda: ops.flash_decode(*args))
+    plain = cuda_ms(lambda: _flash_plain(*args), warmup=1, iters=5)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = torch.arange(s, device=dev)[None, :] < ln[:, None].long()
+    mask = None if bool(mask.all()) else mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib = graph_ms(sdpa)
+    lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
+    blocks = ops._blocks_per_sm("flash_decode",
+                                build.library("flash_decode_contig").flash_decode_blocks_per_sm,
+                                1, hq // hkv, hd)
+    splits = ops.decode_splits(b, hkv, -(-s // ops.FLASH_DECODE_UNIT),
+                               blocks * ops._sm_count(q.device))
+    stages = ops.decode_stages(1, hd)
+    print(f"[kernels] {label} B={b} S={s} Hq/Hkv {hq}/{hkv} hd={hd}: {ms:.4f} ms on the card "
+          f"({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms per call; SDPA {lib:.4f} ms on the card, max |diff| {lib_err:.1e}); "
+          f"{blocks} blocks/SM, {splits} splits, {stages} stages", flush=True)
+    del args, q, k, v, ln, out, again, kt, vt
+    torch.cuda.empty_cache()
+    return err, dict(b=b, s=s, hd=hd, hq=hq, hkv=hkv, tokens=lengths, blocks_per_sm=blocks,
+                     splits=splits, stages=stages, ms=ms, call_ms=call, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=lib, library_max_abs_diff=lib_err,
+                     gbps=moved / ms / 1e6)
+
+
 def _flash_decode_row(dev, g) -> dict:
     """The contiguous kernel against its plain version at (a) Granite's
     serving shape (B 4, 57-112 of 128 rows, Hq 32 / Hkv 8 / hd 64), (b) 4 x
     4096 and (c) 1 x 32768 rows at hd 128 (the paged kernel's (b) and (c)),
     then the edge cases and every compiled variant.  Yardstick: SDPA with
     enable_gqa on a (B, H, S, hd) view transposed beforehand (not timed)."""
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
 
     shapes = {
         "a": dict(b=4, s=128, hd=64, lengths=[70, 95, 112, 57]),
         "b": dict(b=4, s=4096, hd=128, lengths=[4096] * 4),
         "c": dict(b=1, s=32768, hd=128, lengths=[32768]),
     }
-    F = torch.nn.functional
     per, err = {}, 0.0
     for key, sh in shapes.items():
-        args = _flash_case(dev, g, sh["b"], sh["s"], 32, 8, sh["hd"], sh["lengths"])
-        q, k, v, ln = args
-        err = max(err, _flash_check(f"flash_decode ({key})", args))
-        out = ops.flash_decode(*args)
-        moved = _flash_bytes(q, k, ln, out)
-        rows = sum(min(n, sh["s"]) for n in sh["lengths"])
-        bms, by = bound(moved, 4 * 32 * sh["hd"] * rows, BF16_FLOPS)
-        ms = graph_ms(lambda: ops.flash_decode(*args))
-        call = cuda_ms(lambda: ops.flash_decode(*args))
-        plain = cuda_ms(lambda: _flash_plain(*args), warmup=1, iters=5)
-        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        mask = torch.arange(sh["s"], device=dev)[None, :] < ln[:, None].long()
-        mask = None if bool(mask.all()) else mask[:, None, None, :]
-        q4 = q[:, :, None, :]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
-        lib = graph_ms(sdpa)
-        lib_err = float((sdpa()[:, :, 0].float() - out).abs().max())
-        blocks = ops._blocks_per_sm("flash_decode",
-                                    build.library("flash_decode_contig").flash_decode_blocks_per_sm,
-                                    1, 4, sh["hd"])
-        splits = ops.decode_splits(sh["b"], 8, -(-sh["s"] // ops.FLASH_DECODE_UNIT),
-                                   blocks * ops._sm_count(q.device))
-        stages = ops.decode_stages(1, sh["hd"])
-        per[key] = dict(b=sh["b"], s=sh["s"], hd=sh["hd"], tokens=sh["lengths"],
-                        blocks_per_sm=blocks, splits=splits, stages=stages, ms=ms,
-                        call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-                        library_ms=lib, library_max_abs_diff=lib_err,
-                        gbps=moved / ms / 1e6)
-        print(f"[kernels] flash_decode ({key}) B={sh['b']} S={sh['s']} hd={sh['hd']}: "
-              f"{ms:.4f} ms on the card ({moved / ms / 1e6:.0f} GB/s, bound {bms:.4f} ms), "
-              f"{call:.4f} ms per call (plain {plain:.3f} ms per call; SDPA "
-              f"{lib:.4f} ms on the card, max |diff| {lib_err:.1e}); {blocks} blocks/SM, "
-              f"{splits} splits, {stages} stages", flush=True)
-        del args, q, k, v, ln, out, kt, vt
-        torch.cuda.empty_cache()
+        e, per[key] = _flash_shape(dev, g, f"flash_decode ({key})", sh["b"], sh["s"],
+                                   sh["lengths"], 32, 8, sh["hd"])
+        err = max(err, e)
 
     n_checked = 0
     for kv_dt in (torch.bfloat16, torch.float32):
@@ -1720,6 +1915,52 @@ def _flash_decode_row(dev, g) -> dict:
           "past the lengths) agree with the plain version", flush=True)
     a = per["a"]
     return dict(name="flash_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode_contig.cu",
+                replaces="src/repro/kernels/flash_decode.py:75", max_abs_err=err,
+                ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=a["library_ms"],
+                library="scaled_dot_product_attention(enable_gqa=True) on a (B, H, S, hd) "
+                        "view transposed beforehand, not timed",
+                shapes=per, tolerance="rtol 1e-4 atol 1e-4")
+
+
+def _flash_decode_g6_row(dev, g) -> dict:
+    """The contiguous kernel at g = 6 (48 query heads on 8 kv heads, hd
+    128) against its plain version at (a) the Nemotron serve's shape (4
+    slots of 32-80 of 128 rows), (b) 4 x 4096 and (c) 1 x 32768 rows,
+    bit-identical over two calls, timed beside its bytes bound and SDPA;
+    then length 0 (the mean of V) and 1 in a ragged batch, and float32
+    K/V."""
+    from repro_torch.kernels import ops
+
+    hq, hkv, hd = G6_HEADS["hq"], G6_HEADS["hkv"], G6_HEADS["hd"]
+    shapes = {
+        "a": dict(b=4, s=128, lengths=[41, 64, 80, 33]),
+        "b": dict(b=4, s=4096, lengths=[4096] * 4),
+        "c": dict(b=1, s=32768, lengths=[32768]),
+    }
+    per, err, same = {}, 0.0, 0
+    for key, sh in shapes.items():
+        e, per[key] = _flash_shape(dev, g, f"flash_decode g=6 ({key})", sh["b"], sh["s"],
+                                   sh["lengths"], hq, hkv, hd)
+        err = max(err, e)
+        same += 1
+    for kv_dt in (torch.bfloat16, torch.float32):
+        args = _flash_case(dev, g, 4, 700, hq, hkv, hd, [0, 1, 700, 129], dtype=kv_dt)
+        name = f"flash_decode g=6 {str(kv_dt)[6:]} K/V, lengths 0/1/ragged"
+        err = max(err, _flash_check(name, args))
+        a, b = ops.flash_decode(*args), ops.flash_decode(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{name}: two calls differ")
+        same += 1
+        err = max(err, _close(f"{name}: length-0 row is the mean of V", a[0],
+                              args[2][0].float().mean(0).repeat_interleave(hq // hkv, 0),
+                              **FLASH_TOL))
+    print(f"[kernels] flash_decode g=6: bf16 and float32 K/V with lengths 0/1/ragged agree "
+          f"with the plain version; {same} cases bit-identical over two calls; pass-1 "
+          f"kernels at hd 128: {_decode_regs(False)}", flush=True)
+    a = per["a"]
+    return dict(name="flash_decode (g=6)", op="flash_decode", paths=(), route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_decode_contig.cu",
                 replaces="src/repro/kernels/flash_decode.py:75", max_abs_err=err,
                 ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
@@ -2663,9 +2904,7 @@ def phase_serve_dense_jit(dev, model, params, captured: dict) -> dict:
           f"decode.generate: captured {gen[True].tokens[:, 32:].tolist()} != eager "
           f"{gen[False].tokens[:, 32:].tolist()}")
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     out = {
         "card": card, "outputs_equal": True, "launches_equal": True,
         "step_logits_max_abs_diff": step_diff, "dense_kv_tokens_equal_paged": same_kv,
@@ -2707,6 +2946,50 @@ def _tree_to(tree, device):
 DENSE_PARITY_ATOL = 0.1
 
 
+def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed) -> dict:
+    """`model` through DenseBackend(paged=True) on the card (kernels) and on
+    the CPU (plain versions) with the same weights: an s-token prefill and
+    `steps` teacher-forced decode steps for b rows, per-step logits within
+    DENSE_PARITY_ATOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import DenseBackend
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (b, s))
+    teacher = rng.integers(0, cfg.vocab_size, (steps, b))
+    runs, counts = {}, {}
+    for where in ("cuda", "cpu"):
+        p = params if where == "cuda" else _tree_to(params, "cpu")
+        be = DenseBackend(model, p, paged=True)
+        be.start_batch(b, s + steps + 4)
+        ops.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        runs[where] = [be.prefill(prompts)] + [be.step(teacher[t]) for t in range(steps)]
+        counts[where] = ops.dispatch_counts()
+        print(f"[{label}] {where}: prefill + {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts[where]}", flush=True)
+        del be, p
+        gc.collect()
+    for op in must_launch:
+        check(counts["cuda"].get(f"{op}.cuda", 0) > 0, f"{label}: {op} not launched")
+    worst, same = 0.0, 0
+    for i, (lc, lh) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        check(bool(np.isfinite(lc).all()), f"{label} step {i}: non-finite logits")
+        e = float(np.abs(lc - lh).max())
+        worst = max(worst, e)
+        same += int((lc.argmax(-1) == lh.argmax(-1)).sum())
+        check(e <= DENSE_PARITY_ATOL, f"{label} step {i}: max |card - CPU| = "
+                                      f"{e:.4f} > {DENSE_PARITY_ATOL}")
+    spread = float(np.std(runs["cpu"][0]))
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers: {steps + 1} steps (prefill + "
+          f"{steps} decode) x {b} rows: max |card - CPU| = {worst:.4f} <= "
+          f"{DENSE_PARITY_ATOL} (logit std {spread:.3f}); greedy tokens equal in "
+          f"{same}/{(steps + 1) * b}", flush=True)
+    return {"max_abs_diff": worst, "logit_std": spread, "argmax_equal": same,
+            "compared": (steps + 1) * b}
+
+
 def phase_dense_parity(dev) -> dict:
     """Granite-3.0-2B at full width, depth cut to 4 layers, seeded bf16
     weights with 4-bit FFN weights (quantize_tree), through
@@ -2716,51 +2999,262 @@ def phase_dense_parity(dev) -> dict:
     round in different places (cuBLAS and the CPU's GEMMs, the kernels' sum
     orders); per-step logits must agree within DENSE_PARITY_ATOL = 0.1, as
     in phases 5 and 7."""
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.quant.quantize import QTensor, quantize_tree
-    from repro_torch.serving.api import DenseBackend
 
     cfg = dataclasses.replace(granite_full(), num_layers=4).validate()
     model = build_model(cfg)
     params = quantize_tree(model.init(SEED + 5, device=dev), bits=4, predicate=_ffn_path)
     check(all(isinstance(lp["ffn"][w], QTensor) for lp in params["layers"]
               for w in ("wi", "wo")), "dense parity: FFN weights not quantized")
-    rng = np.random.default_rng(SEED + 6)
-    b, s, steps = 2, 100, 4
-    prompts = rng.integers(0, cfg.vocab_size, (b, s))
-    teacher = rng.integers(0, cfg.vocab_size, (steps, b))
-    runs, counts = {}, {}
-    for where, p in (("cuda", params), ("cpu", _tree_to(params, "cpu"))):
-        be = DenseBackend(model, p, paged=True)
-        be.start_batch(b, s + steps + 4)
-        ops.reset_dispatch_counts()
-        t0 = time.perf_counter()
-        runs[where] = [be.prefill(prompts)] + [be.step(teacher[t]) for t in range(steps)]
-        counts[where] = ops.dispatch_counts()
-        print(f"[dense-parity] {where}: prefill + {steps} steps in "
-              f"{time.perf_counter() - t0:.1f} s, launches {counts[where]}", flush=True)
-    for op in DENSE_Q_OPS:
-        check(counts["cuda"].get(f"{op}.cuda", 0) > 0, f"dense parity: {op} not launched")
-    worst, same = 0.0, 0
-    for i, (lc, lh) in enumerate(zip(runs["cuda"], runs["cpu"])):
-        check(bool(np.isfinite(lc).all()), f"dense parity step {i}: non-finite logits")
-        e = float(np.abs(lc - lh).max())
-        worst = max(worst, e)
-        same += int((lc.argmax(-1) == lh.argmax(-1)).sum())
-        check(e <= DENSE_PARITY_ATOL, f"dense parity step {i}: max |card - CPU| = "
-                                      f"{e:.4f} > {DENSE_PARITY_ATOL}")
-    spread = float(np.std(runs["cpu"][0]))
-    print(f"[dense-parity] {steps + 1} steps (prefill + {steps} decode) x {b} rows: max "
-          f"|card - CPU| = {worst:.4f} <= {DENSE_PARITY_ATOL} (logit std {spread:.3f}); "
-          f"greedy tokens equal in {same}/{(steps + 1) * b}", flush=True)
-    return {"max_abs_diff": worst, "logit_std": spread, "argmax_equal": same,
-            "compared": (steps + 1) * b}
+    return _card_cpu_parity("dense-parity", model, params, DENSE_Q_OPS, b=2, s=100, steps=4,
+                            seed=SEED + 6)
 
 
 def granite_full():
     from repro_torch.configs import get_config
     return get_config(GRANITE)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def host_available_gb() -> float:
+    """MemAvailable of the host, in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Nemotron-4-15B at full width and depth through DenseBackend
+# ---------------------------------------------------------------------------
+def _logits_cast(model, params) -> dict:
+    """Device ms of what ``Model.logits`` spends on the untied head: its
+    float32 cast (reads the bf16 head, writes a float32 copy), the whole
+    logits call at 4 rows, and the bf16 head's product alone beside them
+    (CUDA events around 5 calls each, one warm-up)."""
+    from repro_torch.models import layers
+
+    cfg = model.cfg
+    w = params["lm_head"]
+    g = torch.Generator(device=w.device).manual_seed(SEED + 14)
+    x = torch.randn((4, 1, cfg.d_model), generator=g, device=w.device).to(w.dtype)
+    h = layers.apply_norm(params["final_norm"], x, cfg)
+    cast = cuda_ms(lambda: w.to(torch.float32), warmup=1, iters=5)
+    logits = cuda_ms(lambda: model.logits(params, x), warmup=1, iters=5)
+    head_bf16 = cuda_ms(lambda: h @ w, warmup=1, iters=5)
+    cast_bound, _ = bound(3 * nbytes(w), 0)
+    return {"cast_ms": cast, "cast_bound_ms": cast_bound, "logits_ms": logits,
+            "head_bf16_matmul_ms": head_bf16, "head_gb": nbytes(w) / 1e9}
+
+
+def phase_serve_nemotron(dev, model, params, label: str, must_launch) -> dict:
+    """Phase 8's serve (DenseBackend(paged=True), captured step,
+    BatchingServer(max_batch=4), 6 greedy requests of 32-64 prompt tokens, 16
+    new tokens each) on Nemotron-4-15B, with the device's peak memory over
+    the serve (max_memory_allocated), then a 3-step profiler window (busy
+    share, top kernels) and the logits' float32 head cast timed alone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = phase_serve_dense(dev, model, params, label, must_launch)
+    run["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    run["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = _decode_window(model, params)
+    window.pop("logits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["window"] = window
+    run["logits_cast"] = _logits_cast(model, params)
+    run["card"] = card_line()
+    out = {k: run[k] for k in ("decode_tok_s", "median_step_ms", "wall_s", "peak_allocated_gb",
+                               "peak_reserved_gb", "window", "logits_cast", "card")}
+    print(f"[{label}] {run['card']}: {run['decode_tok_s']:.1f} decode tok/s, median step "
+          f"{run['median_step_ms']:.2f} ms, peak allocated {run['peak_allocated_gb']:.1f} GB; "
+          f"{json.dumps(out)}", flush=True)
+    return run
+
+
+def _quantize_ffn_in_place(params) -> None:
+    """Each layer's FFN weights replaced by 4-bit QTensors (group 128), one
+    layer at a time, so the bf16 weights are freed as they go."""
+    from repro_torch.quant.quantize import QTensor, quantize_tree
+    for lp in params["layers"]:
+        lp["ffn"] = quantize_tree(lp["ffn"], bits=4)
+        check(all(isinstance(w, QTensor) for w in lp["ffn"].values()),
+              "FFN weights not quantized")
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: Nemotron-4-15B on the card against the CPU
+# ---------------------------------------------------------------------------
+NEMOTRON_PARITY_LAYERS = 2
+
+
+def phase_nemotron_parity(dev) -> dict:
+    """Nemotron-4-15B at full width, depth cut to 2 layers, seeded bf16
+    weights (layernorm, squared ReLU, the untied 6144 x 256000 head),
+    through DenseBackend(paged=True) on the card (paged flash decode at
+    g = 6) and on the CPU (plain versions): an 80-token prefill (two pages)
+    and 4 teacher-forced decode steps for 2 rows, per-step logits within
+    DENSE_PARITY_ATOL, as phase 9.  About 8 GB of weights on the host; its
+    free memory is printed first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    print(f"[nemotron-parity] host memory available: {host_available_gb():.1f} GB",
+          flush=True)
+    cfg = dataclasses.replace(get_config(NEMOTRON),
+                              num_layers=NEMOTRON_PARITY_LAYERS).validate()
+    model = build_model(cfg)
+    params = model.init(SEED + 9, device=dev)
+    return _card_cpu_parity("nemotron-parity", model, params, DENSE_OPS, b=2, s=80, steps=4,
+                            seed=SEED + 10)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: InternVL2-26B with its vision-patch prefix
+# ---------------------------------------------------------------------------
+INTERNVL_LAYERS = 8
+
+
+def _prefix_steps(model, params, batch, tokens, max_len, *, jit: bool):
+    """Prefill `batch` (prefix + prompt) into a dense cache, then feed
+    `tokens` (B, T) one step at a time, the step captured or eager, as
+    ``decode.generate`` runs it; returns each step's logits on the host."""
+    from repro_torch.capture import CapturedStep, addresses
+    from repro_torch.device import to_device, to_host
+    from repro_torch.serving import decode
+
+    lg, cache, pos = decode.make_prefill_step(model, max_len)(params, batch)
+    serve_step = decode.make_serve_step(model)
+
+    def step(tok, p):
+        return serve_step(params, cache, tok, p)[0]
+
+    captured = CapturedStep(step, "serve_step") if jit else None
+    key = addresses(c[n] for c in cache for n in ("k", "v"))
+    out = [to_host(lg.float())[0]]
+    dev = params["embed"].device
+    for t in range(tokens.shape[1]):
+        args = (to_device(tokens[:, t:t + 1], dev), to_device(pos, dev))
+        lg = step(*args) if captured is None else captured(*args, key=key)
+        out.append(to_host(lg.float())[0])
+        pos = pos + 1
+    return np.stack(out)
+
+
+def phase_internvl2(dev) -> dict:
+    """InternVL2-26B at full width, depth cut to 8 layers, seeded bf16
+    weights and 256 seeded patch embeddings per row: ``decode.generate``
+    with the prefix (extra={"prefix_embeds": ...}) captured against eager,
+    greedy tokens equal; the same prefill and greedy tokens fed step by step
+    through the captured and the eager step, every step's logits equal; then
+    a text-only paged serve under BatchingServer, counting the g = 6
+    flash-decode launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import Batch
+    from repro_torch.serving import decode
+
+    cfg = dataclasses.replace(get_config(INTERNVL), num_layers=INTERNVL_LAYERS).validate()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED + 11, device=dev)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 12)
+    b, s, new = 2, 32, 8
+    prompts = rng.integers(0, cfg.vocab_size, (b, s))
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    prefix = torch.randn((b, cfg.num_prefix_tokens, cfg.d_model), generator=g,
+                         device=dev) * 0.5
+    gen = {jit: decode.generate(model, params, prompts, new, jit=jit,
+                                extra={"prefix_embeds": prefix}) for jit in (True, False)}
+    check(np.array_equal(gen[True].tokens, gen[False].tokens),
+          f"internvl2 decode.generate with the prefix: captured "
+          f"{gen[True].tokens[:, s:].tolist()} != eager {gen[False].tokens[:, s:].tolist()}")
+    batch = Batch(tokens=torch.as_tensor(prompts, device=dev),
+                  loss_mask=torch.ones((b, s), device=dev), prefix_embeds=prefix)
+    max_len = cfg.num_prefix_tokens + s + new + 1
+    fed = gen[True].tokens[:, s:s + new - 1]
+    logits = {jit: _prefix_steps(model, params, batch, fed, max_len, jit=jit)
+              for jit in (True, False)}
+    diff = float(np.abs(logits[True] - logits[False]).max())
+    check(diff == 0.0, f"internvl2: captured and eager step logits differ by {diff}")
+    check(bool(np.isfinite(logits[True]).all()), "internvl2: non-finite logits")
+    greedy = np.argmax(logits[True], axis=-1).T                   # (B, new)
+    check(np.array_equal(greedy, gen[True].tokens[:, s:]),
+          "internvl2: the fed steps' greedy tokens differ from decode.generate's")
+    print(f"[internvl2] {cfg.name} at full width, {cfg.num_layers} layers, bf16 weights "
+          f"seeded in {seed_s:.1f} s; {cfg.num_prefix_tokens} patch embeddings + {s} prompt "
+          f"tokens x {b} rows: decode.generate captured = eager ({new} tokens; "
+          f"{gen[True].decode_tok_s:.1f} / {gen[False].decode_tok_s:.1f} decode tok/s), "
+          f"{new} steps' logits captured = eager (max |diff| {diff})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve_dense(dev, model, params, "serve-internvl2", DENSE_OPS)
+    return {"seed_s": seed_s, "generate_tokens_equal": True, "step_logits_max_abs_diff": diff,
+            "generate_decode_tok_s": {"captured": gen[True].decode_tok_s,
+                                      "eager": gen[False].decode_tok_s},
+            "serve": serve}
+
+
+def phases_48_8(dev):
+    """Phases 10, 10b and 11: Nemotron-4-15B at full width and depth served
+    in bf16 and with 4-bit FFN weights (quantized in place, the bf16 FFN
+    freed first), the 2-layer card-against-CPU parity, and InternVL2-26B.
+    Returns the two Nemotron serves' and the InternVL2 phase's results."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    ncfg = get_config(NEMOTRON)
+    nmodel = build_model(ncfg)
+    t0 = time.perf_counter()
+    nparams = nmodel.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    print(f"[serve-nemotron] {ncfg.name} at full width and depth ({ncfg.num_layers} layers), "
+          f"bf16 random weights (seed {SEED}) in {seed_s:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
+    with phase("serve-nemotron"):
+        nem = phase_serve_nemotron(dev, nmodel, nparams, "serve-nemotron", DENSE_OPS)
+    t0 = time.perf_counter()
+    _quantize_ffn_in_place(nparams)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve-nemotron-q4] FFN weights of {ncfg.num_layers} layers quantized to 4 bits "
+          f"(group 128) on the card in {quant_s:.1f} s, bf16 FFN freed: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
+    with phase("serve-nemotron-q4"):
+        nem_q = phase_serve_nemotron(dev, nmodel, nparams, "serve-nemotron-q4", DENSE_Q_OPS)
+    agree = float(np.mean([np.mean(nem["outputs"][r] == nem_q["outputs"][r])
+                           for r in nem["outputs"]]))
+    print(f"[serve-nemotron-q4] seed {seed_s:.1f} s, quantize {quant_s:.1f} s; greedy tokens "
+          f"equal to the bf16 run's in {agree:.3f} of positions", flush=True)
+    del nmodel, nparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("nemotron-parity"):
+        phase_nemotron_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("internvl2"):
+        ivl = phase_internvl2(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nem, nem_q, ivl
 
 
 def main() -> None:
@@ -2835,22 +3329,31 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("dense-parity"):
         phase_dense_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    nem, nem_q, ivl = phases_48_8(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
-    # paged serve, the dequant-matmul's from the quantized Granite serve; no
+    # paged serve (g = 4) and the Nemotron serve (g = 6), the
+    # dequant-matmul's from the quantized Granite and Nemotron serves; no
     # serving path runs the contiguous flash decode); every path beside them
     main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
-                 "flash_decode": None}
+                 "flash_decode": None, "paged_flash_decode (g=6)": "serve_nemotron",
+                 "dequant_matmul (nemotron)": "serve_nemotron_q4", "flash_decode (g=6)": None}
     paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
              "serve_dense_q4": dense_q, "per_expert": per_expert["per_expert_dense"],
              "per_expert_paged": per_expert["per_expert_paged"],
              "grouped_sync": per_expert["grouped_dense"],
              "grouped_sync_paged": per_expert["grouped_paged"],
-             "host_mode": host_mode["host"], "single_sequence": single}
+             "host_mode": host_mode["host"], "single_sequence": single,
+             "serve_nemotron": nem, "serve_nemotron_q4": nem_q,
+             "serve_internvl2": ivl["serve"]}
     for r in rows:
-        key = f"{r['name']}.cuda"
-        by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()}
+        key = f"{r.get('op', r['name'])}.cuda"
+        by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()
+                   if name in r.get("paths", paths)}
         path = main_path.get(r["name"], "serve")
         r["launches"] = by_path[path] if path else 0
         r["launches_by_path"] = by_path

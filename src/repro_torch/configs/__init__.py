@@ -1,9 +1,12 @@
 """Architecture registry of the PyTorch port: --arch <id> resolves here.
 
 Registered so far: the all-"attn" MoE class the offload engine serves (the
-paper's own evaluation models) and the dense Granite-3.0-2B; the other
-architectures of the JAX package arrive with their model layers (ROADMAP,
-Queue 1 item 7)."""
+paper's own evaluation models) and the dense all-"attn" family: Granite-3.0-2B,
+Nemotron-4-15B (layernorm, squared-ReLU FFN, untied LM head) and
+InternVL2-26B (its InternLM2 backbone behind 256 precomputed vision-patch
+embeddings).  The other architectures of the JAX package arrive with their
+model layers (ROADMAP, Queue 1 item 7: windowed ring caches, MLA, SSM and
+hybrid layers, the audio encoder)."""
 
 from repro_torch.configs.base import (
     INPUT_SHAPES,
@@ -13,7 +16,13 @@ from repro_torch.configs.base import (
     smoke_variant,
 )
 
-from repro_torch.configs import granite_3_2b, mixtral_8x7b, phi_moe  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    granite_3_2b,
+    internvl2_26b,
+    mixtral_8x7b,
+    nemotron_4_15b,
+    phi_moe,
+)
 
 PAPER_ARCHS = {
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
@@ -23,6 +32,8 @@ PAPER_ARCHS = {
 # the JAX package's assigned architectures ported so far
 ASSIGNED_ARCHS = {
     "granite-3-2b": granite_3_2b.CONFIG,
+    "internvl2-26b": internvl2_26b.CONFIG,
+    "nemotron-4-15b": nemotron_4_15b.CONFIG,
 }
 
 ARCHS = {**ASSIGNED_ARCHS, **PAPER_ARCHS}

@@ -67,11 +67,13 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
         "paged_flash_decode_blocks_per_sm": (_I, _I, _I, _I, _IP),
         "flash_decode_stages": (_I, _I, _IP),
+        "paged_flash_decode_regs": (_I, _I, _I, _IP, _IP),
     },
     "flash_decode_contig": {
         "flash_decode_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_decode_blocks_per_sm": (_I, _I, _I, _IP),
+        "flash_decode_regs": (_I, _I, _I, _IP, _IP),
     },
     "grouped_matmul": {
         "grouped_matmul_tensor_map": (_P, _I, _I, _I, _P),

@@ -26,6 +26,11 @@ struct Blocks {
   static int run(int maxp, int* blocks) { return blocks_t<KV, G, HD, true>(maxp, blocks); }
 };
 
+template <typename KV, int G, int HD>
+struct Regs {
+  static int run(int* regs, int* local_bytes) { return regs_t<KV, G, HD, true>(regs, local_bytes); }
+};
+
 }  // namespace
 
 extern "C" int paged_flash_decode_launch(const void* q, int q_bf16, const void* pages_k,
@@ -58,4 +63,12 @@ extern "C" int paged_flash_decode_blocks_per_sm(int kv_bf16, int g, int hd, int 
 extern "C" int flash_decode_stages(int kv_bf16, int hd, int* stages) {
   if (stages == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<Stages>(kv_bf16, 1, hd, stages);
+}
+
+// Registers and local-memory (spill and stack) bytes per thread of the
+// paged pass-1 kernel for (kv_bf16, g, hd).
+extern "C" int paged_flash_decode_regs(int kv_bf16, int g, int hd, int* regs,
+                                       int* local_bytes) {
+  if (regs == nullptr || local_bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<Regs>(kv_bf16, g, hd, regs, local_bytes);
 }

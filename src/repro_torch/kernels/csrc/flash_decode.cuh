@@ -827,6 +827,18 @@ int launch_t(const Args& a, cudaStream_t s) {
                                  (const float*)a.ml_part, a.out, a.splits);
 }
 
+// Registers and local-memory bytes per thread (spills and stack) of the
+// pass-1 kernel of an instantiation.
+template <typename KV, int G, int HD, bool PAGED>
+int regs_t(int* regs, int* local_bytes) {
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(&at, Pass1<KV, G, HD, PAGED>::kernel());
+  if (err != cudaSuccess) return (int)err;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  return 0;
+}
+
 // Ring stages of the instantiation (1 for v6's single tile buffer).
 template <typename KV, int G, int HD>
 struct Stages {
@@ -837,9 +849,12 @@ struct Stages {
 };
 
 // Run F<KV, G, HD>::run(args...) for the runtime (g, hd) of an instantiation.
-// Instantiated for the (g, hd) pairs the port's configs reach: g = 4 with
-// hd = 128 (Mixtral-8x7B, Phi-3.5-MoE) and hd = 64 (Granite-3.0-2B), and
-// g = 1 (the smoke variants).
+// Instantiated for the g the port's configs reach, each at hd 64 and 128:
+// g = 4 (Mixtral-8x7B and Phi-3.5-MoE at hd 128, Granite-3.0-2B at hd 64),
+// g = 6 (Nemotron-4-15B and InternVL2-26B, 48 query heads on 8 kv heads at
+// hd 128) and g = 1 (the smoke variants).  The ring kernel's q.k and P.V
+// products hold a group's heads in one 8-wide MMA operand, so any g <= 8
+// fits it; heads g..7 are dead columns (zero q, zero P, never written).
 template <typename KV, template <typename, int, int> class F, int G, typename... A>
 int by_hd(int hd, A... args) {
   switch (hd) {
@@ -854,6 +869,7 @@ int by_g(int g, int hd, A... args) {
   switch (g) {
     case 1: return by_hd<KV, F, 1>(hd, args...);
     case 4: return by_hd<KV, F, 4>(hd, args...);
+    case 6: return by_hd<KV, F, 6>(hd, args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }

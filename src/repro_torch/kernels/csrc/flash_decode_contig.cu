@@ -28,6 +28,11 @@ struct Blocks {
   static int run(int* blocks) { return blocks_t<KV, G, HD, false>(0, blocks); }
 };
 
+template <typename KV, int G, int HD>
+struct Regs {
+  static int run(int* regs, int* local_bytes) { return regs_t<KV, G, HD, false>(regs, local_bytes); }
+};
+
 }  // namespace
 
 // q (B, Hq, hd); k, v (B, S, Hkv, hd); lengths (B,) int32; the split runs
@@ -48,4 +53,11 @@ extern "C" int flash_decode_launch(const void* q, int q_bf16, const void* k, con
 extern "C" int flash_decode_blocks_per_sm(int kv_bf16, int g, int hd, int* blocks) {
   if (blocks == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<Blocks>(kv_bf16, g, hd, blocks);
+}
+
+// Registers and local-memory (spill and stack) bytes per thread of the
+// contiguous pass-1 kernel for (kv_bf16, g, hd).
+extern "C" int flash_decode_regs(int kv_bf16, int g, int hd, int* regs, int* local_bytes) {
+  if (regs == nullptr || local_bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<Regs>(kv_bf16, g, hd, regs, local_bytes);
 }

@@ -1047,9 +1047,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, slot: torch.Tensor) -> torc
 # --------------------------------------------------------------------------
 
 # head dims and GQA group sizes the kernels are instantiated for: those of
-# the ported configs (g 4 with hd 128 and 64) and of their smoke variants (g 1)
+# the ported configs (g 4 with hd 128 and 64: Mixtral, Phi-MoE, Granite; g 6
+# with hd 128: Nemotron-4-15B and InternVL2-26B, 48 query heads on 8 kv
+# heads) and of their smoke variants (g 1)
 FLASH_DECODE_HEAD_DIMS = (64, 128)
-FLASH_DECODE_GROUPS = (1, 4)
+FLASH_DECODE_GROUPS = (1, 4, 6)
 # the most splits the combine pass takes (kMaxSplits in flash_decode.cu)
 FLASH_DECODE_MAX_SPLITS = 4096
 
@@ -1089,6 +1091,19 @@ def _decode_blocks_per_sm(lib, kv_bf16: int, g: int, hd: int, maxp: int) -> int:
     """Paged pass-1 blocks per SM for this instantiation and table width."""
     return _blocks_per_sm("paged_flash_decode", lib.paged_flash_decode_blocks_per_sm,
                           kv_bf16, g, hd, maxp)
+
+
+def decode_kernel_regs(kv_bf16: int, g: int, hd: int, paged: bool = True) -> Dict[str, int]:
+    """Registers and local-memory bytes (spills and stack) per thread of the
+    pass-1 kernel instantiated for (kv_bf16, g, hd), paged or contiguous,
+    as the CUDA runtime reports them (cudaFuncGetAttributes)."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    if paged:
+        fn = build.library("flash_decode").paged_flash_decode_regs
+    else:
+        fn = build.library("flash_decode_contig").flash_decode_regs
+    _raise_on("flash_decode_regs", fn(kv_bf16, g, hd, ctypes.byref(regs), ctypes.byref(local)))
+    return {"regs": regs.value, "local_bytes": local.value}
 
 
 def decode_stages(kv_bf16: int, hd: int) -> int:

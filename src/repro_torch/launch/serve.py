@@ -21,6 +21,13 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --backend dense --paged-kv --serve-requests 6 --max-batch 4
 
+  # the 48/8-head dense family: Nemotron-4-15B (full depth, ~31 GB of
+  # bf16) and InternVL2-26B's backbone (text-only requests)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b \\
+      --backend dense --paged-kv --serve-requests 6 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+      --layers 8 --backend dense --paged-kv --serve-requests 6 --max-batch 4
+
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
 """

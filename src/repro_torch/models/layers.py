@@ -1,9 +1,9 @@
-"""Layer library of the port: RMSNorm, RoPE, grouped-query attention for
+"""Layer library of the port: RMSNorm and layernorm, RoPE, grouped-query attention for
 prefill and for one-token decode against a dense per-slot cache or a paged
 KV pool, and the dense FFN.
 
 PyTorch twin of the JAX package's ``models/layers.py`` for the all-"attn"
-model class (Mixtral / Phi-MoE and Granite shapes).  Plain tensor math,
+model class (Mixtral / Phi-MoE, Granite, Nemotron and InternVL2 shapes).  Plain tensor math,
 written as the reference writes it (``mha``): float32 scores and softmax,
 GQA without materialising repeated K/V heads.  Dense decode and paged
 prefill-chunk attention have no kernel, as in the reference; paged decode
@@ -46,16 +46,24 @@ def dense_init(shape, dtype: torch.dtype, gen: torch.Generator,
 
 
 def norm_init(cfg: ModelConfig, device: torch.device):
-    return {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
+    """{"scale"} (zeros: a unit gain), plus a zero "bias" for layernorm;
+    float32 whatever the config dtype."""
+    p = {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm with a (1 + scale) gain, float32 statistics."""
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r} arrives with the remaining model "
-            "classes (ROADMAP Queue 1, item 7)")
+    """RMSNorm, or layernorm (mean removed, biased variance, then a bias),
+    with a (1 + scale) gain; statistics and gain in float32, the result in
+    x's dtype."""
     xf = x.to(torch.float32)
+    if cfg.norm_type == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * (1.0 + p["scale"]) + p["bias"]).to(x.dtype)
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + cfg.norm_eps)
     return (y * (1.0 + p["scale"])).to(x.dtype)

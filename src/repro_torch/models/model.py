@@ -1,25 +1,32 @@
 """Model assembly of the port: config -> init / prefill / decode_step / logits.
 
 Covers decoder-only models whose every layer is a full-window "attn" layer
-with RMSNorm and either a MoE FFN in every layer (Mixtral / Phi-MoE, the
-HOBBIT engine's model class) or a dense FFN in every layer (Granite).
-Other configurations raise NotImplementedError naming the ROADMAP item
-that brings them.
+with either a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT
+engine's model class) or a dense FFN in every layer: Granite (RMSNorm,
+SwiGLU, tied embeddings), Nemotron-4 (layernorm, squared ReLU, an untied LM
+head) and InternVL2's InternLM2 backbone, whose "vision_patches" frontend
+puts precomputed patch embeddings (``Batch.prefix_embeds``) in front of the
+text.  Other configurations raise NotImplementedError naming the ROADMAP
+item that brings them.
 
 Parameters are a plain dict of tensors with a flat per-layer list::
 
-    {"embed": (V_pad, D), "final_norm": {"scale": (D,)},
+    {"embed": (V_pad, D), "final_norm": {"scale": (D,)[, "bias"]},
+     ["lm_head": (D, V_pad) when the embeddings are untied,]
      "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "ffn_norm",
                  "ffn": {"router": (D, E), "experts": {"wi", "wo"}}   (MoE)
                      or {"wi", "wo"}}, ...]}                          (dense)
 
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
 eagerly, so the port keeps the flat view ``unstack_layers`` gives there).  A
+norm holds a float32 "scale" and, for layernorm, a float32 "bias".  A
 dense FFN weight may be a `QTensor` (``quant.quantize_tree``); its products
 then run the dequant-matmul kernel.  The decode cache is a list of per-layer
 {"k", "v"} (B, max_len, Hkv, hd) buffers updated in place, or a
 `kv_pages.PagedKVPool` (``init_cache(..., paged=True)``) driven by
-``decode_step_paged`` / ``prefill_chunk_paged``.
+``decode_step_paged`` / ``prefill_chunk_paged``.  Prefix embeddings enter
+through ``forward`` and ``prefill`` (a `Batch`); the paged chunked prefill
+is text-only, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,31 +51,39 @@ class Batch(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless `cfg` is in the ported model class."""
+    """Raise NotImplementedError unless `cfg` is in the ported model class:
+    all-"attn" decoder layers, every FFN dense or every FFN MoE (no shared
+    experts), RMSNorm or layernorm, and no frontend but "vision_patches"."""
     kinds = set(cfg.layer_kinds())
     if kinds != {"attn"} or cfg.mla is not None or cfg.encoder is not None \
             or cfg.ssm is not None:
         raise NotImplementedError(
             f"{cfg.name}: only all-'attn' decoder layers are ported so far; "
-            "sliding-window, MLA, SSM, hybrid and encoder models arrive with "
+            "sliding-window and chunked layers (ROADMAP Queue 1, item 7.2), MLA "
+            "(7.3), SSM and hybrid layers (7.4) and encoders (7.5) arrive with "
             "ROADMAP Queue 1, item 7 (remaining model classes)")
     moe = cfg.layer_is_moe()
     if any(moe) and not all(moe):
         raise NotImplementedError(
             f"{cfg.name}: models mixing dense and MoE FFN layers arrive with "
-            "ROADMAP Queue 1, item 7 (remaining model classes)")
+            "ROADMAP Queue 1, item 7.4 (Jamba)")
     if all(moe) and cfg.moe.num_shared_experts:
         raise NotImplementedError(
-            f"{cfg.name}: shared experts arrive with ROADMAP Queue 1, item 7")
-    if cfg.norm_type != "rmsnorm":
+            f"{cfg.name}: shared experts arrive with ROADMAP Queue 1, item 7 "
+            "(7.2, 7.3)")
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(
-            f"{cfg.name}: norm_type={cfg.norm_type!r} (Nemotron-4-15B's layernorm) "
-            "arrives with ROADMAP Queue 1, item 7")
-    if cfg.frontend is not None or cfg.final_logit_softcap or cfg.scale_embedding \
-            or cfg.sandwich_norm or cfg.qk_norm:
+            f"{cfg.name}: norm_type={cfg.norm_type!r} is neither RMSNorm nor "
+            "layernorm (ROADMAP Queue 1, item 7)")
+    if cfg.frontend not in (None, "vision_patches"):
         raise NotImplementedError(
-            f"{cfg.name}: frontends, logit softcap, embedding scaling, sandwich "
-            "norms and qk-norm arrive with ROADMAP Queue 1, item 7")
+            f"{cfg.name}: the {cfg.frontend!r} frontend (Whisper's audio "
+            "frames) arrives with ROADMAP Queue 1, item 7.5")
+    if cfg.final_logit_softcap or cfg.scale_embedding or cfg.sandwich_norm \
+            or cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: logit softcap, embedding scaling, sandwich norms and "
+            "qk-norm arrive with ROADMAP Queue 1, item 7.2")
 
 
 def supports_paged_kv(cfg: ModelConfig) -> bool:
@@ -163,11 +178,19 @@ class Model:
         return params["embed"][tokens.to(torch.long)]
 
     # -------------------- prefill --------------------
-    def forward(self, params, tokens: torch.Tensor):
-        """Full-sequence forward.  tokens (B, S).  Returns (hidden (B, S, D),
+    def forward(self, params, batch: Union[Batch, torch.Tensor]):
+        """Full-sequence forward of a `Batch` (or its tokens (B, S) alone).
+        A "vision_patches" model puts the batch's P prefix embeddings (cast
+        to the compute dtype) in front of the token embeddings, positions
+        running over both; other models ignore them, as the reference does.
+        Returns (hidden (B, P + S, D) with the prefix positions first,
         [(k, v) per layer], aux_loss)."""
         cfg = self.cfg
+        tokens = batch.tokens if isinstance(batch, Batch) else batch
         x = self.embed(params, tokens)
+        prefix = batch.prefix_embeds if isinstance(batch, Batch) else None
+        if cfg.frontend == "vision_patches" and prefix is not None:
+            x = torch.cat([prefix.to(device=x.device, dtype=x.dtype), x], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         kvs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
@@ -211,12 +234,16 @@ class Model:
                  "v": torch.zeros(shape, dtype=dt, device=dev)}
                 for _ in range(cfg.num_layers)]
 
-    def prefill(self, params, tokens: torch.Tensor, max_len: int):
-        """Run whole prompts (B, S) and build a decode cache padded to
-        max_len.  Returns (last-token logits (B, V), cache, next positions
-        as a host array (B,))."""
-        x, kvs, _ = self.forward(params, tokens)
+    def prefill(self, params, batch: Union[Batch, torch.Tensor], max_len: int):
+        """Run whole prompts (a `Batch`, or tokens (B, S)) and build a decode
+        cache padded to max_len, which must hold the prefix and the prompt.
+        Returns (last-token logits (B, V), cache, next positions as a host
+        array (B,): prefix plus prompt tokens)."""
+        x, kvs, _ = self.forward(params, batch)
         b, s, _ = x.shape
+        if s > max_len:
+            raise ValueError(f"a decode cache of max_len={max_len} cannot hold the "
+                             f"{s} prefix and prompt positions")
         cache = self.init_cache(b, max_len, x.device)
         for c, (k, v) in zip(cache, kvs):
             c["k"][:, :s] = k.to(c["k"].dtype)

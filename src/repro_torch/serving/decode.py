@@ -35,13 +35,15 @@ def make_serve_step(model: Model) -> Callable:
 
 def make_prefill_step(model: Model, max_len: int) -> Callable:
     """prefill_step(params, batch: Batch) -> (last-token logits (B, V), a
-    decode cache padded to max_len, next positions (B,) on the host)."""
+    decode cache padded to max_len, next positions (B,) on the host).  A
+    "vision_patches" model takes the batch's prefix embeddings in front of
+    its tokens; audio frames are refused."""
 
     def prefill_step(params, batch: Batch):
-        if batch.prefix_embeds is not None or batch.audio_frames is not None:
-            raise NotImplementedError("frontend inputs arrive with the model classes "
-                                      "that take them (ROADMAP Queue 1, item 7)")
-        return model.prefill(params, batch.tokens, max_len)
+        if batch.audio_frames is not None:
+            raise NotImplementedError("audio frames arrive with the encoder model "
+                                      "class (ROADMAP Queue 1, item 7.5)")
+        return model.prefill(params, batch, max_len)
 
     return prefill_step
 
@@ -78,16 +80,23 @@ def generate(model: Model, params, prompts, new_tokens: int, *,
              seed: int = 0, extra: Optional[dict] = None,
              jit: bool = True) -> GenerateResult:
     """Greedy/temperature generation on the parameters' device.  prompts:
-    (B, S) host array.  With `jit` the decode step is a captured step (one
-    CUDA graph for the call on the card); without, every step runs
-    eagerly."""
+    (B, S) host array; `extra` holds further `Batch` fields, such as
+    "prefix_embeds" (B, P, D) (a host array or a tensor), whose P positions
+    the default cache length counts beside the prompt's.  With `jit` the
+    decode step is a captured step (one CUDA graph for the call on the
+    card); without, every step runs eagerly."""
     prompts = np.asarray(prompts, np.int32)
     s = prompts.shape[1]
     dev = params["embed"].device
+    extra = {k: v if isinstance(v, torch.Tensor) or v is None else to_device(v, dev)
+             for k, v in (extra or {}).items()}
+    prefix = extra.get("prefix_embeds")
+    if prefix is not None and model.cfg.frontend == "vision_patches":
+        s += prefix.shape[1]
     max_len = max_len or (s + new_tokens + 1)
     batch = Batch(tokens=to_device(prompts, dev),
                   loss_mask=torch.ones(prompts.shape, dtype=torch.float32, device=dev),
-                  **(extra or {}))
+                  **extra)
     prefill = make_prefill_step(model, max_len)
     serve_step = make_serve_step(model)
 

@@ -105,6 +105,9 @@ def _flat_layers(cfg: ModelConfig, tree) -> List[Dict[str, Any]]:
 
 
 def _is_quantized(node) -> bool:
+    # an array is never one (and `.data` of a bfloat16 numpy array raises)
+    if isinstance(node, (np.ndarray, torch.Tensor)):
+        return False
     return all(hasattr(node, a) for a in ("data", "scale", "bits", "group_size", "orig_k"))
 
 
@@ -132,7 +135,8 @@ def _to_torch(node, dtype: torch.dtype, device: torch.device, f32_keys=()):
 def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
     """The reference's parameter tree (numpy leaves, stacked ``blocks/<j>/...``
     layout) as the port's parameters on `device`.  Matrices take the config
-    dtype; norm scales and routers stay float32, as the reference keeps them."""
+    dtype, the untied ``lm_head`` too; norm scales (and layernorm biases) and
+    routers stay float32, as the reference keeps them."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     f32_keys = ("pre_norm", "ffn_norm", "final_norm", "router")

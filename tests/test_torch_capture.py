@@ -144,11 +144,14 @@ def test_serve_step_logits_match_reference(models):
 
 
 def test_prefill_step_refuses_frontend_inputs(models):
+    """Audio frames (Whisper's encoder, item 7.5) are refused; prefix
+    embeddings are taken (tests/test_torch_gqa6_dense.py holds them to the
+    reference on InternVL2)."""
     _, _, _, port, tparams = models
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     batch = decode.Batch(tokens=tokens, loss_mask=torch.ones((1, 4)),
-                         prefix_embeds=torch.zeros((1, 2, port.cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+                         audio_frames=torch.zeros((1, 2, port.cfg.d_model)))
+    with pytest.raises(NotImplementedError, match="item 7.5"):
         decode.make_prefill_step(port, 8)(tparams, batch)
 
 

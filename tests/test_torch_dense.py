@@ -304,12 +304,18 @@ def test_hobbit_backend_on_a_dense_arch_fails_clearly(granite):
 
 
 def test_check_supported_takes_dense_and_moe_and_names_what_remains():
-    for arch in ("granite-3-2b", "mixtral-8x7b", "phi-moe"):
+    for arch in ("granite-3-2b", "mixtral-8x7b", "phi-moe", "nemotron-4-15b",
+                 "internvl2-26b"):
         check_supported(get_config(arch))
     nemotron = dataclasses.replace(get_config(ARCH), name="nemotron-like",
-                                   norm_type="layernorm", ffn_activation="sq_relu")
-    with pytest.raises(NotImplementedError, match="layernorm.*ROADMAP"):
-        check_supported(nemotron)
+                                   norm_type="layernorm", ffn_activation="sq_relu",
+                                   tie_embeddings=False)
+    check_supported(nemotron)
+    windowed = dataclasses.replace(get_config(ARCH), name="windowed",
+                                   block_pattern=("attn_local", "attn"),
+                                   moe_pattern=(False, False), window_size=64).validate()
+    with pytest.raises(NotImplementedError, match="sliding-window.*ROADMAP"):
+        check_supported(windowed)
     mixed = dataclasses.replace(get_config("mixtral-8x7b"), block_pattern=("attn", "attn"),
                                 moe_pattern=(True, False)).validate()
     with pytest.raises(NotImplementedError, match="mixing dense and MoE.*ROADMAP"):

@@ -894,7 +894,7 @@ def _paged_pair(impl, q, pk, pv, table, lengths, dtype=np.float32, softcap=0.0):
 
 
 @pytest.mark.parametrize("impl", PAGED_IMPLS)
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (12, 2)])
 @pytest.mark.parametrize("psz,maxp", [(4, 6), (8, 3)])
 def test_paged_flash_decode_matches_reference(impl, hq, hkv, psz, maxp):
     q, pk, pv, table = _paged_inputs(3, hq, hkv, 32, psz, maxp, 12, seed=hq * 10 + psz)
@@ -1012,10 +1012,12 @@ def test_flash_decode_dtypes(mode, dtype):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_flash_decode_gqa_and_ragged_cache(mode):
-    """GQA (8 query heads on 2 kv heads) and S = 300 off the 128-row block."""
-    q, k, v = _fd_inputs(2, 300, 8, 2, 64, seed=7)
-    got, want = _fd_pair(mode, q, k, v, [300, 17])
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    """GQA (8 and 12 query heads on 2 kv heads: g = 4 and g = 6, as
+    Nemotron's 48/8) and S = 300 off the 128-row block."""
+    for hq in (8, 12):
+        q, k, v = _fd_inputs(2, 300, hq, 2, 64, seed=7)
+        got, want = _fd_pair(mode, q, k, v, [300, 17])
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -1155,7 +1157,12 @@ def _ring_inputs(length, g, q_dtype, seed, psz=16, hkv=2, hd=64):
 RING_CASES = ([("paged", n, cap, qd, g) for n in (1, 37, 64, 65, 4096) for cap in (0.0, 5.0)
                for qd in ("bfloat16", "float32") for g in (1, 4)]
               + [("contiguous", n, 0.0, qd, g) for n in (1, 37, 64, 65, 4096)
-                 for qd in ("bfloat16", "float32") for g in (1, 4)])
+                 for qd in ("bfloat16", "float32") for g in (1, 4)]
+              # g = 6 (Nemotron, InternVL2): two of the 8 P.V columns dead
+              + [("paged", n, cap, qd, 6) for n in (1, 37, 65, 4096) for cap in (0.0, 5.0)
+                 for qd in ("bfloat16", "float32")]
+              + [("contiguous", n, 0.0, qd, 6) for n in (1, 65, 4096)
+                 for qd in ("bfloat16", "float32")])
 
 
 @pytest.mark.parametrize("kind,length,softcap,q_dtype,g", RING_CASES)
