@@ -134,7 +134,37 @@ and each printing its seconds:
   11. internvl2 — InternVL2-26B at full width cut to 8 layers with 256
                seeded patch embeddings per row: ``decode.generate`` with the
                prefix captured against eager (tokens and every step's logits
-               equal), then a text-only paged serve (g = 6 launches).
+               equal), then a text-only paged serve (g = 6 launches);
+  3e. (run with phase 3) dequant_matmul — the dense dequant-matmul kernels
+               at Gemma-2-27B's FFN (wi 4608 -> 73728, wo 36864 -> 4608:
+               288 quant groups of K over 36 column tiles; 4 bits, group
+               128): decode M = 1-4 and prefill M = 64, 256 against the plain
+               version, two calls bit-identical, each shape's kernel and
+               K-split, timed beside its bound and torch.matmul;
+  12. serve-gemma2 — Gemma-2-27B at full width and depth (46 layers, ~27.2 B
+               parameters, ~54 GB of seeded bf16: sliding-window and global
+               layers, softcaps, sandwich norms, scaled embeddings) through
+               DenseBackend on the dense KV layout with ring caches (decode
+               steps replayed graphs; no kernel on the bf16 path: the
+               windowed attention is plain PyTorch, as in the reference),
+               once in bf16 and once with the FFN quantized in place to 4
+               bits (the dequant-matmul kernels launched, their plain
+               version never): decode tok/s, median step wall, peak device
+               memory, seconds to seed and to quantize, a 3-step profiler
+               window and the logits' float32 head cast;
+  12b. gemma2-parity — Gemma-2 at full width cut to 2 layers (one local,
+               one global), bf16, on the card against the CPU, as phase 9;
+  12c. ring-gemma3 — Gemma-3-27B at full width cut to 12 layers: a 1020-
+               token prompt decoded through the ring's wrap at 1024 and a
+               1040-token prompt (longer than the window), each captured
+               step against ``Model.forward`` within 0.1 in float32 weights;
+               the bf16 model's gap to the forward measured, then a serve;
+  12d. llama4-scout — Llama-4-Scout-17B-16E at full width cut to 8 layers
+               (~37 GB of bf16): a serve, HobbitBackend's refusal, and an
+               8188-token prompt decoded across the chunk boundary at 8192
+               with its gap to ``Model.forward`` measured; then the same
+               held within 0.1 in float32 weights at 4 layers (capacity
+               factor 16 in both: no drops).
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -171,6 +201,9 @@ LAYERS = 4
 GRANITE = "granite-3-2b"
 NEMOTRON = "nemotron-4-15b"
 INTERNVL = "internvl2-26b"
+GEMMA2 = "gemma2-27b"
+GEMMA3 = "gemma3-27b"
+LLAMA4 = "llama4-scout-17b-a16e"
 
 
 def fail(msg: str) -> None:
@@ -531,18 +564,21 @@ def _gating_rows(dev, g) -> list:
 
 
 def phase_kernels_dense(dev) -> list:
-    """Phases 3c and 3d: the dense dequant-matmul and the contiguous
-    flash-decode kernels."""
+    """Phases 3c, 3d and 3e: the dense dequant-matmul and the contiguous
+    flash-decode kernels, then the dequant-matmul at Gemma-2-27B's FFN."""
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     with phase("kernels-3c"):
         dq = _dequant_matmul_row(dev, g)
-        dq_n = _dq_nemotron(dev, g)
+        dq_n = _dq_ffn(dev, g, NEMOTRON, "nemotron")
     torch.cuda.empty_cache()
     with phase("kernels-3d"):
         fd = _flash_decode_row(dev, g)
         fd6 = _flash_decode_g6_row(dev, g)
     torch.cuda.empty_cache()
-    return [dq, dq_n, fd, fd6]
+    with phase("kernels-3e"):
+        dq_g = _dq_ffn(dev, g, GEMMA2, "gemma2")
+    torch.cuda.empty_cache()
+    return [dq, dq_n, fd, fd6, dq_g]
 
 
 # ---------------------------------------------------------------------------
@@ -1689,24 +1725,28 @@ def _dq_mixtral_expert(dev, g) -> dict:
     return out
 
 
-def _dq_nemotron(dev, g) -> dict:
-    """The dense dequant-matmul kernels at Nemotron-4-15B's FFN (squared
-    ReLU, not gated): wi 6144 -> 24576 and wo 24576 -> 6144 (192 quant
-    groups of K), 4-bit codes, group 128, bf16 x; decode M = 1-4 and chunked
-    prefill M = 64, 256 against the plain version, two calls bit-identical,
-    timed with the weight cold in L2 beside its bound and torch.matmul on
-    the dequantized bf16 weight; each shape prints its kernel and plan."""
+def _dq_ffn(dev, g, arch: str, tag: str) -> dict:
+    """The dense dequant-matmul kernels at `arch`'s FFN: wi d_model -> d_ff
+    (2 d_ff when gated) and wo d_ff -> d_model, 4-bit codes, group 128,
+    bf16 x; decode M = 1-4 and chunked prefill M = 64, 256 against the
+    plain version, two calls bit-identical, timed with the weight cold in L2
+    beside its bound and torch.matmul on the dequantized bf16 weight; each
+    shape prints its kernel and plan (tile, K-split or cluster, blocks/SM,
+    registers).  Nemotron-4-15B (squared ReLU): wi 6144 -> 24576, wo 24576
+    -> 6144, 192 groups of K; Gemma-2-27B (SwiGLU): wi 4608 -> 73728, wo
+    36864 -> 4608, 288 groups of K over 36 column tiles."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import dequantize
 
-    cfg = get_config(NEMOTRON)
-    mats = {"wi": (cfg.d_model, cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
+    cfg = get_config(arch)
+    gate = 2 if cfg.ffn_activation == "swiglu" else 1
+    mats = {"wi": (cfg.d_model, gate * cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
     per, err = {}, 0.0
     for name, (k, n) in mats.items():
         for m in (1, 2, 3, 4, 64, 256):
             x, q = _dq_case(dev, g, m, k, n)
-            label = f"dequant_matmul nemotron {name} M={m}"
+            label = f"dequant_matmul {tag} {name} M={m}"
             e, kern = _dq_check(label, x, q)
             check(kern == ("mmv" if m <= 4 else "mma"), f"{label}: took the {kern} kernel")
             err = max(err, e)
@@ -1739,8 +1779,8 @@ def _dq_nemotron(dev, g) -> dict:
             del x, q, qs, wb, wbs, out, again
         torch.cuda.empty_cache()
     a = per["wo M=1"]
-    return dict(name="dequant_matmul (nemotron)", op="dequant_matmul",
-                paths=("serve_nemotron_q4",), route="cuda",
+    return dict(name=f"dequant_matmul ({tag})", op="dequant_matmul",
+                paths=(f"serve_{tag}_q4",), route="cuda",
                 source="src/repro_torch/kernels/csrc/dequant_matmul.cu",
                 replaces="src/repro/kernels/dequant_matmul.py:90", max_abs_err=err,
                 ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
@@ -2805,8 +2845,9 @@ def phase_serve_dense(dev, model, params, label: str, must_launch, *, jit: bool 
     return summary
 
 
-def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
-    """Where a decode step's time goes: DenseBackend(paged=True, jit=jit)
+def _decode_window(model, params, steps: int = 3, *, jit: bool = True,
+                   paged: bool = True) -> dict:
+    """Where a decode step's time goes: DenseBackend(paged=paged, jit=jit)
     with 4 slots holding 48-token prompts, `steps` steps under
     torch.profiler (two steps before them warm up and capture); the kernels'
     device time (the summed time of every kernel event) over the steps'
@@ -2819,7 +2860,7 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import DenseBackend
 
-    be = DenseBackend(model, params, jit=jit, paged=True)
+    be = DenseBackend(model, params, jit=jit, paged=paged)
     be.start_batch(4, 48 + steps + 8)
     rng = np.random.default_rng(SEED + 7)
     be.prefill(rng.integers(0, model.cfg.vocab_size, (4, 48)))
@@ -2837,7 +2878,7 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     if busy_us <= 0:
         return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured",
                 "logits": np.stack(logits)}
@@ -2848,7 +2889,9 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True) -> dict:
             "mmv_ms_per_step": sum(e.self_device_time_total for e in mmv) / steps / 1e3,
             "mmv_launches_per_step": sum(e.count for e in mmv) / steps,
             "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
-                                        for e in top}}
+                                        for e in top},
+            "rest_ms_per_step": (busy_us - sum(e.self_device_time_total for e in top))
+            / steps / 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -2946,8 +2989,9 @@ def _tree_to(tree, device):
 DENSE_PARITY_ATOL = 0.1
 
 
-def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed) -> dict:
-    """`model` through DenseBackend(paged=True) on the card (kernels) and on
+def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed,
+                     paged: bool = True) -> dict:
+    """`model` through DenseBackend(paged=paged) on the card (kernels) and on
     the CPU (plain versions) with the same weights: an s-token prefill and
     `steps` teacher-forced decode steps for b rows, per-step logits within
     DENSE_PARITY_ATOL."""
@@ -2961,7 +3005,7 @@ def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed) ->
     runs, counts = {}, {}
     for where in ("cuda", "cpu"):
         p = params if where == "cuda" else _tree_to(params, "cpu")
-        be = DenseBackend(model, p, paged=True)
+        be = DenseBackend(model, p, paged=paged)
         be.start_batch(b, s + steps + 4)
         ops.reset_dispatch_counts()
         t0 = time.perf_counter()
@@ -3036,14 +3080,15 @@ def host_available_gb() -> float:
 # phase 10: Nemotron-4-15B at full width and depth through DenseBackend
 # ---------------------------------------------------------------------------
 def _logits_cast(model, params) -> dict:
-    """Device ms of what ``Model.logits`` spends on the untied head: its
-    float32 cast (reads the bf16 head, writes a float32 copy), the whole
-    logits call at 4 rows, and the bf16 head's product alone beside them
-    (CUDA events around 5 calls each, one warm-up)."""
+    """Device ms of what ``Model.logits`` spends on the head (the untied
+    ``lm_head``, or the tied embeddings' transpose): its float32 cast (reads
+    the bf16 head, writes a float32 copy), the whole logits call at 4 rows,
+    and the bf16 head's product alone beside them (CUDA events around 5
+    calls each, one warm-up)."""
     from repro_torch.models import layers
 
     cfg = model.cfg
-    w = params["lm_head"]
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     g = torch.Generator(device=w.device).manual_seed(SEED + 14)
     x = torch.randn((4, 1, cfg.d_model), generator=g, device=w.device).to(w.dtype)
     h = layers.apply_norm(params["final_norm"], x, cfg)
@@ -3055,21 +3100,24 @@ def _logits_cast(model, params) -> dict:
             "head_bf16_matmul_ms": head_bf16, "head_gb": nbytes(w) / 1e9}
 
 
-def phase_serve_nemotron(dev, model, params, label: str, must_launch) -> dict:
-    """Phase 8's serve (DenseBackend(paged=True), captured step,
+def phase_serve_full(dev, model, params, label: str, must_launch, *,
+                     paged: bool = True) -> dict:
+    """Phase 8's serve (DenseBackend(paged=paged), captured step,
     BatchingServer(max_batch=4), 6 greedy requests of 32-64 prompt tokens, 16
-    new tokens each) on Nemotron-4-15B, with the device's peak memory over
-    the serve (max_memory_allocated), then a 3-step profiler window (busy
-    share, top kernels) and the logits' float32 head cast timed alone."""
+    new tokens each) on a model at full width and depth (Nemotron-4-15B on
+    paged KV, Gemma-2-27B on dense KV with ring caches), with the device's
+    peak memory over the serve (max_memory_allocated), then a 3-step
+    profiler window (busy share, top kernels) and the logits' float32 head
+    cast timed alone."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    run = phase_serve_dense(dev, model, params, label, must_launch)
+    run = phase_serve_dense(dev, model, params, label, must_launch, paged=paged)
     run["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     run["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
     gc.collect()
     torch.cuda.empty_cache()
-    window = _decode_window(model, params)
+    window = _decode_window(model, params, paged=paged)
     window.pop("logits")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3227,7 +3275,7 @@ def phases_48_8(dev):
           f"bf16 random weights (seed {SEED}) in {seed_s:.1f} s, "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
     with phase("serve-nemotron"):
-        nem = phase_serve_nemotron(dev, nmodel, nparams, "serve-nemotron", DENSE_OPS)
+        nem = phase_serve_full(dev, nmodel, nparams, "serve-nemotron", DENSE_OPS)
     t0 = time.perf_counter()
     _quantize_ffn_in_place(nparams)
     torch.cuda.synchronize()
@@ -3238,7 +3286,7 @@ def phases_48_8(dev):
           f"(group 128) on the card in {quant_s:.1f} s, bf16 FFN freed: "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
     with phase("serve-nemotron-q4"):
-        nem_q = phase_serve_nemotron(dev, nmodel, nparams, "serve-nemotron-q4", DENSE_Q_OPS)
+        nem_q = phase_serve_full(dev, nmodel, nparams, "serve-nemotron-q4", DENSE_Q_OPS)
     agree = float(np.mean([np.mean(nem["outputs"][r] == nem_q["outputs"][r])
                            for r in nem["outputs"]]))
     print(f"[serve-nemotron-q4] seed {seed_s:.1f} s, quantize {quant_s:.1f} s; greedy tokens "
@@ -3255,6 +3303,245 @@ def phases_48_8(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return nem, nem_q, ivl
+
+
+# ---------------------------------------------------------------------------
+# phases 12-12d: the windowed family on dense KV with ring caches
+# ---------------------------------------------------------------------------
+GEMMA2_PARITY_LAYERS = 2
+GEMMA3_LAYERS = 12
+LLAMA4_LAYERS = 8
+RING_ATOL = DENSE_PARITY_ATOL
+WINDOWED_Q_OPS = ("dequant_matmul",)
+
+
+def _seeded(cfg, seed: int, dev, label: str):
+    """(model, seeded parameters in the config's dtype on the card, seconds
+    to seed them)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=dev)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    print(f"[{label}] {cfg.name} at full width, {cfg.num_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B parameters), {cfg.dtype} random weights (seed {seed}) "
+          f"in {seed_s:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card",
+          flush=True)
+    return model, params, seed_s
+
+
+def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
+                seed: int, *, gate: bool = True) -> dict:
+    """A seeded prompt of `prompt_len` tokens prefilled into dense caches of
+    max_len (windowed layers: rings of min(max_len, window) slots), then
+    `steps` teacher-forced decode steps through a captured step
+    (``decode.make_serve_step`` under ``CapturedStep``, as
+    ``decode.generate`` runs it), crossing the ring's wrap or the chunk
+    boundary; the prefill's and every step's logits against ``Model.forward``
+    over the same tokens, greedy agreement printed.  `gate`: each position
+    must agree within RING_ATOL (the float32 models); otherwise the gap is
+    measured and printed only (a bf16 model: a one-row step's products round
+    to bf16 otherwise than the forward's, and a top-1 MoE can route a token
+    to another expert on that difference)."""
+    from repro_torch.capture import CapturedStep, addresses
+    from repro_torch.device import to_device, to_host
+    from repro_torch.kernels import ops
+    from repro_torch.serving import decode
+
+    cfg = model.cfg
+    dev = params["embed"].device
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, prompt_len + steps))
+    t0 = time.perf_counter()
+    lg, cache, pos = model.prefill(params, to_device(toks[:, :prompt_len], dev), max_len)
+    got = [to_host(lg)[0]]
+    prefill_s = time.perf_counter() - t0
+    serve_step = decode.make_serve_step(model)
+    captured = CapturedStep(lambda tok, p: serve_step(params, cache, tok, p)[0], "serve_step")
+    key = addresses(c[n] for c in cache for n in ("k", "v"))
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = to_device(toks[:, prompt_len + i:prompt_len + i + 1], dev)
+        got.append(to_host(captured(tok, to_device(pos, dev)))[0])
+        pos = pos + 1
+    decode_s = time.perf_counter() - t0
+    _captured_path(ops.dispatch_counts(), ["serve_step"], label)
+    rings = sorted({int(c["k"].shape[1]) for c in cache})
+    del captured, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x, _, _ = model.forward(params, to_device(toks, dev))
+    want = to_host(model.logits(params, x[:, prompt_len - 1:]))[0][0]   # (steps + 1, V)
+    forward_s = time.perf_counter() - t0
+    del x
+    got = np.concatenate(got)                                           # (steps + 1, V)
+    check(bool(np.isfinite(got).all()), f"{label}: non-finite logits")
+    diffs = np.abs(got - want).max(axis=-1)
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    for i, e in enumerate(diffs):
+        check(e <= RING_ATOL or not gate, f"{label}: logits at position {prompt_len - 1 + i} "
+                                          f"differ from Model.forward by {e:.4f} > {RING_ATOL}")
+    out = {"dtype": cfg.dtype, "gated": gate, "prompt_len": prompt_len, "max_len": max_len,
+           "steps": steps, "max_abs_diff_by_position": diffs.tolist(),
+           "positions": [prompt_len - 1, prompt_len + steps - 1], "cache_rows": rings,
+           "max_abs_diff": float(diffs.max()), "logit_std": float(np.std(want)),
+           "argmax_equal": same, "compared": steps + 1, "prefill_s": prefill_s,
+           "decode_ms_per_step": decode_s / steps * 1e3, "forward_s": forward_s}
+    bar = f"<= {RING_ATOL}" if gate else "(measured, not gated)"
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {cfg.dtype}: prefill {prompt_len} "
+          f"tokens (cache rows {rings}), {steps} captured decode steps through positions "
+          f"{prompt_len}-{prompt_len + steps - 1} against Model.forward over "
+          f"{prompt_len + steps} tokens: max |diff| {diffs.max():.4g} {bar} (logit std "
+          f"{out['logit_std']:.3f}), greedy equal {same}/{steps + 1}; {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def phase_gemma2_parity(dev) -> dict:
+    """Gemma-2-27B at full width, depth cut to 2 layers (one sliding-window,
+    one global), seeded bf16 weights, through DenseBackend on dense KV with
+    ring caches on the card and on the CPU: a 48-token prefill and 4
+    teacher-forced decode steps for 2 rows, per-step logits within
+    DENSE_PARITY_ATOL, as phases 9 and 10b.  About 4.6 GB of weights on the
+    host."""
+    from repro_torch.configs import get_config
+
+    print(f"[gemma2-parity] host memory available: {host_available_gb():.1f} GB",
+          flush=True)
+    cfg = dataclasses.replace(get_config(GEMMA2), num_layers=GEMMA2_PARITY_LAYERS).validate()
+    check(cfg.layer_kinds() == ("attn_local", "attn"), f"gemma2-parity: {cfg.layer_kinds()}")
+    model, params, _ = _seeded(cfg, SEED + 15, dev, "gemma2-parity")
+    return _card_cpu_parity("gemma2-parity", model, params, (), b=2, s=48, steps=4,
+                            seed=SEED + 16, paged=False)
+
+
+def phase_ring_gemma3(dev) -> dict:
+    """Gemma-3-27B at full width (5376 wide, 32/16 heads of 128, qk-norm,
+    window 1024), depth cut to 12 layers (two 5:1 blocks): the ring checked
+    across its wrap (a 1020-token prompt, max_len 1100, decode through
+    position 1029) and filled by a prompt longer than the window (1040
+    tokens), each step against Model.forward within RING_ATOL in float32
+    weights (25 GB; there decode equals the forward up to float32 sum order,
+    so a misplaced key shows); then the bf16 model (13 GB): the same 1020-
+    token run with its gap to the forward measured, and the short-prompt
+    serve of phase 8 on dense KV."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(GEMMA3), num_layers=GEMMA3_LAYERS).validate()
+    model, params, _ = _seeded(dataclasses.replace(cfg, dtype="float32"), SEED + 17, dev,
+                               "ring-gemma3")
+    runs = [_ring_check("ring-gemma3", model, params, n, 1100, 10, SEED + 18 + i)
+            for i, n in enumerate((1020, 1040))]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, seed_s = _seeded(cfg, SEED + 17, dev, "ring-gemma3")
+    bf16 = _ring_check("ring-gemma3", model, params, 1020, 1100, 10, SEED + 18, gate=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve_dense(dev, model, params, "serve-gemma3", (), paged=False)
+    return {"seed_s": seed_s, "ring": runs, "ring_bf16": bf16, "serve": serve}
+
+
+LLAMA4_CHUNK_LAYERS = 4
+
+
+def phase_llama4(dev) -> dict:
+    """Llama-4-Scout-17B-16E at full width (5120 wide, 40/8 heads of 128, 16
+    experts of d_ff 8192 at top-1 beside a shared expert, chunk 8192), depth
+    cut to 8 layers (two 3 chunked : 1 global blocks, 37 GB of bf16): the
+    serve of phase 8 on dense KV, HobbitBackend's refusal, and the chunk
+    boundary (an 8188-token prompt, max_len 8200, 8 decode steps through
+    position 8195) with its gap to Model.forward measured; then the chunk
+    boundary held to Model.forward within RING_ATOL in float32 weights, at
+    full width cut to 4 layers (one 3 : 1 block, 39 GB: 8 float32 layers
+    would take 75 GB).  The chunk checks run at capacity factor E / top_k =
+    16, where no token can be dropped (at the published 1.5 an 8196-token
+    forward drops tokens a one-token step keeps; the weights are the
+    same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.api import BackendConfig, make_backend
+
+    cfg = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS).validate()
+    model, params, seed_s = _seeded(cfg, SEED + 20, dev, "llama4-scout")
+    serve = phase_serve_dense(dev, model, params, "serve-llama4", (), paged=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        make_backend(BackendConfig(kind="hobbit"), model, params)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("llama4-scout: HobbitBackend took a model with chunked layers and a shared "
+             "expert")
+    check("full-window 'attn' layers only" in refusal, f"llama4-scout: refusal {refusal!r}")
+    print(f"[llama4-scout] HobbitBackend refuses it: {refusal}", flush=True)
+
+    def nodrop(c):
+        return build_model(dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=float(c.moe.num_experts // c.moe.top_k))))
+
+    bf16 = _ring_check("chunk-llama4", nodrop(cfg), params, 8188, 8200, 8, SEED + 21,
+                       gate=False)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, num_layers=LLAMA4_CHUNK_LAYERS, dtype="float32").validate()
+    _, params, _ = _seeded(f32, SEED + 20, dev, "chunk-llama4")
+    chunk = _ring_check("chunk-llama4", nodrop(f32), params, 8188, 8200, 8, SEED + 21)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seed_s": seed_s, "serve": serve, "chunk": chunk, "chunk_bf16": bf16,
+            "hobbit_refusal": refusal}
+
+
+def phases_windowed(dev):
+    """Phases 12-12d: Gemma-2-27B at full width and depth served on dense KV
+    with ring caches in bf16 and with its FFN quantized in place to 4 bits;
+    the 2-layer card-against-CPU parity; Gemma-3's ring across its wrap; and
+    Llama-4-Scout's serve and chunk boundary.  Each frees its weights before
+    the next.  Returns the two Gemma-2 serves' and the other phases' results."""
+    from repro_torch.configs import get_config
+
+    model, params, seed_s = _seeded(get_config(GEMMA2), SEED, dev, "serve-gemma2")
+    with phase("serve-gemma2"):
+        g2 = phase_serve_full(dev, model, params, "serve-gemma2", (), paged=False)
+    t0 = time.perf_counter()
+    _quantize_ffn_in_place(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve-gemma2-q4] FFN weights of {model.cfg.num_layers} layers quantized to 4 "
+          f"bits (group 128) on the card in {quant_s:.1f} s, bf16 FFN freed: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
+    with phase("serve-gemma2-q4"):
+        g2q = phase_serve_full(dev, model, params, "serve-gemma2-q4", WINDOWED_Q_OPS,
+                               paged=False)
+    agree = float(np.mean([np.mean(g2["outputs"][r] == g2q["outputs"][r])
+                           for r in g2["outputs"]]))
+    print(f"[serve-gemma2-q4] seed {seed_s:.1f} s, quantize {quant_s:.1f} s; greedy tokens "
+          f"equal to the bf16 run's in {agree:.3f} of positions", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("gemma2-parity"):
+        phase_gemma2_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("ring-gemma3"):
+        g3 = phase_ring_gemma3(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("llama4-scout"):
+        l4 = phase_llama4(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return g2, g2q, g3, l4
 
 
 def main() -> None:
@@ -3333,15 +3620,18 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     nem, nem_q, ivl = phases_48_8(dev)
+    g2, g2q, g3, l4 = phases_windowed(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
     # paged serve (g = 4) and the Nemotron serve (g = 6), the
-    # dequant-matmul's from the quantized Granite and Nemotron serves; no
-    # serving path runs the contiguous flash decode); every path beside them
+    # dequant-matmul's from the quantized Granite, Nemotron and Gemma-2
+    # serves; no serving path runs the contiguous flash decode); every path
+    # beside them
     main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
                  "flash_decode": None, "paged_flash_decode (g=6)": "serve_nemotron",
-                 "dequant_matmul (nemotron)": "serve_nemotron_q4", "flash_decode (g=6)": None}
+                 "dequant_matmul (nemotron)": "serve_nemotron_q4", "flash_decode (g=6)": None,
+                 "dequant_matmul (gemma2)": "serve_gemma2_q4"}
     paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
              "serve_dense_q4": dense_q, "per_expert": per_expert["per_expert_dense"],
              "per_expert_paged": per_expert["per_expert_paged"],
@@ -3349,7 +3639,8 @@ def main() -> None:
              "grouped_sync_paged": per_expert["grouped_paged"],
              "host_mode": host_mode["host"], "single_sequence": single,
              "serve_nemotron": nem, "serve_nemotron_q4": nem_q,
-             "serve_internvl2": ivl["serve"]}
+             "serve_internvl2": ivl["serve"], "serve_gemma2": g2, "serve_gemma2_q4": g2q,
+             "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"]}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

@@ -17,7 +17,9 @@ and returns that result: it is the warm-up, so every kernel's library load,
 first-launch attribute setup and cached occupancy query happens before the
 capture.  Then the step is captured once more on a side stream
 (``capture_error_mode="thread_local"``: the staging threads' copies on their
-own streams go on) from static copies of the inputs ("<name>.capture").
+own streams go on; Python's cyclic GC held off, since a pass that destroys
+a dead graph mid-capture invalidates it) from static copies of the inputs
+("<name>.capture").
 Later calls copy their inputs into those static buffers and replay.
 
 The key is the inputs' shapes, dtypes and device plus whatever the caller
@@ -42,6 +44,7 @@ the counters stay true counts of the launches that ran.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -96,8 +99,17 @@ class CapturedStep:
         counters = ops._counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
-            outputs = self.fn(*static)
+        # no cyclic GC pass inside the capture: one that frees a dead graph
+        # (cudaGraphExecDestroy) there invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                outputs = self.fn(*static)
+        finally:
+            if collecting:
+                gc.enable()
         launches = _grown(before, [dict(c) for c in counters])
         for c, b in zip(counters, before):      # the capture launched nothing
             c.clear()

@@ -1,12 +1,16 @@
 """Architecture registry of the PyTorch port: --arch <id> resolves here.
 
 Registered so far: the all-"attn" MoE class the offload engine serves (the
-paper's own evaluation models) and the dense all-"attn" family: Granite-3.0-2B,
+paper's own evaluation models), the dense all-"attn" family: Granite-3.0-2B,
 Nemotron-4-15B (layernorm, squared-ReLU FFN, untied LM head) and
 InternVL2-26B (its InternLM2 backbone behind 256 precomputed vision-patch
-embeddings).  The other architectures of the JAX package arrive with their
-model layers (ROADMAP, Queue 1 item 7: windowed ring caches, MLA, SSM and
-hybrid layers, the audio encoder)."""
+embeddings), and the windowed family on ring caches: Gemma-2-27B
+(alternating 4096-token sliding-window and global layers, softcaps,
+sandwich norms), Gemma-3-27B (5 local : 1 global, qk-norm) and
+Llama-4-Scout-17B-16E (3 chunked : 1 global, top-1 MoE beside a shared
+expert).  The other architectures of the JAX package arrive with their
+model layers (ROADMAP, Queue 1 item 7: MLA, SSM and hybrid layers, the
+audio encoder)."""
 
 from repro_torch.configs.base import (
     INPUT_SHAPES,
@@ -17,8 +21,11 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs import (  # noqa: E402
+    gemma2_27b,
+    gemma3_27b,
     granite_3_2b,
     internvl2_26b,
+    llama4_scout_17b_a16e,
     mixtral_8x7b,
     nemotron_4_15b,
     phi_moe,
@@ -31,8 +38,11 @@ PAPER_ARCHS = {
 
 # the JAX package's assigned architectures ported so far
 ASSIGNED_ARCHS = {
+    "gemma2-27b": gemma2_27b.CONFIG,
+    "gemma3-27b": gemma3_27b.CONFIG,
     "granite-3-2b": granite_3_2b.CONFIG,
     "internvl2-26b": internvl2_26b.CONFIG,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "nemotron-4-15b": nemotron_4_15b.CONFIG,
 }
 

@@ -249,6 +249,21 @@ class OffloadEngine:
         if cfg.moe is None:
             raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has dense "
                              "FFN layers (serve it with DenseBackend)")
+        # the HOBBIT model class: MoE behind full-window "attn" layers in every
+        # layer (the reference asserts these layer kinds), no shared experts
+        # and no sandwich norms, which the engine's layer step does not apply
+        kinds = sorted(set(cfg.layer_kinds()) - {"attn"})
+        why = [f"{'/'.join(kinds)} layers"] if kinds else []
+        if not all(cfg.layer_is_moe()):
+            why.append("dense FFN layers")
+        if cfg.moe.num_shared_experts:
+            why.append(f"{cfg.moe.num_shared_experts} shared expert(s)")
+        if cfg.sandwich_norm:
+            why.append("sandwich norms")
+        if why:
+            raise ValueError(f"OffloadEngine serves MoE models of full-window 'attn' "
+                             f"layers only; {cfg.name} has {', '.join(why)} (serve it "
+                             "with DenseBackend)")
         self.model = model
         self.cfg = cfg
         self.ecfg = ecfg

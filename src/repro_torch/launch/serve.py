@@ -28,6 +28,17 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
       --layers 8 --backend dense --paged-kv --serve-requests 6 --max-batch 4
 
+  # the windowed family on dense KV with ring caches (--paged-kv refused):
+  # Gemma-2-27B (full depth, ~54 GB of bf16), Gemma-3-27B and
+  # Llama-4-Scout-17B-16E cut in depth (--backend hobbit refuses Llama-4's
+  # chunked layers and shared expert)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
+      --backend dense --serve-requests 6 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \\
+      --layers 12 --backend dense --serve-requests 6 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
+      --layers 8 --backend dense --serve-requests 6 --max-batch 4
+
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
 """
@@ -150,11 +161,14 @@ def main(argv=None):
         thresholds=Thresholds(args.t1, args.t2), streams=args.streams,
         ordered=args.ordered, upgrade=args.upgrade, link_gbps=args.link_gbps,
         async_prefetch=args.async_prefetch)
-    backend = make_backend(BackendConfig(
-        kind=kind, jit=args.jit, paged=args.paged_kv, page_size=args.page_size,
-        kv_pages=args.kv_pages, prefill_chunk=args.prefill_chunk,
-        prefix_sharing=args.prefix_sharing,
-        engine=ecfg if kind == "hobbit" else None), model, params)
+    try:
+        backend = make_backend(BackendConfig(
+            kind=kind, jit=args.jit, paged=args.paged_kv, page_size=args.page_size,
+            kv_pages=args.kv_pages, prefill_chunk=args.prefill_chunk,
+            prefix_sharing=args.prefix_sharing,
+            engine=ecfg if kind == "hobbit" else None), model, params)
+    except ValueError as e:     # --paged-kv on ring caches, a model the engine refuses
+        raise SystemExit(f"--backend {kind}: {e}") from None
 
     rng = np.random.default_rng(0)
     report = {"backend": kind, "paged_kv": args.paged_kv, "device": str(dev)}

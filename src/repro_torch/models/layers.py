@@ -1,14 +1,19 @@
-"""Layer library of the port: RMSNorm and layernorm, RoPE, grouped-query attention for
-prefill and for one-token decode against a dense per-slot cache or a paged
-KV pool, and the dense FFN.
+"""Layer library of the port: RMSNorm and layernorm, qk-norm, RoPE, the
+attention masks (global, sliding-window, chunked), grouped-query attention
+for prefill and for one-token decode against a dense per-slot cache (a ring
+of `window` slots for windowed layers) or a paged KV pool, and the dense
+FFN.
 
-PyTorch twin of the JAX package's ``models/layers.py`` for the all-"attn"
-model class (Mixtral / Phi-MoE, Granite, Nemotron and InternVL2 shapes).  Plain tensor math,
-written as the reference writes it (``mha``): float32 scores and softmax,
-GQA without materialising repeated K/V heads.  Dense decode and paged
-prefill-chunk attention have no kernel, as in the reference; paged decode
-attention runs ``kernels.ops.paged_flash_decode``, and an FFN weight that
-is a `QTensor` runs ``kernels.ops.dequant_matmul``.
+PyTorch twin of the JAX package's ``models/layers.py`` for the decoder
+layers ported so far: full-window "attn" layers (Mixtral / Phi-MoE,
+Granite, Nemotron and InternVL2 shapes) and the windowed "attn_local" /
+"attn_chunked" layers (Gemma-2, Gemma-3, Llama-4-Scout), with the attention
+logit softcap and qk-norm.  Plain tensor math, written as the reference
+writes it (``mha``): float32 scores and softmax, GQA without materialising
+repeated K/V heads.  Dense and windowed decode and paged prefill-chunk
+attention have no kernel, as in the reference; paged decode attention runs
+``kernels.ops.paged_flash_decode``, and an FFN weight that is a `QTensor`
+runs ``kernels.ops.dequant_matmul``.
 
 Conventions: activations (B, S, D) in the config dtype; q/k/v (B, S, H, hd);
 decode takes x (B, 1, D) and a cache {"k", "v"} of (B, Smax, Hkv, hd) that is
@@ -69,6 +74,14 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (y * (1.0 + p["scale"])).to(x.dtype)
 
 
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """qk-norm over the head dim (Gemma-3): RMSNorm of each head's vector
+    with a (1 + scale) gain, in float32, the result in x's dtype."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(ms + eps)) * (1.0 + scale)).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     ex = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     # torch.full, not torch.tensor: a host scalar copied to the card would
@@ -90,6 +103,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str,
+              window: int) -> torch.Tensor:
+    """Boolean (..., Sq, Sk) mask, True = attendable.  q_pos / k_pos:
+    integer tensors broadcastable to (..., Sq) / (..., Sk).  "attn" is
+    causal; "attn_local" also keeps only the last `window` positions;
+    "attn_chunked" keeps the query's own `window`-token chunk (floor
+    division, so a negative key position falls in no query's chunk)."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    causal = dk <= dq
+    if kind == "attn":
+        return causal
+    if kind == "attn_local":
+        return causal & (dq - dk < window)
+    if kind == "attn_chunked":
+        return causal & (torch.div(dq, window, rounding_mode="floor")
+                         == torch.div(dk, window, rounding_mode="floor"))
+    raise ValueError(kind)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """cap * tanh(x / cap); x itself when cap is 0."""
+    if cap and cap > 0:
+        return torch.tanh(x / cap) * cap
+    return x
+
+
 def mha(q, k, v, mask, softcap: float, scale: float) -> torch.Tensor:
     """q: (B,Sq,Hq,hd) k/v: (B,Sk,Hkv,hd); mask (B,Sq,Sk) bool (True =
     attendable).  GQA grouped einsum, float32 softmax."""
@@ -99,8 +139,7 @@ def mha(q, k, v, mask, softcap: float, scale: float) -> torch.Tensor:
     qg = q.reshape(b, sq, hkv, g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
-    if softcap and softcap > 0:
-        logits = torch.tanh(logits / softcap) * softcap
+    logits = _softcap(logits, softcap)
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
     w = torch.softmax(logits, dim=-1)
@@ -108,57 +147,97 @@ def mha(q, k, v, mask, softcap: float, scale: float) -> torch.Tensor:
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 
+def chunked_mha(q, k, v, q_pos, k_pos, kind: str, window: int, softcap: float,
+                scale: float, q_chunk: int = 1024) -> torch.Tensor:
+    """Attention in query chunks of `q_chunk` (and the tail): the live score
+    tensor is (B, Hkv, g, q_chunk, Sk), not (..., Sq, Sk).  Each chunk is
+    `mha` over every key with its own rows of the mask, so the numbers are
+    `mha`'s.  q_pos (B, Sq), k_pos (B, Sk)."""
+    sq = q.shape[1]
+    outs = []
+    for s0 in range(0, sq, q_chunk):
+        s1 = min(s0 + q_chunk, sq)
+        mask = make_mask(q_pos[:, s0:s1], k_pos, kind, window)
+        outs.append(mha(q[:, s0:s1], k, v, mask, softcap, scale))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+    """wq, wk, wv, wo in the config dtype; with qk-norm also the float32
+    "q_norm" / "k_norm" gains (zeros: a unit gain)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg)
-    return {
+    p = {
         "wq": dense_init((d, hq * hd), dt, gen, device),
         "wk": dense_init((d, hkv * hd), dt, gen, device),
         "wv": dense_init((d, hkv * hd), dt, gen, device),
         "wo": dense_init((hq * hd, d), dt, gen, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=device)
+    return p
 
 
-def _qkv(p, x, positions, cfg: ModelConfig):
+def _qkv(p, x, positions, cfg: ModelConfig, use_rope: bool = True):
+    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd): the projections, qk-norm
+    (when the config has it) and then RoPE at `positions` (B, S)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    if cfg.rope_theta > 0:
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    if use_rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attn_forward(p, x, positions, cfg: ModelConfig):
-    """Full-sequence causal self attention (prefill).  positions (B, S).
+def attn_forward(p, x, positions, cfg: ModelConfig, kind: str = "attn",
+                 use_rope: bool = True):
+    """Full-sequence self attention (prefill) of a layer of `kind`, masked
+    by `make_mask`, in query chunks (`chunked_mha`).  positions (B, S).
     Returns (out (B, S, D), (k, v)) with the unexpanded GQA heads."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, positions, cfg)
-    mask = positions[:, None, :] <= positions[:, :, None]         # (B, Sq, Sk)
-    out = mha(q, k, v, mask, cfg.attn_logit_softcap,
-              1.0 / math.sqrt(cfg.resolved_head_dim))
+    q, k, v = _qkv(p, x, positions, cfg, use_rope)
+    out = chunked_mha(q, k, v, positions, positions, kind, cfg.window_size,
+                      cfg.attn_logit_softcap, 1.0 / math.sqrt(cfg.resolved_head_dim))
     return out.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
-def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig):
-    """One-token decode against a full-window dense cache.  x: (B, 1, D);
-    kv_cache {"k", "v"}: (B, Smax, Hkv, hd), written in place at each row's
-    position; positions: (B,) int64 current write index.  Returns out
-    (B, 1, D)."""
+def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig, kind: str = "attn",
+                use_rope: bool = True):
+    """One-token decode of a layer of `kind` against its dense cache.
+    x: (B, 1, D); kv_cache {"k", "v"}: (B, Smax, Hkv, hd), written in place;
+    positions: (B,) int64 current write index.  Returns out (B, 1, D).
+
+    A windowed layer whose cache is no longer than its window is a RING
+    (``Model.init_cache`` sizes it min(max_len, window)): position p lives
+    at slot p % Smax, and slot j holds position p - ((p - j) mod Smax), so
+    slots not yet written map below 0 and are masked.  Whether a cache is a
+    ring is read from its shape; nothing leaves the device, so the step can
+    be captured."""
     b = x.shape[0]
-    q, k, v = _qkv(p, x, positions[:, None], cfg)
+    q, k, v = _qkv(p, x, positions[:, None], cfg, use_rope)
     smax = kv_cache["k"].shape[1]
+    ring = kind != "attn" and smax <= cfg.window_size
     rows = torch.arange(b, device=x.device)
-    # clamped like the reference's dynamic_update_slice (only a finished,
-    # inactive slot can sit at smax; its row is junk either way)
-    at = positions.clamp(max=smax - 1)
+    # a full-window cache is clamped like the reference's dynamic_update_slice
+    # (only a finished, inactive slot can sit at smax; its row is junk either way)
+    at = positions % smax if ring else positions.clamp(max=smax - 1)
     kv_cache["k"][rows, at] = k[:, 0].to(kv_cache["k"].dtype)
     kv_cache["v"][rows, at] = v[:, 0].to(kv_cache["v"].dtype)
-    idx = torch.arange(smax, device=x.device)
-    mask = (idx[None, :] <= positions[:, None])[:, None, :]        # (B, 1, Smax)
+    idx = torch.arange(smax, device=x.device)[None, :]
+    q_pos = positions[:, None]
+    if ring:
+        k_pos = q_pos - torch.remainder(q_pos - idx, smax)
+        mask = make_mask(q_pos, k_pos, kind, cfg.window_size) & (k_pos >= 0)[:, None, :]
+    else:
+        mask = make_mask(q_pos, idx, kind, cfg.window_size)       # (B, 1, Smax)
     out = mha(q, kv_cache["k"], kv_cache["v"], mask, cfg.attn_logit_softcap,
               1.0 / math.sqrt(cfg.resolved_head_dim))
     return out.reshape(b, 1, -1) @ p["wo"]
@@ -255,10 +334,11 @@ def activate(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # dense FFN (MoE lives in moe.py)
 # --------------------------------------------------------------------------
 
-def ffn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+def ffn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
+             d_ff: Optional[int] = None):
     """{"wi": (D, 2F) for SwiGLU else (D, F), "wo": (F, D)} in the config
-    dtype."""
-    d, f = cfg.d_model, cfg.d_ff
+    dtype; F is `d_ff` (a MoE's shared experts) or the config's."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg)
     wi_cols = 2 * f if cfg.ffn_activation == "swiglu" else f
     return {"wi": dense_init((d, wi_cols), dt, gen, device),

@@ -1,28 +1,35 @@
 """Model assembly of the port: config -> init / prefill / decode_step / logits.
 
-Covers decoder-only models whose every layer is a full-window "attn" layer
-with either a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT
-engine's model class) or a dense FFN in every layer: Granite (RMSNorm,
-SwiGLU, tied embeddings), Nemotron-4 (layernorm, squared ReLU, an untied LM
-head) and InternVL2's InternLM2 backbone, whose "vision_patches" frontend
-puts precomputed patch embeddings (``Batch.prefix_embeds``) in front of the
-text.  Other configurations raise NotImplementedError naming the ROADMAP
-item that brings them.
+Covers decoder-only models whose layers are attention layers -- full-window
+"attn", sliding-window "attn_local" or chunked "attn_chunked" -- with
+either a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT engine's
+model class; Llama-4-Scout's top-1 experts beside a shared expert) or a
+dense FFN in every layer: Granite (RMSNorm, SwiGLU, tied embeddings),
+Nemotron-4 (layernorm, squared ReLU, an untied LM head), InternVL2's
+InternLM2 backbone, whose "vision_patches" frontend puts precomputed patch
+embeddings (``Batch.prefix_embeds``) in front of the text, and Gemma-2 /
+Gemma-3 (sandwich norms, embeddings scaled by sqrt(d_model), attention and
+final logit softcaps, qk-norm).  Other configurations raise
+NotImplementedError naming the ROADMAP item that brings them.
 
 Parameters are a plain dict of tensors with a flat per-layer list::
 
     {"embed": (V_pad, D), "final_norm": {"scale": (D,)[, "bias"]},
      ["lm_head": (D, V_pad) when the embeddings are untied,]
-     "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "ffn_norm",
-                 "ffn": {"router": (D, E), "experts": {"wi", "wo"}}   (MoE)
-                     or {"wi", "wo"}}, ...]}                          (dense)
+     "layers": [{"pre_norm", "attn": {wq, wk, wv, wo[, q_norm, k_norm]},
+                 ["post_norm",] "ffn_norm", ["post_ffn_norm",]
+                 "ffn": {"router": (D, E), "experts": {"wi", "wo"}
+                         [, "shared": {"wi", "wo"}]}                 (MoE)
+                     or {"wi", "wo"}}, ...]}                         (dense)
 
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
 eagerly, so the port keeps the flat view ``unstack_layers`` gives there).  A
 norm holds a float32 "scale" and, for layernorm, a float32 "bias".  A
 dense FFN weight may be a `QTensor` (``quant.quantize_tree``); its products
 then run the dequant-matmul kernel.  The decode cache is a list of per-layer
-{"k", "v"} (B, max_len, Hkv, hd) buffers updated in place, or a
+{"k", "v"} (B, Smax, Hkv, hd) buffers updated in place -- Smax = max_len for
+"attn" layers, min(max_len, window) for windowed ones, whose cache is a
+ring (``layers.attn_decode``) -- or, for all-"attn" models, a
 `kv_pages.PagedKVPool` (``init_cache(..., paged=True)``) driven by
 ``decode_step_paged`` / ``prefill_chunk_paged``.  Prefix embeddings enter
 through ``forward`` and ``prefill`` (a `Batch`); the paged chunked prefill
@@ -52,45 +59,43 @@ class Batch(NamedTuple):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless `cfg` is in the ported model class:
-    all-"attn" decoder layers, every FFN dense or every FFN MoE (no shared
-    experts), RMSNorm or layernorm, and no frontend but "vision_patches"."""
-    kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"} or cfg.mla is not None or cfg.encoder is not None \
-            or cfg.ssm is not None:
+    attention decoder layers (full-window, sliding-window or chunked), every
+    FFN dense or every FFN MoE, RMSNorm or layernorm, and no frontend but
+    "vision_patches"."""
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only all-'attn' decoder layers are ported so far; "
-            "sliding-window and chunked layers (ROADMAP Queue 1, item 7.2), MLA "
-            "(7.3), SSM and hybrid layers (7.4) and encoders (7.5) arrive with "
-            "ROADMAP Queue 1, item 7 (remaining model classes)")
+            f"{cfg.name}: MLA (multi-head latent attention) arrives with ROADMAP "
+            "Queue 1, item 7.3")
+    if not set(cfg.layer_kinds()) <= {"attn", "attn_local", "attn_chunked"} \
+            or cfg.ssm is not None or cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: SSM and hybrid layers arrive with ROADMAP Queue 1, item 7.4")
+    if cfg.encoder is not None or cfg.frontend not in (None, "vision_patches"):
+        raise NotImplementedError(
+            f"{cfg.name}: encoders and the {cfg.frontend!r} frontend (Whisper's audio "
+            "frames) arrive with ROADMAP Queue 1, item 7.5")
     moe = cfg.layer_is_moe()
     if any(moe) and not all(moe):
         raise NotImplementedError(
             f"{cfg.name}: models mixing dense and MoE FFN layers arrive with "
             "ROADMAP Queue 1, item 7.4 (Jamba)")
-    if all(moe) and cfg.moe.num_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts arrive with ROADMAP Queue 1, item 7 "
-            "(7.2, 7.3)")
     if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(
             f"{cfg.name}: norm_type={cfg.norm_type!r} is neither RMSNorm nor "
             "layernorm (ROADMAP Queue 1, item 7)")
-    if cfg.frontend not in (None, "vision_patches"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend (Whisper's audio "
-            "frames) arrives with ROADMAP Queue 1, item 7.5")
-    if cfg.final_logit_softcap or cfg.scale_embedding or cfg.sandwich_norm \
-            or cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: logit softcap, embedding scaling, sandwich norms and "
-            "qk-norm arrive with ROADMAP Queue 1, item 7.2")
 
 
 def supports_paged_kv(cfg: ModelConfig) -> bool:
     """True iff the paged KV layout serves this architecture: every layer a
-    full-window "attn" layer, no MLA latent cache, no encoder."""
+    full-window "attn" layer (no ring caches), no MLA, no encoder."""
     return (cfg.mla is None and cfg.encoder is None
             and all(k == "attn" for k in cfg.layer_kinds()))
+
+
+def _use_rope(cfg: ModelConfig) -> bool:
+    """RoPE in every attention layer, except a hybrid's (Jamba's attention
+    layers have no positional encoding)."""
+    return cfg.family != "hybrid" and cfg.rope_theta > 0
 
 
 def _ffn(p, h, cfg: ModelConfig, token_mask=None):
@@ -102,26 +107,35 @@ def _ffn(p, h, cfg: ModelConfig, token_mask=None):
     return layers.ffn_forward(p, h, cfg), None
 
 
+def _layer(p, x, attn, cfg: ModelConfig, token_mask=None):
+    """One decoder layer around its attention call `attn(normed x)`: pre
+    norm, attention, the post norm under sandwich norms, the residual; then
+    the same around the FFN.  Returns (x, aux loss or None)."""
+    out = attn(layers.apply_norm(p["pre_norm"], x, cfg))
+    if cfg.sandwich_norm:
+        out = layers.apply_norm(p["post_norm"], out, cfg)
+    x = x + out
+    y, aux = _ffn(p["ffn"], layers.apply_norm(p["ffn_norm"], x, cfg), cfg,
+                  token_mask=token_mask)
+    if cfg.sandwich_norm:
+        y = layers.apply_norm(p["post_ffn_norm"], y, cfg)
+    return x + y, aux
+
+
 def _layer_decode_paged(p, x, kp, vp, table, positions, active, cfg: ModelConfig):
     """One-token layer step against paged KV; `active` doubles as the MoE
     token mask so released slots take no dispatch capacity."""
-    h = layers.apply_norm(p["pre_norm"], x, cfg)
-    x = x + layers.paged_attn_decode(p["attn"], h, kp, vp, table, positions, active, cfg)
-    h = layers.apply_norm(p["ffn_norm"], x, cfg)
-    y, _ = _ffn(p["ffn"], h, cfg, token_mask=active)
-    return x + y
+    return _layer(p, x, lambda h: layers.paged_attn_decode(
+        p["attn"], h, kp, vp, table, positions, active, cfg), cfg, token_mask=active)[0]
 
 
 def _layer_chunk_paged(p, x, kp, vp, table, start, n, wstart, valid_flat,
                        cfg: ModelConfig):
     """One prefill-chunk layer step against paged KV; valid_flat (B*C,)
     keeps pad tokens out of the MoE capacity."""
-    h = layers.apply_norm(p["pre_norm"], x, cfg)
-    x = x + layers.paged_attn_prefill_chunk(p["attn"], h, kp, vp, table, start, n, cfg,
-                                            wstart=wstart)
-    h = layers.apply_norm(p["ffn_norm"], x, cfg)
-    y, _ = _ffn(p["ffn"], h, cfg, token_mask=valid_flat)
-    return x + y
+    return _layer(p, x, lambda h: layers.paged_attn_prefill_chunk(
+        p["attn"], h, kp, vp, table, start, n, cfg, wstart=wstart), cfg,
+        token_mask=valid_flat)[0]
 
 
 def _generator(seed: Union[int, torch.Generator], device: torch.device):
@@ -156,26 +170,39 @@ class Model:
             params["lm_head"] = layers.dense_init((cfg.d_model, self.v_pad), dt,
                                                   gen, dev)
         for is_moe in cfg.layer_is_moe():
-            params["layers"].append({
+            lp = {
                 "pre_norm": layers.norm_init(cfg, dev),
                 "attn": layers.attn_init(cfg, gen, dev),
                 "ffn_norm": layers.norm_init(cfg, dev),
                 "ffn": (moe_lib.moe_init(cfg, gen, dev) if is_moe
                         else layers.ffn_init(cfg, gen, dev)),
-            })
+            }
+            if cfg.sandwich_norm:
+                lp["post_norm"] = layers.norm_init(cfg, dev)
+                lp["post_ffn_norm"] = layers.norm_init(cfg, dev)
+            params["layers"].append(lp)
         return params
 
     # -------------------- embedding / logits --------------------
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        """(..., D) hidden -> (..., vocab) float32 logits."""
+        """(..., D) hidden -> (..., vocab) float32 logits, softcapped when
+        the config has a final logit softcap."""
         cfg = self.cfg
         h = layers.apply_norm(params["final_norm"], x, cfg)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        lg = h.to(torch.float32) @ w.to(torch.float32)
+        lg = layers._softcap(h.to(torch.float32) @ w.to(torch.float32),
+                             cfg.final_logit_softcap)
         return lg[..., : cfg.vocab_size]
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.to(torch.long)]
+        """Token embeddings, times sqrt(d_model) under scale_embedding: the
+        factor rounded to the compute dtype first, as the reference has it
+        (torch.full on the device: no host copy inside a captured step)."""
+        x = params["embed"][tokens.to(torch.long)]
+        if not self.cfg.scale_embedding:
+            return x
+        return x * torch.full((), float(np.sqrt(self.cfg.d_model)), dtype=x.dtype,
+                              device=x.device)
 
     # -------------------- prefill --------------------
     def forward(self, params, batch: Union[Batch, torch.Tensor]):
@@ -194,16 +221,15 @@ class Model:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         kvs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in params["layers"]:
-            h = layers.apply_norm(p["pre_norm"], x, cfg)
-            out, kv = layers.attn_forward(p["attn"], h, positions, cfg)
-            x = x + out
-            h = layers.apply_norm(p["ffn_norm"], x, cfg)
-            y, a = _ffn(p["ffn"], h, cfg)
-            x = x + y
+        rope = _use_rope(cfg)
+        for p, kind in zip(params["layers"], cfg.layer_kinds()):
+            def attn(h, p=p, kind=kind):
+                out, kv = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
+                kvs.append(kv)
+                return out
+            x, a = _layer(p, x, attn, cfg)
             if a is not None:
                 aux = aux + a
-            kvs.append(kv)
         return x, kvs, aux
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike, *,
@@ -213,7 +239,8 @@ class Model:
         caches, one {"k", "v"} per layer.  paged=True: a started
         `kv_pages.PagedKVPool` of `num_pages` pages (default the dense
         equivalent, batch * ceil(max_len / page_size)) with the radix prefix
-        index on or off (`prefix_sharing`)."""
+        index on or off (`prefix_sharing`).  A windowed layer's dense cache
+        is a ring of min(max_len, window_size) slots."""
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         dev = torch.device(device)
@@ -229,14 +256,18 @@ class Model:
                 max_pages_per_slot=maxp, prefix_sharing=prefix_sharing, device=dev)
             pool.start(batch)
             return pool
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-                 "v": torch.zeros(shape, dtype=dt, device=dev)}
-                for _ in range(cfg.num_layers)]
+        cache = []
+        for kind in cfg.layer_kinds():
+            sm = max_len if kind == "attn" else min(max_len, cfg.window_size)
+            shape = (batch, sm, cfg.num_kv_heads, cfg.resolved_head_dim)
+            cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                          "v": torch.zeros(shape, dtype=dt, device=dev)})
+        return cache
 
     def prefill(self, params, batch: Union[Batch, torch.Tensor], max_len: int):
         """Run whole prompts (a `Batch`, or tokens (B, S)) and build a decode
-        cache padded to max_len, which must hold the prefix and the prompt.
+        cache padded to max_len, which must hold the prefix and the prompt;
+        a ring keeps the last Smax keys, position p at slot p % Smax.
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
         x, kvs, _ = self.forward(params, batch)
@@ -246,8 +277,14 @@ class Model:
                              f"{s} prefix and prompt positions")
         cache = self.init_cache(b, max_len, x.device)
         for c, (k, v) in zip(cache, kvs):
-            c["k"][:, :s] = k.to(c["k"].dtype)
-            c["v"][:, :s] = v.to(c["v"].dtype)
+            sm = c["k"].shape[1]
+            if s > sm:      # a ring shorter than the prompt: the last sm keys
+                slots = torch.remainder(s - sm + torch.arange(sm, device=x.device), sm)
+                c["k"][:, slots] = k[:, -sm:].to(c["k"].dtype)
+                c["v"][:, slots] = v[:, -sm:].to(c["v"].dtype)
+            else:
+                c["k"][:, :s] = k.to(c["k"].dtype)
+                c["v"][:, :s] = v.to(c["v"].dtype)
         last = self.logits(params, x[:, -1:, :])[:, 0, :]
         return last, cache, np.full((b,), s, np.int64)
 
@@ -259,12 +296,10 @@ class Model:
         is updated in place.  Returns logits (B, V)."""
         cfg = self.cfg
         x = self.embed(params, tokens)
-        for p, c in zip(params["layers"], cache):
-            h = layers.apply_norm(p["pre_norm"], x, cfg)
-            x = x + layers.attn_decode(p["attn"], h, c, positions, cfg)
-            h = layers.apply_norm(p["ffn_norm"], x, cfg)
-            y, _ = _ffn(p["ffn"], h, cfg, token_mask=active)
-            x = x + y
+        rope = _use_rope(cfg)
+        for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
+            x, _ = _layer(p, x, lambda h, p=p, c=c, kind=kind: layers.attn_decode(
+                p["attn"], h, c, positions, cfg, kind, rope), cfg, token_mask=active)
         return self.logits(params, x)[:, 0, :]
 
     # -------------------- paged decode / chunked prefill --------------------

@@ -13,6 +13,11 @@ the offload engine's decode replaces it with the grouped hi/lo expert path.
      Tokens past capacity are dropped (combine weight 0).
   3. gather into an (E, C, D) buffer, run every expert in one batched
      product, gather back and combine with the gate weights.
+  4. shared experts (Llama-4-Scout's one beside its top-1 experts), when
+     the config has them: a dense FFN over every token, added.
+
+``moe_forward_dense_eval`` is the reference's dispatch oracle: every
+expert on every token, combined by the top-k weights, nothing dropped.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels.ref import topk_lowest_index
 from repro_torch.models import layers
+from repro_torch.quant.quantize import QTensor, dequantize
 
 
 class RouterOutput(NamedTuple):
@@ -43,8 +49,12 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
     # one expert at a time keeps the float32 staging of init small at full width
     wi = torch.stack([layers.dense_init((d, wi_cols), dt, gen, device) for _ in range(e)])
     wo = torch.stack([layers.dense_init((f, d), dt, gen, device) for _ in range(e)])
-    return {"router": layers.dense_init((d, e), torch.float32, gen, device),
-            "experts": {"wi": wi, "wo": wo}}
+    p = {"router": layers.dense_init((d, e), torch.float32, gen, device),
+         "experts": {"wi": wi, "wo": wo}}
+    if mc.num_shared_experts:
+        p["shared"] = layers.ffn_init(cfg, gen, device,
+                                      d_ff=(mc.d_ff_shared or f) * mc.num_shared_experts)
+    return p
 
 
 def route(router_w, x_flat, mc: MoEConfig) -> RouterOutput:
@@ -114,4 +124,30 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, token_mask=None):
     y_choice = ypad[slot.reshape(-1)].reshape(t, mc.top_k, d)
     w = (r.top_w * keep.to(r.top_w.dtype)).to(x.dtype)
     y = torch.einsum("tk,tkd->td", w, y_choice)
+    if "shared" in p:
+        y = y + layers.ffn_forward(p["shared"], xf, cfg)
     return y.reshape(b, s, d), r.aux_loss
+
+
+def moe_forward_dense_eval(p, x: torch.Tensor, cfg: ModelConfig):
+    """Oracle of the dispatch path: every expert on every token (O(E) work),
+    combined by the top-k gate weights, no capacity and no drops; the
+    shared experts added as in `moe_forward`.  x: (B, S, D).  Returns
+    (y (B, S, D), the router's output)."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    r = route(p["router"], xf, mc)
+    wi, wo = p["experts"]["wi"], p["experts"]["wo"]
+    if isinstance(wi, QTensor):
+        wi = dequantize(wi, dtype=x.dtype)
+    if isinstance(wo, QTensor):
+        wo = dequantize(wo, dtype=x.dtype)
+    h = layers.activate(torch.einsum("td,edf->etf", xf, wi), cfg)
+    ye = torch.einsum("etf,efd->etd", h, wo)                        # (E, T, D)
+    gate = torch.zeros((b * s, mc.num_experts), dtype=r.top_w.dtype, device=x.device)
+    gate.scatter_(1, r.top_idx.to(torch.long), r.top_w)
+    y = torch.einsum("te,etd->td", gate, ye.to(r.top_w.dtype)).to(x.dtype)
+    if "shared" in p:
+        y = y + layers.ffn_forward(p["shared"], xf, cfg)
+    return y.reshape(b, s, d), r

@@ -16,7 +16,9 @@ offload engine, so the scheduler and the launcher drive either one.
     close()                          release resources (idempotent)
 
 KV memory comes in two layouts, chosen per backend at construction: dense
-(a (B, max_len) cache per slot, allocated by ``start_batch``) or paged
+(a (B, max_len) cache per slot and layer, allocated by ``start_batch``; a
+windowed layer's is a ring of min(max_len, window) slots, so its rows are
+shorter) or paged
 (``paged=True`` / ``EngineConfig(paged_kv=True)``: a shared
 `models.kv_pages.PagedKVPool` of page_size-token pages with prefix sharing,
 prompts prefilled in prefill_chunk-token chunks).  Logits cross to the host
@@ -113,7 +115,9 @@ class DenseBackend:
                  page_size: int = 64, kv_pages: Optional[int] = None,
                  prefill_chunk: int = 64, prefix_sharing: bool = True):
         if paged and not supports_paged_kv(model.cfg):
-            raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout")
+            raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout "
+                             "(only all-'attn' models do; windowed layers keep ring "
+                             "caches on the dense layout)")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -198,6 +202,8 @@ class DenseBackend:
         return done
 
     def _join_dense(self, slot: int, prompt) -> np.ndarray:
+        """A one-row prefill scattered into row `slot` of each layer's cache
+        (a ring layer's row is its ring, as long as the batch's)."""
         logits, one, positions = self.model.prefill(
             self.params, to_device(prompt.reshape(1, -1), self.device), self.max_len)
         for dst, src in zip(self.cache, one):
@@ -215,6 +221,8 @@ class DenseBackend:
         return True
 
     def pause(self, slot: int) -> dict:
+        """Preempt `slot`: its KV to the host (dense: each layer's row, a
+        ring layer's ring), the slot freed."""
         if self.paged:
             snap = self.kv.snapshot_slot(slot)
             self.kv.release(slot)

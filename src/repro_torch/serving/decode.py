@@ -2,7 +2,7 @@
 sampling and the model-level generate loop.
 
 `make_serve_step` is one new token against a dense KV cache of length
-max_len.  ``generate(jit=True)`` runs it as a captured step
+max_len (a windowed layer's a ring of min(max_len, window) slots).  ``generate(jit=True)`` runs it as a captured step
 (``capture.CapturedStep``): a CUDA graph replayed per token on the card,
 eager on the CPU.  The prefill stays eager on both: the loop calls it once
 per prompt shape, so a graph would only add the cost of its capture.

@@ -40,6 +40,7 @@ from repro.serving.api import DenseBackend as RefDense
 from repro.serving.batching import BatchingServer as RefServer
 from repro.serving.batching import Request as RefRequest
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs.base import MLAConfig
 from repro_torch.models import build_model
 from repro_torch.models import kv_pages as tkv
 from repro_torch.models.model import check_supported
@@ -305,7 +306,7 @@ def test_hobbit_backend_on_a_dense_arch_fails_clearly(granite):
 
 def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     for arch in ("granite-3-2b", "mixtral-8x7b", "phi-moe", "nemotron-4-15b",
-                 "internvl2-26b"):
+                 "internvl2-26b", "gemma2-27b", "gemma3-27b", "llama4-scout-17b-a16e"):
         check_supported(get_config(arch))
     nemotron = dataclasses.replace(get_config(ARCH), name="nemotron-like",
                                    norm_type="layernorm", ffn_activation="sq_relu",
@@ -314,8 +315,12 @@ def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     windowed = dataclasses.replace(get_config(ARCH), name="windowed",
                                    block_pattern=("attn_local", "attn"),
                                    moe_pattern=(False, False), window_size=64).validate()
-    with pytest.raises(NotImplementedError, match="sliding-window.*ROADMAP"):
-        check_supported(windowed)
+    check_supported(windowed)           # ring caches: ROADMAP Queue 1, item 7.2, done
+    mla = dataclasses.replace(smoke_variant(get_config("mixtral-8x7b")), name="mla",
+                              mla=MLAConfig(kv_lora_rank=64, rope_head_dim=32,
+                                            nope_head_dim=64, v_head_dim=64)).validate()
+    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP Queue 1, item 7.3"):
+        check_supported(mla)
     mixed = dataclasses.replace(get_config("mixtral-8x7b"), block_pattern=("attn", "attn"),
                                 moe_pattern=(True, False)).validate()
     with pytest.raises(NotImplementedError, match="mixing dense and MoE.*ROADMAP"):
