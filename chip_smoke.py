@@ -164,7 +164,30 @@ and each printing its seconds:
                8188-token prompt decoded across the chunk boundary at 8192
                with its gap to ``Model.forward`` measured; then the same
                held within 0.1 in float32 weights at 4 layers (capacity
-               factor 16 in both: no drops).
+               factor 16 in both: no drops); each MoE layer's top-1 expert
+               at position 8193 printed for the step and for the forward;
+  3f. (run with phase 3) dequant_matmul — the dense dequant-matmul kernels
+               at DeepSeek-V2-236B's dense first layer (wi 5120 -> 24576, wo
+               12288 -> 5120) and its 2 shared experts run as one FFN (wi
+               5120 -> 6144, wo 3072 -> 5120; 4 bits, group 128), as 3e;
+  13. serve-deepseek — DeepSeek-V2-236B at full width (MLA over a 512-wide
+               latent, 128 heads, 160 experts at top-6 beside 2 shared
+               experts, a dense first layer) cut to 4 layers (~26 GB of
+               seeded bf16) through DenseBackend on dense KV with latent
+               caches (no kernel on the bf16 path: the MLA attention is
+               plain PyTorch, as in the reference), then with the dense and
+               shared FFN quantized in place to 4 bits (the dequant-matmul
+               kernels, never their plain version): decode tok/s, median
+               step, peak memory, a profiler window, the logits' head cast,
+               the absorbed decode's float32 casts of w_uk / w_uv and the
+               latent cache's bytes per token (1152); HobbitBackend's
+               refusal names MLA;
+  13b. deepseek-parity — 2 layers (dense + MoE), bf16, card against CPU;
+  13c. mla-long — an 1100-token prompt decoded across mla_forward's
+               1024-query chunk, each captured step against
+               ``Model.forward`` within 0.1 in float32 weights at 2 layers
+               (capacity factor E / top_k: no drops), the bf16 gap at 4
+               layers measured.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -172,6 +195,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -182,6 +206,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -204,6 +229,7 @@ INTERNVL = "internvl2-26b"
 GEMMA2 = "gemma2-27b"
 GEMMA3 = "gemma3-27b"
 LLAMA4 = "llama4-scout-17b-a16e"
+DEEPSEEK = "deepseek-v2-236b"
 
 
 def fail(msg: str) -> None:
@@ -564,8 +590,9 @@ def _gating_rows(dev, g) -> list:
 
 
 def phase_kernels_dense(dev) -> list:
-    """Phases 3c, 3d and 3e: the dense dequant-matmul and the contiguous
-    flash-decode kernels, then the dequant-matmul at Gemma-2-27B's FFN."""
+    """Phases 3c, 3d, 3e and 3f: the dense dequant-matmul and the contiguous
+    flash-decode kernels, then the dequant-matmul at Gemma-2-27B's FFN and
+    at DeepSeek-V2-236B's dense and shared FFN."""
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     with phase("kernels-3c"):
         dq = _dequant_matmul_row(dev, g)
@@ -578,7 +605,10 @@ def phase_kernels_dense(dev) -> list:
     with phase("kernels-3e"):
         dq_g = _dq_ffn(dev, g, GEMMA2, "gemma2")
     torch.cuda.empty_cache()
-    return [dq, dq_n, fd, fd6, dq_g]
+    with phase("kernels-3f"):
+        dq_d = _dq_ffn(dev, g, DEEPSEEK, "deepseek")
+    torch.cuda.empty_cache()
+    return [dq, dq_n, fd, fd6, dq_g, dq_d]
 
 
 # ---------------------------------------------------------------------------
@@ -1732,9 +1762,13 @@ def _dq_ffn(dev, g, arch: str, tag: str) -> dict:
     plain version, two calls bit-identical, timed with the weight cold in L2
     beside its bound and torch.matmul on the dequantized bf16 weight; each
     shape prints its kernel and plan (tile, K-split or cluster, blocks/SM,
-    registers).  Nemotron-4-15B (squared ReLU): wi 6144 -> 24576, wo 24576
-    -> 6144, 192 groups of K; Gemma-2-27B (SwiGLU): wi 4608 -> 73728, wo
-    36864 -> 4608, 288 groups of K over 36 column tiles."""
+    registers).  A MoE's shared experts, which run as one dense FFN, add
+    their two matrices ("shared wi", "shared wo").  Nemotron-4-15B (squared
+    ReLU): wi 6144 -> 24576, wo 24576 -> 6144, 192 groups of K; Gemma-2-27B
+    (SwiGLU): wi 4608 -> 73728, wo 36864 -> 4608, 288 groups of K over 36
+    column tiles; DeepSeek-V2-236B: the dense first layer's wi 5120 ->
+    24576 and wo 12288 -> 5120, the 2 shared experts' wi 5120 -> 6144 and
+    wo 3072 -> 5120."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import dequantize
@@ -1742,6 +1776,9 @@ def _dq_ffn(dev, g, arch: str, tag: str) -> dict:
     cfg = get_config(arch)
     gate = 2 if cfg.ffn_activation == "swiglu" else 1
     mats = {"wi": (cfg.d_model, gate * cfg.d_ff), "wo": (cfg.d_ff, cfg.d_model)}
+    if cfg.moe is not None and cfg.moe.num_shared_experts:
+        fs = (cfg.moe.d_ff_shared or cfg.moe.d_ff_expert) * cfg.moe.num_shared_experts
+        mats.update({"shared wi": (cfg.d_model, gate * fs), "shared wo": (fs, cfg.d_model)})
     per, err = {}, 0.0
     for name, (k, n) in mats.items():
         for m in (1, 2, 3, 4, 64, 256):
@@ -3132,13 +3169,15 @@ def phase_serve_full(dev, model, params, label: str, must_launch, *,
     return run
 
 
-def _quantize_ffn_in_place(params) -> None:
-    """Each layer's FFN weights replaced by 4-bit QTensors (group 128), one
-    layer at a time, so the bf16 weights are freed as they go."""
+def _quantize_ffn_in_place(params, predicate=None) -> None:
+    """Each layer's FFN weights (those `predicate(path in the FFN, leaf)`
+    takes; without one, every weight, checked) replaced by 4-bit QTensors
+    (group 128), one layer at a time, so the bf16 weights are freed as they
+    go."""
     from repro_torch.quant.quantize import QTensor, quantize_tree
     for lp in params["layers"]:
-        lp["ffn"] = quantize_tree(lp["ffn"], bits=4)
-        check(all(isinstance(w, QTensor) for w in lp["ffn"].values()),
+        lp["ffn"] = quantize_tree(lp["ffn"], bits=4, predicate=predicate)
+        check(predicate is not None or all(isinstance(w, QTensor) for w in lp["ffn"].values()),
               "FFN weights not quantized")
 
 
@@ -3331,8 +3370,27 @@ def _seeded(cfg, seed: int, dev, label: str):
     return model, params, seed_s
 
 
+@contextlib.contextmanager
+def _recording_routes():
+    """Collects the top-k expert ids (T, k) of every MoE router call made
+    inside the block, in call order."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def recording(router_w, x_flat, mc):
+        r = route(router_w, x_flat, mc)
+        seen.append(r.top_idx)
+        return r
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
 def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
-                seed: int, *, gate: bool = True) -> dict:
+                seed: int, *, gate: bool = True, routes_at: Optional[int] = None) -> dict:
     """A seeded prompt of `prompt_len` tokens prefilled into dense caches of
     max_len (windowed layers: rings of min(max_len, window) slots), then
     `steps` teacher-forced decode steps through a captured step
@@ -3343,7 +3401,11 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     must agree within RING_ATOL (the float32 models); otherwise the gap is
     measured and printed only (a bf16 model: a one-row step's products round
     to bf16 otherwise than the forward's, and a top-1 MoE can route a token
-    to another expert on that difference)."""
+    to another expert on that difference).  `routes_at`: a decoded position
+    whose experts per MoE layer (the top-k in rank order) are printed for
+    the step (the step again, eagerly, from a copy of the cache it started
+    from) and for the forward.  An MLA model's latent cache passes through
+    the same way."""
     from repro_torch.capture import CapturedStep, addresses
     from repro_torch.device import to_device, to_host
     from repro_torch.kernels import ops
@@ -3358,21 +3420,36 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     prefill_s = time.perf_counter() - t0
     serve_step = decode.make_serve_step(model)
     captured = CapturedStep(lambda tok, p: serve_step(params, cache, tok, p)[0], "serve_step")
-    key = addresses(c[n] for c in cache for n in ("k", "v"))
+    key = addresses(buf for c in cache for buf in c.values())
+    before = None
     ops.reset_dispatch_counts()
     t0 = time.perf_counter()
     for i in range(steps):
         tok = to_device(toks[:, prompt_len + i:prompt_len + i + 1], dev)
+        if prompt_len + i == routes_at:
+            before = ([{n: b.clone() for n, b in c.items()} for c in cache], tok, pos)
         got.append(to_host(captured(tok, to_device(pos, dev)))[0])
         pos = pos + 1
     decode_s = time.perf_counter() - t0
     _captured_path(ops.dispatch_counts(), ["serve_step"], label)
-    rings = sorted({int(c["k"].shape[1]) for c in cache})
+    rings = sorted({int(next(iter(c.values())).shape[1]) for c in cache})
     del captured, cache
+    routes = {}
+    if before is not None:
+        with _recording_routes() as seen:
+            again = model.decode_step(params, before[0], before[1], to_device(before[2], dev))
+        routes["step"] = [t[0].tolist() for t in seen]
+        routes["eager_step_vs_captured"] = float(np.abs(
+            to_host(again)[0] - got[routes_at - prompt_len + 1]).max())
+        del before, again
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    x, _, _ = model.forward(params, to_device(toks, dev))
+    with _recording_routes() as seen:
+        x, _, _ = model.forward(params, to_device(toks, dev))
+    if routes:
+        routes["forward"] = [t[routes_at].tolist() for t in seen]
+    del seen
     want = to_host(model.logits(params, x[:, prompt_len - 1:]))[0][0]   # (steps + 1, V)
     forward_s = time.perf_counter() - t0
     del x
@@ -3389,6 +3466,14 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
            "max_abs_diff": float(diffs.max()), "logit_std": float(np.std(want)),
            "argmax_equal": same, "compared": steps + 1, "prefill_s": prefill_s,
            "decode_ms_per_step": decode_s / steps * 1e3, "forward_s": forward_s}
+    if routes:
+        flips = [i for i, (a, b) in enumerate(zip(routes["step"], routes["forward"]))
+                 if sorted(a) != sorted(b)]
+        out["routes_at"] = {"position": routes_at, **routes, "layers_differing": flips}
+        print(f"[{label}] top-{cfg.moe.top_k} experts per MoE layer at position "
+              f"{routes_at}: step {routes['step']}, forward {routes['forward']}; "
+              + (f"the expert sets differ in MoE layers {flips}" if flips
+                 else "the same in every layer"), flush=True)
     bar = f"<= {RING_ATOL}" if gate else "(measured, not gated)"
     print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {cfg.dtype}: prefill {prompt_len} "
           f"tokens (cache rows {rings}), {steps} captured decode steps through positions "
@@ -3445,6 +3530,29 @@ def phase_ring_gemma3(dev) -> dict:
     return {"seed_s": seed_s, "ring": runs, "ring_bf16": bf16, "serve": serve}
 
 
+def _nodrop(cfg):
+    """The model of `cfg` at capacity factor E / top_k, where no token can
+    be dropped (a long forward at the published factor drops tokens a
+    one-token step keeps; the weights are the same)."""
+    from repro_torch.models import build_model
+    return build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)))
+
+
+def _hobbit_refusal(label, model, params, must_contain: str) -> str:
+    """HobbitBackend's refusal of `model`, which must contain `must_contain`."""
+    from repro_torch.serving.api import BackendConfig, make_backend
+    try:
+        make_backend(BackendConfig(kind="hobbit"), model, params)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail(f"{label}: HobbitBackend took {model.cfg.name}")
+    check(must_contain in refusal, f"{label}: refusal {refusal!r}")
+    print(f"[{label}] HobbitBackend refuses it: {refusal}", flush=True)
+    return refusal
+
+
 LLAMA4_CHUNK_LAYERS = 4
 
 
@@ -3462,41 +3570,182 @@ def phase_llama4(dev) -> dict:
     forward drops tokens a one-token step keeps; the weights are the
     same)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.serving.api import BackendConfig, make_backend
 
     cfg = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS).validate()
     model, params, seed_s = _seeded(cfg, SEED + 20, dev, "llama4-scout")
     serve = phase_serve_dense(dev, model, params, "serve-llama4", (), paged=False)
     gc.collect()
     torch.cuda.empty_cache()
-    try:
-        make_backend(BackendConfig(kind="hobbit"), model, params)
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        fail("llama4-scout: HobbitBackend took a model with chunked layers and a shared "
-             "expert")
-    check("full-window 'attn' layers only" in refusal, f"llama4-scout: refusal {refusal!r}")
-    print(f"[llama4-scout] HobbitBackend refuses it: {refusal}", flush=True)
-
-    def nodrop(c):
-        return build_model(dataclasses.replace(c, moe=dataclasses.replace(
-            c.moe, capacity_factor=float(c.moe.num_experts // c.moe.top_k))))
-
-    bf16 = _ring_check("chunk-llama4", nodrop(cfg), params, 8188, 8200, 8, SEED + 21,
-                       gate=False)
+    refusal = _hobbit_refusal("llama4-scout", model, params,
+                              "full-window 'attn' layers only")
+    bf16 = _ring_check("chunk-llama4", _nodrop(cfg), params, 8188, 8200, 8, SEED + 21,
+                       gate=False, routes_at=8193)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     f32 = dataclasses.replace(cfg, num_layers=LLAMA4_CHUNK_LAYERS, dtype="float32").validate()
     _, params, _ = _seeded(f32, SEED + 20, dev, "chunk-llama4")
-    chunk = _ring_check("chunk-llama4", nodrop(f32), params, 8188, 8200, 8, SEED + 21)
+    chunk = _ring_check("chunk-llama4", _nodrop(f32), params, 8188, 8200, 8, SEED + 21)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return {"seed_s": seed_s, "serve": serve, "chunk": chunk, "chunk_bf16": bf16,
             "hobbit_refusal": refusal}
+
+
+# ---------------------------------------------------------------------------
+# phases 13-13c: DeepSeek-V2-236B (MLA, a dense first layer, shared experts)
+# ---------------------------------------------------------------------------
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_PARITY_LAYERS = 2
+DEEPSEEK_Q_OPS = ("dequant_matmul",)
+
+
+def _dense_and_shared_ffn(path, leaf) -> bool:
+    """The 2-D FFN leaves of a layer's FFN (the dense layer's, the shared
+    experts'), not the routed experts or the router."""
+    del leaf
+    return "experts" not in path and "router" not in path
+
+
+def _mla_cache_and_casts(model, params) -> dict:
+    """The latent cache's bytes per token per layer (c_kv and k_rope), the
+    bytes an uncompressed K (nope + rope wide) and V of every head would
+    take, and the device
+    ms per decode step of the absorbed decode's float32 casts of w_uk and
+    w_uv in every layer (CUDA events around 5 calls, one warm-up), beside
+    their bytes bound (bf16 read, float32 written)."""
+    cfg = model.cfg
+    dev = params["embed"].device
+    cache = model.init_cache(1, 8, dev)[0]
+    per_token = sum(t.element_size() * t.shape[-1] for t in cache.values())
+    m = cfg.mla
+    mats = [lp["attn"][w] for lp in params["layers"] for w in ("w_uk", "w_uv")]
+    cast = cuda_ms(lambda: [w.to(torch.float32) for w in mats], warmup=1, iters=5)
+    cast_bound, _ = bound(3 * nbytes(*mats), 0)
+    kv = cfg.num_heads * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim)
+    return {"latent_bytes_per_token_layer": per_token,
+            "kv_bytes_per_token_layer": kv * cache["c_kv"].element_size(),
+            "w_uk_w_uv_cast_ms_per_step": cast, "cast_bound_ms": cast_bound,
+            "cast_gb": nbytes(*mats) / 1e9}
+
+
+def phase_deepseek(dev) -> dict:
+    """DeepSeek-V2-236B at full width (5120 wide, 128 heads, MLA with a
+    512-wide latent and 64-wide rope key, 160 experts of d_ff 1536 at top-6
+    beside 2 shared experts, a dense first layer of d_ff 12288, vocab
+    102400), depth cut from 60 to 4 layers (the dense layer and 3 MoE
+    layers, 13.1 B parameters, 26.2 GB of seeded bf16): the serve of phase
+    8 on dense KV (latent caches; no kernel on the bf16 path), with the
+    latent cache's bytes per token and the absorbed decode's float32 casts
+    timed; 13c's bf16 half (an 1100-token prompt decoded across
+    ``mla_forward``'s 1024-query chunk, its gap to ``Model.forward``
+    measured); then the dense and the shared FFN quantized in place to 4
+    bits (serve-deepseek-q4: the dequant-matmul kernels, never their plain
+    version), and HobbitBackend's refusal, which must name MLA."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=DEEPSEEK_LAYERS).validate()
+    check(cfg.layer_is_moe() == (False, True, True, True), f"deepseek: {cfg.layer_is_moe()}")
+    model, params, seed_s = _seeded(cfg, SEED + 23, dev, "serve-deepseek")
+    with phase("serve-deepseek"):
+        serve = phase_serve_full(dev, model, params, "serve-deepseek", (), paged=False)
+        mla = _mla_cache_and_casts(model, params)
+        check(mla["latent_bytes_per_token_layer"] == 1152,
+              f"serve-deepseek: latent cache of {mla['latent_bytes_per_token_layer']} B "
+              "per token and layer")
+        print(f"[serve-deepseek] latent cache {mla['latent_bytes_per_token_layer']} B per "
+              f"token per layer (K and V of 128 heads: {mla['kv_bytes_per_token_layer']} B, "
+              f"{mla['kv_bytes_per_token_layer'] / mla['latent_bytes_per_token_layer']:.1f}x); "
+              f"{json.dumps(mla)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("mla-long-bf16"):
+        long_bf16 = _ring_check("mla-long", _nodrop(cfg), params, 1100, 1152, 8,
+                                SEED + 24, gate=False, routes_at=1100)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _quantize_ffn_in_place(params, _dense_and_shared_ffn)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    from repro_torch.quant.quantize import QTensor
+    dense = [lp["ffn"].get("shared", lp["ffn"]) for lp in params["layers"]]
+    check(all(isinstance(f[w], QTensor) for f in dense for w in ("wi", "wo")),
+          "serve-deepseek-q4: a dense or shared FFN weight not quantized")
+    check(not any(isinstance(lp["ffn"]["experts"]["wi"], QTensor)
+                  for lp in params["layers"][1:]), "serve-deepseek-q4: experts quantized")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve-deepseek-q4] the dense layer's and the shared experts' FFN quantized to "
+          f"4 bits (group 128) on the card in {quant_s:.1f} s: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
+    with phase("serve-deepseek-q4"):
+        serve_q = phase_serve_full(dev, model, params, "serve-deepseek-q4", DEEPSEEK_Q_OPS,
+                                   paged=False)
+    agree = float(np.mean([np.mean(serve["outputs"][r] == serve_q["outputs"][r])
+                           for r in serve["outputs"]]))
+    print(f"[serve-deepseek-q4] seed {seed_s:.1f} s, quantize {quant_s:.1f} s; greedy "
+          f"tokens equal to the bf16 run's in {agree:.3f} of positions", flush=True)
+    refusal = _hobbit_refusal("serve-deepseek", model, params, "MLA attention")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve, "serve_q4": serve_q, "mla": mla, "mla_long_bf16": long_bf16,
+            "hobbit_refusal": refusal}
+
+
+def phase_deepseek_parity(dev) -> dict:
+    """DeepSeek at full width cut to 2 layers (the dense layer and a MoE
+    layer), seeded bf16, through DenseBackend on dense KV on the card and on
+    the CPU: a 48-token prefill and 4 teacher-forced decode steps for 2
+    rows, per-step logits within DENSE_PARITY_ATOL, as phases 9, 10b and
+    12b.  About 10 GB of weights on the host."""
+    from repro_torch.configs import get_config
+
+    print(f"[deepseek-parity] host memory available: {host_available_gb():.1f} GB",
+          flush=True)
+    cfg = dataclasses.replace(get_config(DEEPSEEK),
+                              num_layers=DEEPSEEK_PARITY_LAYERS).validate()
+    model, params, _ = _seeded(cfg, SEED + 25, dev, "deepseek-parity")
+    out = _card_cpu_parity("deepseek-parity", model, params, (), b=2, s=48, steps=4,
+                           seed=SEED + 26, paged=False)
+    del model, params
+    return out
+
+
+def phase_mla_long(dev) -> dict:
+    """13c, float32 half: DeepSeek at full width cut to 2 layers in float32
+    weights (~20 GB) at capacity factor E / top_k (no drops): an 1100-token
+    prompt prefilled into a latent cache of max_len 1152 (the forward runs
+    its queries in a chunk of 1024 and a tail of 76), then 8 captured decode
+    steps, each against ``Model.forward`` over the same tokens within
+    RING_ATOL (in float32 the absorbed decode and the up-projecting forward
+    agree to float32 rounding, so a misplaced latent row shows)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=DEEPSEEK_PARITY_LAYERS,
+                              dtype="float32").validate()
+    model, params, _ = _seeded(cfg, SEED + 23, dev, "mla-long")
+    out = _ring_check("mla-long", _nodrop(cfg), params, 1100, 1152, 8, SEED + 24)
+    del model, params
+    return out
+
+
+def phases_deepseek(dev):
+    """Phases 13-13c, each freeing its weights before the next."""
+    ds = phase_deepseek(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("deepseek-parity"):
+        ds["parity"] = phase_deepseek_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("mla-long"):
+        ds["mla_long"] = phase_mla_long(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ds
 
 
 def phases_windowed(dev):
@@ -3621,17 +3870,19 @@ def main() -> None:
 
     nem, nem_q, ivl = phases_48_8(dev)
     g2, g2q, g3, l4 = phases_windowed(dev)
+    ds = phases_deepseek(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
     # paged serve (g = 4) and the Nemotron serve (g = 6), the
-    # dequant-matmul's from the quantized Granite, Nemotron and Gemma-2
-    # serves; no serving path runs the contiguous flash decode); every path
-    # beside them
+    # dequant-matmul's from the quantized Granite, Nemotron, Gemma-2 and
+    # DeepSeek serves; no serving path runs the contiguous flash decode);
+    # every path beside them
     main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
                  "flash_decode": None, "paged_flash_decode (g=6)": "serve_nemotron",
                  "dequant_matmul (nemotron)": "serve_nemotron_q4", "flash_decode (g=6)": None,
-                 "dequant_matmul (gemma2)": "serve_gemma2_q4"}
+                 "dequant_matmul (gemma2)": "serve_gemma2_q4",
+                 "dequant_matmul (deepseek)": "serve_deepseek_q4"}
     paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
              "serve_dense_q4": dense_q, "per_expert": per_expert["per_expert_dense"],
              "per_expert_paged": per_expert["per_expert_paged"],
@@ -3640,7 +3891,8 @@ def main() -> None:
              "host_mode": host_mode["host"], "single_sequence": single,
              "serve_nemotron": nem, "serve_nemotron_q4": nem_q,
              "serve_internvl2": ivl["serve"], "serve_gemma2": g2, "serve_gemma2_q4": g2q,
-             "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"]}
+             "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"],
+             "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"]}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

@@ -8,8 +8,10 @@ embeddings), and the windowed family on ring caches: Gemma-2-27B
 (alternating 4096-token sliding-window and global layers, softcaps,
 sandwich norms), Gemma-3-27B (5 local : 1 global, qk-norm) and
 Llama-4-Scout-17B-16E (3 chunked : 1 global, top-1 MoE beside a shared
-expert).  The other architectures of the JAX package arrive with their
-model layers (ROADMAP, Queue 1 item 7: MLA, SSM and hybrid layers, the
+expert), and DeepSeek-V2-236B (multi-head latent attention over a 512-wide
+latent cache; a dense first layer, then 160 experts at top-6 beside 2
+shared experts).  The other architectures of the JAX package arrive with
+their model layers (ROADMAP, Queue 1 item 7: SSM and hybrid layers, the
 audio encoder)."""
 
 from repro_torch.configs.base import (
@@ -21,6 +23,7 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs import (  # noqa: E402
+    deepseek_v2_236b,
     gemma2_27b,
     gemma3_27b,
     granite_3_2b,
@@ -38,6 +41,7 @@ PAPER_ARCHS = {
 
 # the JAX package's assigned architectures ported so far
 ASSIGNED_ARCHS = {
+    "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
     "gemma2-27b": gemma2_27b.CONFIG,
     "gemma3-27b": gemma3_27b.CONFIG,
     "granite-3-2b": granite_3_2b.CONFIG,

@@ -250,10 +250,13 @@ class OffloadEngine:
             raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has dense "
                              "FFN layers (serve it with DenseBackend)")
         # the HOBBIT model class: MoE behind full-window "attn" layers in every
-        # layer (the reference asserts these layer kinds), no shared experts
-        # and no sandwich norms, which the engine's layer step does not apply
+        # layer (the reference asserts these layer kinds), no MLA, no shared
+        # experts and no sandwich norms, which the engine's layer step does
+        # not apply (its attention reads "wk" / "wv" and a {"k", "v"} cache)
         kinds = sorted(set(cfg.layer_kinds()) - {"attn"})
         why = [f"{'/'.join(kinds)} layers"] if kinds else []
+        if cfg.mla is not None:
+            why.append("MLA attention")
         if not all(cfg.layer_is_moe()):
             why.append("dense FFN layers")
         if cfg.moe.num_shared_experts:

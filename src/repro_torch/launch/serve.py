@@ -39,6 +39,12 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
       --layers 8 --backend dense --serve-requests 6 --max-batch 4
 
+  # DeepSeek-V2-236B (MLA over a latent cache, a dense first layer, 160
+  # experts at top-6 beside 2 shared experts) cut from 60 to 4 layers on
+  # dense KV (--paged-kv and --backend hobbit refused)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --layers 4 --backend dense --serve-requests 6 --max-batch 4
+
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
 """

@@ -1,25 +1,28 @@
 """Layer library of the port: RMSNorm and layernorm, qk-norm, RoPE, the
 attention masks (global, sliding-window, chunked), grouped-query attention
 for prefill and for one-token decode against a dense per-slot cache (a ring
-of `window` slots for windowed layers) or a paged KV pool, and the dense
-FFN.
+of `window` slots for windowed layers) or a paged KV pool, DeepSeek-V2's
+multi-head latent attention (MLA) over a latent cache, and the dense FFN.
 
 PyTorch twin of the JAX package's ``models/layers.py`` for the decoder
 layers ported so far: full-window "attn" layers (Mixtral / Phi-MoE,
 Granite, Nemotron and InternVL2 shapes) and the windowed "attn_local" /
 "attn_chunked" layers (Gemma-2, Gemma-3, Llama-4-Scout), with the attention
-logit softcap and qk-norm.  Plain tensor math, written as the reference
-writes it (``mha``): float32 scores and softmax, GQA without materialising
-repeated K/V heads.  Dense and windowed decode and paged prefill-chunk
-attention have no kernel, as in the reference; paged decode attention runs
-``kernels.ops.paged_flash_decode``, and an FFN weight that is a `QTensor`
-runs ``kernels.ops.dequant_matmul``.
+logit softcap and qk-norm, and MLA layers (DeepSeek-V2: the full-sequence
+forward up-projects the latent per head, the decode step attends in the
+latent space with the up projections absorbed).  Plain tensor math, written
+as the reference writes it (``mha``): float32 scores and softmax, GQA
+without materialising repeated K/V heads.  Dense, windowed and MLA decode
+and paged prefill-chunk attention have no kernel, as in the reference;
+paged decode attention runs ``kernels.ops.paged_flash_decode``, and an FFN
+weight that is a `QTensor` runs ``kernels.ops.dequant_matmul``.
 
 Conventions: activations (B, S, D) in the config dtype; q/k/v (B, S, H, hd);
-decode takes x (B, 1, D) and a cache {"k", "v"} of (B, Smax, Hkv, hd) that is
-updated in place.  Paged layers take one layer's page buffers of
-(P + 1, psz, Hkv, hd), updated in place; the last row is a write sink that
-no page table names (``models.kv_pages``).
+decode takes x (B, 1, D) and a cache {"k", "v"} of (B, Smax, Hkv, hd) (MLA:
+{"c_kv": (B, Smax, R), "k_rope": (B, Smax, rope)}) that is updated in place.
+Paged layers take one layer's page buffers of (P + 1, psz, Hkv, hd),
+updated in place; the last row is a write sink that no page table names
+(``models.kv_pages``).
 """
 
 from __future__ import annotations
@@ -314,6 +317,116 @@ def paged_attn_prefill_chunk(p, x, k_pages, v_pages, table, start, n,
     mask = kidx[None, None, :] <= positions[:, :, None]           # (B, C, Smax)
     out = mha(q, kg, vg, mask, cfg.attn_logit_softcap, 1.0 / math.sqrt(hd))
     return out.reshape(b, c, hq * hd) @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def mla_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+    """wq (D, H (nope + rope)), the down projection w_dkv (D, R + rope), the
+    up projections w_uk (R, H nope) and w_uv (R, H v), wo (H v, D) in the
+    config dtype; the latent's float32 "kv_norm" gain (zeros: a unit
+    gain).  Full-rank queries (q_lora_rank 0), as the reference."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    dt = dtype_of(cfg)
+    return {
+        "wq": dense_init((d, h * (m.nope_head_dim + m.rope_head_dim)), dt, gen, device),
+        "w_dkv": dense_init((d, m.kv_lora_rank + m.rope_head_dim), dt, gen, device),
+        "w_uk": dense_init((m.kv_lora_rank, h * m.nope_head_dim), dt, gen, device),
+        "w_uv": dense_init((m.kv_lora_rank, h * m.v_head_dim), dt, gen, device),
+        "wo": dense_init((h * m.v_head_dim, d), dt, gen, device),
+        "kv_norm": torch.zeros((m.kv_lora_rank,), dtype=torch.float32, device=device),
+    }
+
+
+def _mla_split_q(p, x, cfg: ModelConfig):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), RoPE not applied."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    return q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
+
+
+def _mla_compress_kv(p, x, positions, cfg: ModelConfig):
+    """(c_kv (B, S, R), k_rope (B, S, 1, rope)): the latent RMS-normed in
+    float32 with a (1 + kv_norm) gain and cast back to x's dtype; the rope
+    key roped at `positions` (B, S) as a single head."""
+    m = cfg.mla
+    dkv = x @ p["w_dkv"]                                    # (B, S, R + rope)
+    c_kv, k_rope = dkv[..., : m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    cf = c_kv.to(torch.float32)
+    cf = cf * torch.rsqrt(torch.mean(torch.square(cf), dim=-1, keepdim=True) + cfg.norm_eps)
+    c_kv = (cf * (1.0 + p["kv_norm"])).to(x.dtype)
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+
+def mla_forward(p, x, positions, cfg: ModelConfig, q_chunk: int = 1024):
+    """Full-sequence MLA (prefill): the latent up-projected to per-head
+    k_nope and v in the model dtype, float32 scores (the nope and the rope
+    products summed, scaled by 1/sqrt(nope + rope)) under a causal mask, in
+    query chunks of `q_chunk` and a ragged tail.  positions (B, S).
+    Returns (out (B, S, D), (c_kv (B, S, R), k_rope (B, S, rope))): the
+    compressed cache."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_split_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_compress_kv(p, x, positions, cfg)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.nope_head_dim).to(torch.float32)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim).to(torch.float32)
+    k_rope_f = k_rope[:, :, 0].to(torch.float32)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    outs = []
+    for s0 in range(0, s, q_chunk):
+        s1 = min(s0 + q_chunk, s)
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope[:, s0:s1].to(torch.float32), k_nope)
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope[:, s0:s1].to(torch.float32),
+                                 k_rope_f)) * scale
+        mask = make_mask(positions[:, s0:s1], positions, "attn", 0)
+        logits = torch.where(mask[:, None], logits,
+                             torch.full((), NEG_INF, dtype=logits.dtype, device=x.device))
+        w = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", w, v).to(x.dtype))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"], (c_kv, k_rope[:, :, 0])
+
+
+def mla_decode(p, x, cache, positions, cfg: ModelConfig):
+    """Absorbed-matrix MLA decode: attention in the R-wide latent space.
+    x (B, 1, D); cache {"c_kv": (B, Smax, R), "k_rope": (B, Smax, rope)},
+    this token's latent and rope key written in place at `positions` (B,)
+    (clamped to Smax - 1, as the reference's dynamic_update_slice); w_uk
+    folded into the query and w_uv applied to the latent output, both in
+    float32, as the reference casts them.  Returns out (B, 1, D)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_split_q(p, x, cfg)                # (B, 1, H, *)
+    q_rope = apply_rope(q_rope, positions[:, None], cfg.rope_theta)
+    c_new, k_rope_new = _mla_compress_kv(p, x, positions[:, None], cfg)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    smax = c_kv.shape[1]
+    rows = torch.arange(b, device=x.device)
+    at = positions.clamp(max=smax - 1)
+    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[rows, at] = k_rope_new[:, 0, 0].to(k_rope.dtype)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32), w_uk.to(torch.float32))
+    c_f = c_kv.to(torch.float32)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, c_f)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(torch.float32),
+                             k_rope.to(torch.float32))) * scale
+    mask = torch.arange(smax, device=x.device)[None, :] <= positions[:, None]
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full((), NEG_INF, dtype=logits.dtype, device=x.device))
+    w = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", w, c_f)                    # (B, 1, H, R)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv.to(torch.float32)).to(x.dtype)
+    return out.reshape(b, 1, h * m.v_head_dim) @ p["wo"]
 
 
 def activate(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Model assembly of the port: config -> init / prefill / decode_step / logits.
 
 Covers decoder-only models whose layers are attention layers -- full-window
-"attn", sliding-window "attn_local" or chunked "attn_chunked" -- with
-either a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT engine's
-model class; Llama-4-Scout's top-1 experts beside a shared expert) or a
+"attn", sliding-window "attn_local" or chunked "attn_chunked", or
+DeepSeek-V2's multi-head latent attention (MLA) -- each with a MoE or a
+dense FFN: a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT engine's
+model class; Llama-4-Scout's top-1 experts beside a shared expert), a dense
+first layer before MoE layers with two shared experts (DeepSeek-V2), or a
 dense FFN in every layer: Granite (RMSNorm, SwiGLU, tied embeddings),
 Nemotron-4 (layernorm, squared ReLU, an untied LM head), InternVL2's
 InternLM2 backbone, whose "vision_patches" frontend puts precomputed patch
@@ -16,7 +18,8 @@ Parameters are a plain dict of tensors with a flat per-layer list::
 
     {"embed": (V_pad, D), "final_norm": {"scale": (D,)[, "bias"]},
      ["lm_head": (D, V_pad) when the embeddings are untied,]
-     "layers": [{"pre_norm", "attn": {wq, wk, wv, wo[, q_norm, k_norm]},
+     "layers": [{"pre_norm", "attn": {wq, wk, wv, wo[, q_norm, k_norm]}
+                                  or {wq, w_dkv, w_uk, w_uv, wo, kv_norm} (MLA),
                  ["post_norm",] "ffn_norm", ["post_ffn_norm",]
                  "ffn": {"router": (D, E), "experts": {"wi", "wo"}
                          [, "shared": {"wi", "wo"}]}                 (MoE)
@@ -29,9 +32,11 @@ dense FFN weight may be a `QTensor` (``quant.quantize_tree``); its products
 then run the dequant-matmul kernel.  The decode cache is a list of per-layer
 {"k", "v"} (B, Smax, Hkv, hd) buffers updated in place -- Smax = max_len for
 "attn" layers, min(max_len, window) for windowed ones, whose cache is a
-ring (``layers.attn_decode``) -- or, for all-"attn" models, a
-`kv_pages.PagedKVPool` (``init_cache(..., paged=True)``) driven by
-``decode_step_paged`` / ``prefill_chunk_paged``.  Prefix embeddings enter
+ring (``layers.attn_decode``); an MLA layer's is the latent cache
+{"c_kv": (B, max_len, R), "k_rope": (B, max_len, rope)} -- or, for
+all-"attn" models without MLA, a `kv_pages.PagedKVPool`
+(``init_cache(..., paged=True)``) driven by ``decode_step_paged`` /
+``prefill_chunk_paged``.  Prefix embeddings enter
 through ``forward`` and ``prefill`` (a `Batch`); the paged chunked prefill
 is text-only, as in the reference.
 """
@@ -59,13 +64,9 @@ class Batch(NamedTuple):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless `cfg` is in the ported model class:
-    attention decoder layers (full-window, sliding-window or chunked), every
-    FFN dense or every FFN MoE, RMSNorm or layernorm, and no frontend but
+    attention decoder layers (full-window, sliding-window, chunked or MLA),
+    each FFN dense or MoE, RMSNorm or layernorm, and no frontend but
     "vision_patches"."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA (multi-head latent attention) arrives with ROADMAP "
-            "Queue 1, item 7.3")
     if not set(cfg.layer_kinds()) <= {"attn", "attn_local", "attn_chunked"} \
             or cfg.ssm is not None or cfg.family == "hybrid":
         raise NotImplementedError(
@@ -74,11 +75,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoders and the {cfg.frontend!r} frontend (Whisper's audio "
             "frames) arrive with ROADMAP Queue 1, item 7.5")
-    moe = cfg.layer_is_moe()
-    if any(moe) and not all(moe):
-        raise NotImplementedError(
-            f"{cfg.name}: models mixing dense and MoE FFN layers arrive with "
-            "ROADMAP Queue 1, item 7.4 (Jamba)")
     if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(
             f"{cfg.name}: norm_type={cfg.norm_type!r} is neither RMSNorm nor "
@@ -172,7 +168,8 @@ class Model:
         for is_moe in cfg.layer_is_moe():
             lp = {
                 "pre_norm": layers.norm_init(cfg, dev),
-                "attn": layers.attn_init(cfg, gen, dev),
+                "attn": (layers.mla_init(cfg, gen, dev) if cfg.mla is not None
+                         else layers.attn_init(cfg, gen, dev)),
                 "ffn_norm": layers.norm_init(cfg, dev),
                 "ffn": (moe_lib.moe_init(cfg, gen, dev) if is_moe
                         else layers.ffn_init(cfg, gen, dev)),
@@ -211,7 +208,7 @@ class Model:
         to the compute dtype) in front of the token embeddings, positions
         running over both; other models ignore them, as the reference does.
         Returns (hidden (B, P + S, D) with the prefix positions first,
-        [(k, v) per layer], aux_loss)."""
+        [(k, v) per layer, MLA: (c_kv, k_rope)], aux_loss)."""
         cfg = self.cfg
         tokens = batch.tokens if isinstance(batch, Batch) else batch
         x = self.embed(params, tokens)
@@ -224,7 +221,10 @@ class Model:
         rope = _use_rope(cfg)
         for p, kind in zip(params["layers"], cfg.layer_kinds()):
             def attn(h, p=p, kind=kind):
-                out, kv = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
+                if cfg.mla is not None:
+                    out, kv = layers.mla_forward(p["attn"], h, positions, cfg)
+                else:
+                    out, kv = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
                 kvs.append(kv)
                 return out
             x, a = _layer(p, x, attn, cfg)
@@ -236,7 +236,8 @@ class Model:
                    paged: bool = False, page_size: int = 64,
                    num_pages: Optional[int] = None, prefix_sharing: bool = True):
         """Decode cache for every layer.  paged=False: zeroed dense per-slot
-        caches, one {"k", "v"} per layer.  paged=True: a started
+        caches, one {"k", "v"} per layer (MLA: {"c_kv", "k_rope"}, the
+        latent and the rope key).  paged=True: a started
         `kv_pages.PagedKVPool` of `num_pages` pages (default the dense
         equivalent, batch * ceil(max_len / page_size)) with the radix prefix
         index on or off (`prefix_sharing`).  A windowed layer's dense cache
@@ -258,6 +259,13 @@ class Model:
             return pool
         cache = []
         for kind in cfg.layer_kinds():
+            if cfg.mla is not None:
+                m = cfg.mla
+                cache.append({
+                    "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt, device=dev),
+                    "k_rope": torch.zeros((batch, max_len, m.rope_head_dim), dtype=dt,
+                                          device=dev)})
+                continue
             sm = max_len if kind == "attn" else min(max_len, cfg.window_size)
             shape = (batch, sm, cfg.num_kv_heads, cfg.resolved_head_dim)
             cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -267,7 +275,8 @@ class Model:
     def prefill(self, params, batch: Union[Batch, torch.Tensor], max_len: int):
         """Run whole prompts (a `Batch`, or tokens (B, S)) and build a decode
         cache padded to max_len, which must hold the prefix and the prompt;
-        a ring keeps the last Smax keys, position p at slot p % Smax.
+        a ring keeps the last Smax keys, position p at slot p % Smax (an MLA
+        layer's latent cache is full-window).
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
         x, kvs, _ = self.forward(params, batch)
@@ -276,15 +285,14 @@ class Model:
             raise ValueError(f"a decode cache of max_len={max_len} cannot hold the "
                              f"{s} prefix and prompt positions")
         cache = self.init_cache(b, max_len, x.device)
-        for c, (k, v) in zip(cache, kvs):
-            sm = c["k"].shape[1]
-            if s > sm:      # a ring shorter than the prompt: the last sm keys
-                slots = torch.remainder(s - sm + torch.arange(sm, device=x.device), sm)
-                c["k"][:, slots] = k[:, -sm:].to(c["k"].dtype)
-                c["v"][:, slots] = v[:, -sm:].to(c["v"].dtype)
-            else:
-                c["k"][:, :s] = k.to(c["k"].dtype)
-                c["v"][:, :s] = v.to(c["v"].dtype)
+        for c, kv in zip(cache, kvs):
+            for buf, src in zip(c.values(), kv):    # (k, v) or (c_kv, k_rope)
+                sm = buf.shape[1]
+                if s > sm:  # a ring shorter than the prompt: the last sm keys
+                    slots = torch.remainder(s - sm + torch.arange(sm, device=x.device), sm)
+                    buf[:, slots] = src[:, -sm:].to(buf.dtype)
+                else:
+                    buf[:, :s] = src.to(buf.dtype)
         last = self.logits(params, x[:, -1:, :])[:, 0, :]
         return last, cache, np.full((b,), s, np.int64)
 
@@ -298,8 +306,13 @@ class Model:
         x = self.embed(params, tokens)
         rope = _use_rope(cfg)
         for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
-            x, _ = _layer(p, x, lambda h, p=p, c=c, kind=kind: layers.attn_decode(
-                p["attn"], h, c, positions, cfg, kind, rope), cfg, token_mask=active)
+            if cfg.mla is not None:
+                def attn(h, p=p, c=c):
+                    return layers.mla_decode(p["attn"], h, c, positions, cfg)
+            else:
+                def attn(h, p=p, c=c, kind=kind):
+                    return layers.attn_decode(p["attn"], h, c, positions, cfg, kind, rope)
+            x, _ = _layer(p, x, attn, cfg, token_mask=active)
         return self.logits(params, x)[:, 0, :]
 
     # -------------------- paged decode / chunked prefill --------------------

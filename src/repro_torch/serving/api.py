@@ -116,8 +116,9 @@ class DenseBackend:
                  prefill_chunk: int = 64, prefix_sharing: bool = True):
         if paged and not supports_paged_kv(model.cfg):
             raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout "
-                             "(only all-'attn' models do; windowed layers keep ring "
-                             "caches on the dense layout)")
+                             "(only all-'attn' models without MLA do; windowed layers "
+                             "keep ring caches and MLA layers latent caches on the "
+                             "dense layout)")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -166,8 +167,8 @@ class DenseBackend:
         logits, cache, self.positions = self.model.prefill(
             self.params, to_device(prompts, self.device), self.max_len)
         for dst, src in zip(self.cache, cache):     # in place: the step's graph reads it
-            dst["k"].copy_(src["k"])
-            dst["v"].copy_(src["v"])
+            for name, buf in dst.items():
+                buf.copy_(src[name])
         self.active[:] = True
         return to_host(logits)[0]
 
@@ -203,12 +204,13 @@ class DenseBackend:
 
     def _join_dense(self, slot: int, prompt) -> np.ndarray:
         """A one-row prefill scattered into row `slot` of each layer's cache
-        (a ring layer's row is its ring, as long as the batch's)."""
+        (a ring layer's row is its ring, as long as the batch's; an MLA
+        layer's its latent row)."""
         logits, one, positions = self.model.prefill(
             self.params, to_device(prompt.reshape(1, -1), self.device), self.max_len)
         for dst, src in zip(self.cache, one):
-            dst["k"][slot].copy_(src["k"][0])
-            dst["v"][slot].copy_(src["v"][0])
+            for name, buf in dst.items():
+                buf[slot].copy_(src[name][0])
         self.positions[slot] = positions[0]
         self.active[slot] = True
         return to_host(logits[0])[0]
@@ -222,14 +224,14 @@ class DenseBackend:
 
     def pause(self, slot: int) -> dict:
         """Preempt `slot`: its KV to the host (dense: each layer's row, a
-        ring layer's ring), the slot freed."""
+        ring layer's ring, an MLA layer's latent row), the slot freed."""
         if self.paged:
             snap = self.kv.snapshot_slot(slot)
             self.kv.release(slot)
             self.active[slot] = False
             return {"layout": "paged", "position": int(self.positions[slot]), "kv": snap}
-        rows = [{"k": c["k"][slot].to("cpu", copy=True),
-                 "v": c["v"][slot].to("cpu", copy=True)} for c in self.cache]
+        rows = [{name: buf[slot].to("cpu", copy=True) for name, buf in c.items()}
+                for c in self.cache]
         self.active[slot] = False
         return {"layout": "dense", "position": int(self.positions[slot]), "cache": rows}
 
@@ -238,8 +240,8 @@ class DenseBackend:
             self.kv.restore_slot(slot, snapshot["kv"])
         else:
             for c, row in zip(self.cache, snapshot["cache"]):
-                c["k"][slot].copy_(row["k"])
-                c["v"][slot].copy_(row["v"])
+                for name, buf in c.items():
+                    buf[slot].copy_(row[name])
         self.positions[slot] = int(snapshot["position"])
         self.active[slot] = True
 
@@ -266,7 +268,7 @@ class DenseBackend:
             args.append(self.kv.prepare_decode(np.flatnonzero(self.active), self.positions))
             buffers = (*self.kv.k, *self.kv.v)
         else:
-            buffers = [c[n] for c in self.cache for n in ("k", "v")]
+            buffers = [buf for c in self.cache for buf in c.values()]
         if self._step is None:
             logits = self._decode(*args)
         else:

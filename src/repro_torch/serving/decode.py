@@ -2,7 +2,8 @@
 sampling and the model-level generate loop.
 
 `make_serve_step` is one new token against a dense KV cache of length
-max_len (a windowed layer's a ring of min(max_len, window) slots).  ``generate(jit=True)`` runs it as a captured step
+max_len (a windowed layer's a ring of min(max_len, window) slots, an MLA
+layer's a latent cache).  ``generate(jit=True)`` runs it as a captured step
 (``capture.CapturedStep``): a CUDA graph replayed per token on the card,
 eager on the CPU.  The prefill stays eager on both: the loop calls it once
 per prompt shape, so a graph would only add the cost of its capture.
@@ -109,7 +110,7 @@ def generate(model: Model, params, prompts, new_tokens: int, *,
         return serve_step(params, cache, tokens, pos)[0]
 
     captured = CapturedStep(step, "serve_step") if jit else None
-    key = addresses(c[n] for c in cache for n in ("k", "v"))
+    key = addresses(buf for c in cache for buf in c.values())
     gen = torch.Generator().manual_seed(seed)
     out = [prompts]
     tok = sample_token(lg, gen, temperature)

@@ -137,12 +137,13 @@ def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
     layout, the scanned blocks at any period plus the tail) as the port's
     parameters on `device`.  Matrices take the config dtype, the untied
     ``lm_head`` and a MoE's ``shared`` experts too; norm scales (and
-    layernorm biases) -- the sandwich norms and the qk-norm gains among
-    them -- and routers stay float32, as the reference keeps them."""
+    layernorm biases) -- the sandwich norms, the qk-norm gains and MLA's
+    latent ``kv_norm`` among them -- and routers stay float32, as the
+    reference keeps them."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     f32_keys = ("pre_norm", "ffn_norm", "post_norm", "post_ffn_norm", "q_norm", "k_norm",
-                "final_norm", "router")
+                "kv_norm", "final_norm", "router")
     out: Dict[str, Any] = {
         "embed": _to_torch(params["embed"], dt, dev),
         "final_norm": _to_torch(params["final_norm"], torch.float32, dev),

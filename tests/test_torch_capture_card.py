@@ -11,6 +11,8 @@ runs on the machine with the card:
 * ``start_batch`` drops the graphs with the buffers they bake in;
 * ``CapturedStep`` around one kernel: replays agree with the plain version
   and count one launch each;
+* a capture during which Python's cyclic collector would free a dead graph
+  waiting in a reference cycle goes through (the collector is held off);
 * the offload engine's grouped FFN (one graph for every MoE layer, fixed
   pair count B * top_k) on both KV layouts: every call after the first
   replays, and a replay on a fixed input equals the eager call bit for bit;
@@ -23,6 +25,8 @@ runs on the machine with the card:
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -108,6 +112,54 @@ def test_captured_step_counts_launches_on_replay(card):
     for out in outs:
         for got, w in zip(out, want):
             torch.testing.assert_close(got.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph_in_a_reference_cycle(card):
+    """A dead CapturedStep whose graph only the cyclic collector can free
+    waits in a reference cycle, and the step captured next allocates enough
+    containers during its capture to start an automatic collection there.
+    ``CapturedStep._capture`` holds the collector off for the capture (a
+    pass that destroys a graph mid-capture invalidates it), so the capture
+    goes through, replays, and the dead graph is freed afterwards."""
+    x = torch.randn(64, device=card)
+    held = []
+
+    def busy(t):
+        if torch.cuda.is_current_stream_capturing():
+            held.append([[] for _ in range(20000)])   # an automatic pass's worth
+        return t * 2 + 1
+
+    threshold = gc.get_threshold()
+    gc.collect()
+    try:
+        gc.set_threshold(10 ** 9)       # no automatic pass while the cycle is made
+        dead = capture.CapturedStep(lambda t: t + 1, "dead_step")
+        dead(x)
+        dead(x)
+        assert dead.graphs == 1
+        cycle = {"step": dead}
+        cycle["self"] = cycle
+        alive = weakref.ref(dead)
+        del dead, cycle
+        assert alive() is not None      # reachable from nothing but a cycle
+        # the next automatic pass starts 2000 allocations from here: inside
+        # the capture, after the warm-up
+        gc.set_threshold(gc.get_count()[0] + 2000)
+        live = capture.CapturedStep(busy, "live_step")
+        ops.reset_dispatch_counts()
+        first = live(x).clone()
+        again = live(x).clone()
+        torch.cuda.synchronize()
+        assert ops.dispatch_counts() == {"live_step.capture": 1, "live_step.graph": 1}
+        assert held, "the capture did not run the step"
+        torch.testing.assert_close(first, x * 2 + 1)
+        assert torch.equal(again, first)
+        [[] for _ in range(5000)]
+        assert alive() is None          # freed by an automatic pass after the capture
+    finally:
+        gc.set_threshold(*threshold)
+        gc.collect()
 
 
 def _mixtral():

@@ -40,7 +40,7 @@ from repro.serving.api import DenseBackend as RefDense
 from repro.serving.batching import BatchingServer as RefServer
 from repro.serving.batching import Request as RefRequest
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.configs.base import MLAConfig
+from repro_torch.configs.base import EncoderConfig, MLAConfig, SSMConfig
 from repro_torch.models import build_model
 from repro_torch.models import kv_pages as tkv
 from repro_torch.models.model import check_supported
@@ -319,12 +319,17 @@ def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     mla = dataclasses.replace(smoke_variant(get_config("mixtral-8x7b")), name="mla",
                               mla=MLAConfig(kv_lora_rank=64, rope_head_dim=32,
                                             nope_head_dim=64, v_head_dim=64)).validate()
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP Queue 1, item 7.3"):
-        check_supported(mla)
+    check_supported(mla)                # MLA: item 7.3, done
     mixed = dataclasses.replace(get_config("mixtral-8x7b"), block_pattern=("attn", "attn"),
                                 moe_pattern=(True, False)).validate()
-    with pytest.raises(NotImplementedError, match="mixing dense and MoE.*ROADMAP"):
-        check_supported(mixed)
+    check_supported(mixed)              # dense and MoE FFN layers mixed: item 7.3, done
+    ssm = dataclasses.replace(get_config(ARCH), name="ssm", block_pattern=("ssm",),
+                              moe_pattern=(False,), ssm=SSMConfig()).validate()
+    with pytest.raises(NotImplementedError, match="SSM and hybrid.*ROADMAP Queue 1, item 7.4"):
+        check_supported(ssm)
+    enc = dataclasses.replace(get_config(ARCH), name="enc", encoder=EncoderConfig()).validate()
+    with pytest.raises(NotImplementedError, match="encoders.*ROADMAP Queue 1, item 7.5"):
+        check_supported(enc)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu", "sq_relu"])
