@@ -187,7 +187,42 @@ and each printing its seconds:
                1024-query chunk, each captured step against
                ``Model.forward`` within 0.1 in float32 weights at 2 layers
                (capacity factor E / top_k: no drops), the bf16 gap at 4
-               layers measured.
+               layers measured;
+  3g. (run with phase 3) dequant_matmul — the dense dequant-matmul kernels
+               at Jamba-v0.1-52B's dense FFN (wi 4096 -> 28672, wo 14336 ->
+               4096; 4 bits, group 128), as 3e;
+  14. serve-mamba2 — Mamba2-780m as published (48 Mamba-2 SSD layers, 1536
+               wide, 48 heads of 64, d_state 128, no attention, no FFN; 1.56
+               GB of seeded bf16, no cut) through DenseBackend on the dense
+               layout, whose cache is the float32 SSM state (77.4 MB per
+               slot at any length; no kernel: the SSD scan, the causal conv
+               and the gated norm are plain PyTorch, as in the reference):
+               decode tok/s, median step, peak memory, the graph replays, a
+               profiler window (device ms and launches per step by kernel,
+               the busy share) and the head cast; the paged layout's and
+               HobbitBackend's refusals;
+  14b. mamba2-parity — card against CPU: gated within 0.1 in float32
+               weights at full depth and in bf16 at 2 layers; the bf16 gap
+               at full depth measured (48 bf16 layers of seeded weights
+               amplify rounding differences to O(1));
+  14c. ssm-long — a 600-token prompt (two 256-token SSD chunks and an
+               88-token tail padded with dt = 0), then 8 captured steps
+               against ``Model.forward``: gated within 0.1 in float32
+               weights (3.1 GB), measured in bf16;
+  14d. serve-jamba — Jamba-v0.1-52B at full width (7 SSD layers and one
+               attention layer without positional encoding per period, 16
+               experts at top-2 in every other layer) cut from 32 to 16
+               layers (51.5 GB of seeded bf16) on the dense layout (SSM
+               states and two layers' K/V), then with its dense FFN
+               quantized in place to 4 bits (16 dequant-matmul launches per
+               decode step, never the plain version); the bf16 gap of a
+               300-token prompt to ``Model.forward`` with each MoE layer's
+               top-2 experts wherever it exceeds 0.1; HobbitBackend's
+               refusal names the ssm layers;
+  14e. jamba-long — one 8-layer period in float32 weights (52.0 GB): the
+               300-token prompt (over the 256-token SSD chunk) and 6
+               captured steps held to ``Model.forward`` within 0.1
+               (capacity factor E / top_k = 8: no drops).
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -230,6 +265,8 @@ GEMMA2 = "gemma2-27b"
 GEMMA3 = "gemma3-27b"
 LLAMA4 = "llama4-scout-17b-a16e"
 DEEPSEEK = "deepseek-v2-236b"
+MAMBA2 = "mamba2-780m"
+JAMBA = "jamba-v0.1-52b"
 
 
 def fail(msg: str) -> None:
@@ -590,9 +627,10 @@ def _gating_rows(dev, g) -> list:
 
 
 def phase_kernels_dense(dev) -> list:
-    """Phases 3c, 3d, 3e and 3f: the dense dequant-matmul and the contiguous
-    flash-decode kernels, then the dequant-matmul at Gemma-2-27B's FFN and
-    at DeepSeek-V2-236B's dense and shared FFN."""
+    """Phases 3c, 3d, 3e, 3f and 3g: the dense dequant-matmul and the
+    contiguous flash-decode kernels, then the dequant-matmul at Gemma-2-27B's
+    FFN, at DeepSeek-V2-236B's dense and shared FFN and at Jamba's dense
+    FFN."""
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     with phase("kernels-3c"):
         dq = _dequant_matmul_row(dev, g)
@@ -608,7 +646,10 @@ def phase_kernels_dense(dev) -> list:
     with phase("kernels-3f"):
         dq_d = _dq_ffn(dev, g, DEEPSEEK, "deepseek")
     torch.cuda.empty_cache()
-    return [dq, dq_n, fd, fd6, dq_g, dq_d]
+    with phase("kernels-3g"):
+        dq_j = _dq_ffn(dev, g, JAMBA, "jamba")
+    torch.cuda.empty_cache()
+    return [dq, dq_n, fd, fd6, dq_g, dq_d, dq_j]
 
 
 # ---------------------------------------------------------------------------
@@ -1768,7 +1809,8 @@ def _dq_ffn(dev, g, arch: str, tag: str) -> dict:
     (SwiGLU): wi 4608 -> 73728, wo 36864 -> 4608, 288 groups of K over 36
     column tiles; DeepSeek-V2-236B: the dense first layer's wi 5120 ->
     24576 and wo 12288 -> 5120, the 2 shared experts' wi 5120 -> 6144 and
-    wo 3072 -> 5120."""
+    wo 3072 -> 5120; Jamba-v0.1-52B's dense FFN layers: wi 4096 -> 28672, wo
+    14336 -> 4096."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.quantize import dequantize
@@ -2889,7 +2931,7 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True,
     torch.profiler (two steps before them warm up and capture); the kernels'
     device time (the summed time of every kernel event) over the steps'
     wall time gives the device's busy share; the kernel launches per step,
-    the top kernels by device time beside it, and the decode dequant-matmul
+    the top kernels by device time and launches beside it, and the decode dequant-matmul
     kernel's own (1.39 ms per step on the gemv kernel before it, PERF.md).
     Reports "not measured" when the profiler records no device time.  The
     steps' logits come back under "logits" (popped by the caller)."""
@@ -2927,6 +2969,7 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True,
             "mmv_launches_per_step": sum(e.count for e in mmv) / steps,
             "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
                                         for e in top},
+            "top_kernels_launches_per_step": {e.key[:60]: e.count / steps for e in top},
             "rest_ms_per_step": (busy_us - sum(e.self_device_time_total for e in top))
             / steps / 1e3}
 
@@ -3027,11 +3070,11 @@ DENSE_PARITY_ATOL = 0.1
 
 
 def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed,
-                     paged: bool = True) -> dict:
+                     paged: bool = True, gate: bool = True) -> dict:
     """`model` through DenseBackend(paged=paged) on the card (kernels) and on
     the CPU (plain versions) with the same weights: an s-token prefill and
     `steps` teacher-forced decode steps for b rows, per-step logits within
-    DENSE_PARITY_ATOL."""
+    DENSE_PARITY_ATOL (`gate` False: measured and printed only)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import DenseBackend
 
@@ -3060,15 +3103,17 @@ def _card_cpu_parity(label, model, params, must_launch, *, b, s, steps, seed,
         e = float(np.abs(lc - lh).max())
         worst = max(worst, e)
         same += int((lc.argmax(-1) == lh.argmax(-1)).sum())
-        check(e <= DENSE_PARITY_ATOL, f"{label} step {i}: max |card - CPU| = "
-                                      f"{e:.4f} > {DENSE_PARITY_ATOL}")
+        check(e <= DENSE_PARITY_ATOL or not gate, f"{label} step {i}: max |card - CPU| = "
+                                                  f"{e:.4f} > {DENSE_PARITY_ATOL}")
     spread = float(np.std(runs["cpu"][0]))
-    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers: {steps + 1} steps (prefill + "
-          f"{steps} decode) x {b} rows: max |card - CPU| = {worst:.4f} <= "
-          f"{DENSE_PARITY_ATOL} (logit std {spread:.3f}); greedy tokens equal in "
-          f"{same}/{(steps + 1) * b}", flush=True)
+    bar = f"<= {DENSE_PARITY_ATOL}" if gate else "(measured, not gated)"
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {cfg.dtype}: {steps + 1} steps "
+          f"(prefill + {steps} decode) x {b} rows: max |card - CPU| = {worst:.4g} {bar} "
+          f"(logit std {spread:.3f}); greedy tokens equal in {same}/{(steps + 1) * b}",
+          flush=True)
     return {"max_abs_diff": worst, "logit_std": spread, "argmax_equal": same,
-            "compared": (steps + 1) * b}
+            "compared": (steps + 1) * b, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "gated": gate}
 
 
 def phase_dense_parity(dev) -> dict:
@@ -3173,9 +3218,11 @@ def _quantize_ffn_in_place(params, predicate=None) -> None:
     """Each layer's FFN weights (those `predicate(path in the FFN, leaf)`
     takes; without one, every weight, checked) replaced by 4-bit QTensors
     (group 128), one layer at a time, so the bf16 weights are freed as they
-    go."""
+    go; a layer without an FFN is skipped."""
     from repro_torch.quant.quantize import QTensor, quantize_tree
     for lp in params["layers"]:
+        if "ffn" not in lp:
+            continue
         lp["ffn"] = quantize_tree(lp["ffn"], bits=4, predicate=predicate)
         check(predicate is not None or all(isinstance(w, QTensor) for w in lp["ffn"].values()),
               "FFN weights not quantized")
@@ -3390,7 +3437,8 @@ def _recording_routes():
 
 
 def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
-                seed: int, *, gate: bool = True, routes_at: Optional[int] = None) -> dict:
+                seed: int, *, gate: bool = True, routes_at: Optional[int] = None,
+                routes_over: Optional[float] = None) -> dict:
     """A seeded prompt of `prompt_len` tokens prefilled into dense caches of
     max_len (windowed layers: rings of min(max_len, window) slots), then
     `steps` teacher-forced decode steps through a captured step
@@ -3404,8 +3452,9 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     to another expert on that difference).  `routes_at`: a decoded position
     whose experts per MoE layer (the top-k in rank order) are printed for
     the step (the step again, eagerly, from a copy of the cache it started
-    from) and for the forward.  An MLA model's latent cache passes through
-    the same way."""
+    from) and for the forward; `routes_over`: the same at every decoded
+    position whose gap exceeds it.  An MLA model's latent cache and an SSM
+    layer's state pass through the same way."""
     from repro_torch.capture import CapturedStep, addresses
     from repro_torch.device import to_device, to_host
     from repro_torch.kernels import ops
@@ -3421,34 +3470,26 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     serve_step = decode.make_serve_step(model)
     captured = CapturedStep(lambda tok, p: serve_step(params, cache, tok, p)[0], "serve_step")
     key = addresses(buf for c in cache for buf in c.values())
-    before = None
+    before = {}         # position -> (a copy of the cache the step started from, token, pos)
     ops.reset_dispatch_counts()
     t0 = time.perf_counter()
     for i in range(steps):
         tok = to_device(toks[:, prompt_len + i:prompt_len + i + 1], dev)
-        if prompt_len + i == routes_at:
-            before = ([{n: b.clone() for n, b in c.items()} for c in cache], tok, pos)
+        if prompt_len + i == routes_at or routes_over is not None:
+            before[prompt_len + i] = ([{n: b.clone() for n, b in c.items()} for c in cache],
+                                      tok, pos)
         got.append(to_host(captured(tok, to_device(pos, dev)))[0])
         pos = pos + 1
     decode_s = time.perf_counter() - t0
     _captured_path(ops.dispatch_counts(), ["serve_step"], label)
-    rings = sorted({int(next(iter(c.values())).shape[1]) for c in cache})
+    rings = sorted({int(next(iter(c.values())).shape[1]) for c in cache if "h" not in c})
     del captured, cache
-    routes = {}
-    if before is not None:
-        with _recording_routes() as seen:
-            again = model.decode_step(params, before[0], before[1], to_device(before[2], dev))
-        routes["step"] = [t[0].tolist() for t in seen]
-        routes["eager_step_vs_captured"] = float(np.abs(
-            to_host(again)[0] - got[routes_at - prompt_len + 1]).max())
-        del before, again
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with _recording_routes() as seen:
         x, _, _ = model.forward(params, to_device(toks, dev))
-    if routes:
-        routes["forward"] = [t[routes_at].tolist() for t in seen]
+    forward_routes = [t.tolist() for t in seen]
     del seen
     want = to_host(model.logits(params, x[:, prompt_len - 1:]))[0][0]   # (steps + 1, V)
     forward_s = time.perf_counter() - t0
@@ -3466,14 +3507,29 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
            "max_abs_diff": float(diffs.max()), "logit_std": float(np.std(want)),
            "argmax_equal": same, "compared": steps + 1, "prefill_s": prefill_s,
            "decode_ms_per_step": decode_s / steps * 1e3, "forward_s": forward_s}
-    if routes:
-        flips = [i for i, (a, b) in enumerate(zip(routes["step"], routes["forward"]))
-                 if sorted(a) != sorted(b)]
-        out["routes_at"] = {"position": routes_at, **routes, "layers_differing": flips}
-        print(f"[{label}] top-{cfg.moe.top_k} experts per MoE layer at position "
-              f"{routes_at}: step {routes['step']}, forward {routes['forward']}; "
+    wanted = ([routes_at] if routes_at is not None else
+              [prompt_len - 1 + i for i, e in enumerate(diffs)
+               if i > 0 and routes_over is not None and e > routes_over])
+    routes = []
+    for at in wanted:
+        cache_copy, tok, p = before.pop(at)
+        with _recording_routes() as seen:
+            again = model.decode_step(params, cache_copy, tok, to_device(p, dev))
+        step_routes = [t[0].tolist() for t in seen]
+        fwd = [r[at] for r in forward_routes]
+        flips = [i for i, (a, b) in enumerate(zip(step_routes, fwd)) if sorted(a) != sorted(b)]
+        routes.append({"position": at, "step": step_routes, "forward": fwd,
+                       "eager_step_vs_captured": float(np.abs(
+                           to_host(again)[0] - got[at - prompt_len + 1]).max()),
+                       "layers_differing": flips, "gap": float(diffs[at - prompt_len + 1])})
+        print(f"[{label}] top-{cfg.moe.top_k} experts per MoE layer at position {at} "
+              f"(gap {diffs[at - prompt_len + 1]:.4g}): step {step_routes}, forward {fwd}; "
               + (f"the expert sets differ in MoE layers {flips}" if flips
                  else "the same in every layer"), flush=True)
+        del cache_copy, again
+    del before
+    if routes_at is not None or routes_over is not None:
+        out["routes"] = routes
     bar = f"<= {RING_ATOL}" if gate else "(measured, not gated)"
     print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {cfg.dtype}: prefill {prompt_len} "
           f"tokens (cache rows {rings}), {steps} captured decode steps through positions "
@@ -3793,6 +3849,199 @@ def phases_windowed(dev):
     return g2, g2q, g3, l4
 
 
+
+# ---------------------------------------------------------------------------
+# phases 14-14e: the state-space class (Mamba2-780m, Jamba-v0.1-52B)
+# ---------------------------------------------------------------------------
+MAMBA2_STATE_MB = 77.4          # 48 layers of h (48 x 64 x 128) and conv (3 x 3328), f32
+MAMBA2_PARITY_LAYERS = 2
+SSM_LONG_PROMPT = 600           # two 256-token SSD chunks and an 88-token padded tail
+JAMBA_LAYERS = 16               # two 8-layer periods: the attention layer twice
+JAMBA_LONG_LAYERS = 8
+JAMBA_LONG_PROMPT = 300         # over the 256-token SSD chunk
+JAMBA_Q_OPS = ("dequant_matmul",)
+JAMBA_DQ_PER_STEP = 16          # wi and wo of the 8 dense FFN layers of 16
+
+
+def _cache_bytes(model) -> dict:
+    """The dense decode cache's bytes per slot: the SSM layers' states (the
+    same at any length) and the attention layers' K/V per token."""
+    cache = model.init_cache(1, 1, "meta")
+    kinds = model.cfg.layer_kinds()
+    return {"state_bytes_per_slot": sum(nbytes(*c.values()) for c, k in zip(cache, kinds)
+                                        if k == "ssm"),
+            "kv_bytes_per_token": sum(nbytes(*c.values()) for c, k in zip(cache, kinds)
+                                      if k != "ssm"),
+            "ssm_layers": kinds.count("ssm"), "attn_layers": len(kinds) - kinds.count("ssm")}
+
+
+def _refusals(label, model, params, must_contain: str) -> dict:
+    """DenseBackend(paged=True)'s refusal, which must name SSM layers, and
+    HobbitBackend's, which must contain `must_contain`."""
+    from repro_torch.serving.api import DenseBackend
+    try:
+        DenseBackend(model, params, paged=True)
+    except ValueError as e:
+        paged = str(e)
+    else:
+        fail(f"{label}: DenseBackend(paged=True) took {model.cfg.name}")
+    check("SSM" in paged, f"{label}: paged refusal {paged!r}")
+    print(f"[{label}] DenseBackend(paged=True) refuses it: {paged}", flush=True)
+    return {"paged": paged, "hobbit": _hobbit_refusal(label, model, params, must_contain)}
+
+
+def phases_mamba2(dev) -> dict:
+    """14: Mamba2-780m as published (48 SSD layers, 1536 wide, 48 heads of 64,
+    d_state 128, vocab 50280, no attention, no FFN; 0.78 B parameters, 1.56
+    GB of seeded bf16) served as in phase 8 on the dense layout (its cache
+    is the SSM states, 77.4 MB per slot at any length): decode tok/s,
+    median step, peak memory, the graph replays, a profiler window and the
+    head cast; the paged layout's and HobbitBackend's refusals.  14b: card
+    against CPU, gated within DENSE_PARITY_ATOL in float32 weights at full
+    depth and in bf16 at 2 layers; the full-depth bf16 gap is measured only
+    (48 bf16 layers of seeded weights amplify the two sides' rounding
+    differences to O(1): the bf16 model's own logits move by ~0.6 from the
+    float32 model's of the same weights at 48 layers, ~0.05 at 2).  14c: a
+    600-token prompt (two full 256-token chunks and an 88-token tail padded
+    with dt = 0) then 8 captured steps against ``Model.forward``, measured
+    in bf16, then gated within RING_ATOL in float32 weights (3.1 GB)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MAMBA2)
+    model, params, seed_s = _seeded(cfg, SEED + 27, dev, "serve-mamba2")
+    cache = _cache_bytes(model)
+    check(round(cache["state_bytes_per_slot"] / 1e6, 1) == MAMBA2_STATE_MB
+          and cache["kv_bytes_per_token"] == 0, f"serve-mamba2: cache {cache}")
+    with phase("serve-mamba2"):
+        serve = phase_serve_full(dev, model, params, "serve-mamba2", (), paged=False)
+        replays = serve["kernel_dispatch"].get("serve_step.graph", 0)
+        print(f"[serve-mamba2] state {cache['state_bytes_per_slot'] / 1e6:.1f} MB per slot "
+              f"at any length ({cache['ssm_layers']} SSD layers, float32); {replays} decode "
+              f"steps replayed one CUDA graph; {json.dumps(cache)}", flush=True)
+        refusals = _refusals("serve-mamba2", model, params, "requires a MoE model; "
+                             f"{cfg.name} has no FFN layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mamba2-parity] host memory available: {host_available_gb():.1f} GB",
+          flush=True)
+    parity = {}
+    with phase("mamba2-parity-bf16"):
+        parity["bf16"] = _card_cpu_parity("mamba2-parity", model, params, (), b=2, s=48,
+                                          steps=4, seed=SEED + 28, paged=False, gate=False)
+        two = dataclasses.replace(cfg, num_layers=MAMBA2_PARITY_LAYERS).validate()
+        m2, p2, _ = _seeded(two, SEED + 27, dev, "mamba2-parity")
+        parity["bf16_2_layers"] = _card_cpu_parity("mamba2-parity", m2, p2, (), b=2, s=48,
+                                                   steps=4, seed=SEED + 28, paged=False)
+        del m2, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("ssm-long-bf16"):
+        long_bf16 = _ring_check("ssm-long", model, params, SSM_LONG_PROMPT,
+                                SSM_LONG_PROMPT + 16, 8, SEED + 29, gate=False)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("ssm-long"):
+        model, params, _ = _seeded(dataclasses.replace(cfg, dtype="float32"), SEED + 27, dev,
+                                   "ssm-long")
+        long = _ring_check("ssm-long", model, params, SSM_LONG_PROMPT, SSM_LONG_PROMPT + 16,
+                           8, SEED + 29)
+    with phase("mamba2-parity"):
+        parity["float32"] = _card_cpu_parity("mamba2-parity", model, params, (), b=2, s=48,
+                                             steps=4, seed=SEED + 28, paged=False)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seed_s": seed_s, "cache": cache, "serve": serve, "graph_replays": replays,
+            "refusals": refusals, "parity": parity, "ssm_long": long,
+            "ssm_long_bf16": long_bf16}
+
+
+def phases_jamba(dev) -> dict:
+    """14d: Jamba-v0.1-52B at full width (4096 wide, 32/8 heads of 128 in
+    the attention layers, no positional encoding, 16 experts of d_ff 14336
+    at top-2 in every other layer, dense FFN of d_ff 14336 in the others,
+    SSD layers of d_state 16, vocab 65536) cut from 32 to 16 layers (two
+    periods; 25.7 B parameters, 51.5 GB of seeded bf16): the serve of phase
+    8 on the dense layout (SSM states and two layers' K/V), the bf16 gap of
+    a 300-token prompt to ``Model.forward`` (capacity factor E / top_k: no
+    drops) with each MoE layer's top-2 experts wherever it exceeds
+    RING_ATOL, then the dense FFN quantized in place to 4 bits
+    (serve-jamba-q4: 16 ``dequant_matmul`` launches per decode step, never
+    the plain version), and the refusals (HobbitBackend's names the ssm
+    layers).  14e: the smallest Jamba, one 8-layer period in float32
+    weights (52.0 GB), the 300-token prompt and 6 captured steps held to
+    ``Model.forward`` within RING_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant.quantize import QTensor
+
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=JAMBA_LAYERS).validate()
+    check(cfg.layer_kinds().count("attn") == 2 and sum(cfg.layer_is_moe()) == 8,
+          f"jamba: {cfg.layer_kinds()} {cfg.layer_is_moe()}")
+    model, params, seed_s = _seeded(cfg, SEED + 30, dev, "serve-jamba")
+    cache = _cache_bytes(model)
+    print(f"[serve-jamba] cache per slot: {cache['state_bytes_per_slot'] / 1e6:.2f} MB of "
+          f"SSM state ({cache['ssm_layers']} layers) + {cache['kv_bytes_per_token']} B of K/V "
+          f"per token ({cache['attn_layers']} layers)", flush=True)
+    with phase("serve-jamba"):
+        serve = phase_serve_full(dev, model, params, "serve-jamba", (), paged=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("jamba-long-bf16"):
+        long_bf16 = _ring_check("jamba-long", _nodrop(cfg), params, JAMBA_LONG_PROMPT,
+                                JAMBA_LONG_PROMPT + 16, 6, SEED + 31, gate=False,
+                                routes_over=RING_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _quantize_ffn_in_place(params, _dense_and_shared_ffn)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    for lp, moe in zip(params["layers"], cfg.layer_is_moe()):
+        check(moe or all(isinstance(lp["ffn"][w], QTensor) for w in ("wi", "wo")),
+              "serve-jamba-q4: a dense FFN weight not quantized")
+        check(not moe or not isinstance(lp["ffn"]["experts"]["wi"], QTensor),
+              "serve-jamba-q4: experts quantized")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve-jamba-q4] the dense FFN of {cfg.num_layers - sum(cfg.layer_is_moe())} "
+          f"layers quantized to 4 bits (group 128) on the card in {quant_s:.1f} s: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
+    with phase("serve-jamba-q4"):
+        serve_q = phase_serve_full(dev, model, params, "serve-jamba-q4", JAMBA_Q_OPS,
+                                   paged=False)
+        counts = serve_q["kernel_dispatch"]
+        mmv, steps = serve_q["dequant_matmul_kernels"].get("mmv", 0), serve_q["decode_steps"]
+        check(mmv == JAMBA_DQ_PER_STEP * steps,
+              f"serve-jamba-q4: {mmv} decode dequant-matmul launches in {steps} steps")
+        per_step = serve_q["window"].get("mmv_launches_per_step")
+        check(per_step in (None, JAMBA_DQ_PER_STEP),
+              f"serve-jamba-q4: {per_step} dequant_mmv_kernel launches per profiled step")
+        print(f"[serve-jamba-q4] dequant_matmul.cuda {counts.get('dequant_matmul.cuda', 0)} "
+              f"({mmv} in {steps} decode steps, {mmv // max(steps, 1)} per step; the rest in "
+              f"the prefills), .torch {counts.get('dequant_matmul.torch', 0)}", flush=True)
+    agree = float(np.mean([np.mean(serve["outputs"][r] == serve_q["outputs"][r])
+                           for r in serve["outputs"]]))
+    print(f"[serve-jamba-q4] seed {seed_s:.1f} s, quantize {quant_s:.1f} s; greedy tokens "
+          f"equal to the bf16 run's in {agree:.3f} of positions", flush=True)
+    refusals = _refusals("serve-jamba", model, params, "ssm layers")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("jamba-long"):
+        f32 = dataclasses.replace(get_config(JAMBA), num_layers=JAMBA_LONG_LAYERS,
+                                  dtype="float32").validate()
+        _, params, _ = _seeded(f32, SEED + 30, dev, "jamba-long")
+        long = _ring_check("jamba-long", _nodrop(f32), params, JAMBA_LONG_PROMPT,
+                           JAMBA_LONG_PROMPT + 16, 6, SEED + 31)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seed_s": seed_s, "cache": cache, "serve": serve, "serve_q4": serve_q,
+            "quantize_s": quant_s, "refusals": refusals, "jamba_long": long,
+            "jamba_long_bf16": long_bf16}
+
+
 def main() -> None:
     with phase("device"):
         phase_device()
@@ -3871,18 +4120,22 @@ def main() -> None:
     nem, nem_q, ivl = phases_48_8(dev)
     g2, g2q, g3, l4 = phases_windowed(dev)
     ds = phases_deepseek(dev)
+    mb = phases_mamba2(dev)
+    jb = phases_jamba(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
     # paged serve (g = 4) and the Nemotron serve (g = 6), the
-    # dequant-matmul's from the quantized Granite, Nemotron, Gemma-2 and
-    # DeepSeek serves; no serving path runs the contiguous flash decode);
+    # dequant-matmul's from the quantized Granite, Nemotron, Gemma-2,
+    # DeepSeek and Jamba serves; no serving path runs the contiguous flash
+    # decode);
     # every path beside them
     main_path = {"paged_flash_decode": "serve_paged", "dequant_matmul": "serve_dense_q4",
                  "flash_decode": None, "paged_flash_decode (g=6)": "serve_nemotron",
                  "dequant_matmul (nemotron)": "serve_nemotron_q4", "flash_decode (g=6)": None,
                  "dequant_matmul (gemma2)": "serve_gemma2_q4",
-                 "dequant_matmul (deepseek)": "serve_deepseek_q4"}
+                 "dequant_matmul (deepseek)": "serve_deepseek_q4",
+                 "dequant_matmul (jamba)": "serve_jamba_q4"}
     paths = {"serve": serve, "serve_paged": paged, "serve_dense": dense,
              "serve_dense_q4": dense_q, "per_expert": per_expert["per_expert_dense"],
              "per_expert_paged": per_expert["per_expert_paged"],
@@ -3892,7 +4145,9 @@ def main() -> None:
              "serve_nemotron": nem, "serve_nemotron_q4": nem_q,
              "serve_internvl2": ivl["serve"], "serve_gemma2": g2, "serve_gemma2_q4": g2q,
              "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"],
-             "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"]}
+             "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"],
+             "serve_mamba2": mb["serve"], "serve_jamba": jb["serve"],
+             "serve_jamba_q4": jb["serve_q4"]}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

@@ -8,11 +8,13 @@ embeddings), and the windowed family on ring caches: Gemma-2-27B
 (alternating 4096-token sliding-window and global layers, softcaps,
 sandwich norms), Gemma-3-27B (5 local : 1 global, qk-norm) and
 Llama-4-Scout-17B-16E (3 chunked : 1 global, top-1 MoE beside a shared
-expert), and DeepSeek-V2-236B (multi-head latent attention over a 512-wide
+expert), DeepSeek-V2-236B (multi-head latent attention over a 512-wide
 latent cache; a dense first layer, then 160 experts at top-6 beside 2
-shared experts).  The other architectures of the JAX package arrive with
-their model layers (ROADMAP, Queue 1 item 7: SSM and hybrid layers, the
-audio encoder)."""
+shared experts), and the state-space class: Mamba2-780m (48 Mamba-2 SSD
+layers, no attention, no FFN) and Jamba-v0.1-52B (periods of 7 SSD layers
+and one attention layer without positional encoding, 16 experts at top-2
+in every other layer).  The JAX package's last architecture, Whisper,
+arrives with its audio encoder (ROADMAP, Queue 1 item 7.5)."""
 
 from repro_torch.configs.base import (
     INPUT_SHAPES,
@@ -28,7 +30,9 @@ from repro_torch.configs import (  # noqa: E402
     gemma3_27b,
     granite_3_2b,
     internvl2_26b,
+    jamba_v0_1_52b,
     llama4_scout_17b_a16e,
+    mamba2_780m,
     mixtral_8x7b,
     nemotron_4_15b,
     phi_moe,
@@ -46,7 +50,9 @@ ASSIGNED_ARCHS = {
     "gemma3-27b": gemma3_27b.CONFIG,
     "granite-3-2b": granite_3_2b.CONFIG,
     "internvl2-26b": internvl2_26b.CONFIG,
+    "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
+    "mamba2-780m": mamba2_780m.CONFIG,
     "nemotron-4-15b": nemotron_4_15b.CONFIG,
 }
 

@@ -247,8 +247,9 @@ class OffloadEngine:
             raise ValueError(f"compute_mode={ecfg.compute_mode!r}: want 'device' or 'host'")
         cfg = model.cfg
         if cfg.moe is None:
-            raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has dense "
-                             "FFN layers (serve it with DenseBackend)")
+            raise ValueError(f"OffloadEngine requires a MoE model; {cfg.name} has "
+                             f"{'dense FFN layers' if cfg.d_ff else 'no FFN layers'} (serve "
+                             "it with DenseBackend)")
         # the HOBBIT model class: MoE behind full-window "attn" layers in every
         # layer (the reference asserts these layer kinds), no MLA, no shared
         # experts and no sandwich norms, which the engine's layer step does

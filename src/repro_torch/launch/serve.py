@@ -45,6 +45,16 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --layers 4 --backend dense --serve-requests 6 --max-batch 4
 
+  # the state-space class on dense KV (--paged-kv and --backend hobbit
+  # refused): Mamba2-780m at full depth (48 SSD layers, a 77.4 MB state per
+  # slot at any length), Jamba-v0.1-52B cut from 32 to 16 layers (two
+  # periods of 7 SSD layers and one attention layer, 16 experts at top-2 in
+  # every other layer; ~51 GB of bf16)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --backend dense --serve-requests 6 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --layers 16 --backend dense --serve-requests 6 --max-batch 4
+
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
 """

@@ -2,10 +2,14 @@
 
 Covers decoder-only models whose layers are attention layers -- full-window
 "attn", sliding-window "attn_local" or chunked "attn_chunked", or
-DeepSeek-V2's multi-head latent attention (MLA) -- each with a MoE or a
-dense FFN: a MoE FFN in every layer (Mixtral / Phi-MoE, the HOBBIT engine's
-model class; Llama-4-Scout's top-1 experts beside a shared expert), a dense
-first layer before MoE layers with two shared experts (DeepSeek-V2), or a
+DeepSeek-V2's multi-head latent attention (MLA) -- or Mamba-2 SSD "ssm"
+layers (``models.ssm``), each with a MoE or a dense FFN or, where the
+config has d_ff 0 and the layer is not MoE, none: a MoE FFN in every layer
+(Mixtral / Phi-MoE, the HOBBIT engine's model class; Llama-4-Scout's top-1
+experts beside a shared expert), a dense first layer before MoE layers with
+two shared experts (DeepSeek-V2), Mamba2-780m's SSD layers without FFN,
+Jamba's periods of 7 SSD layers and one attention layer without positional
+encoding, dense and MoE FFN alternating, or a
 dense FFN in every layer: Granite (RMSNorm, SwiGLU, tied embeddings),
 Nemotron-4 (layernorm, squared ReLU, an untied LM head), InternVL2's
 InternLM2 backbone, whose "vision_patches" frontend puts precomputed patch
@@ -20,10 +24,12 @@ Parameters are a plain dict of tensors with a flat per-layer list::
      ["lm_head": (D, V_pad) when the embeddings are untied,]
      "layers": [{"pre_norm", "attn": {wq, wk, wv, wo[, q_norm, k_norm]}
                                   or {wq, w_dkv, w_uk, w_uv, wo, kv_norm} (MLA),
-                 ["post_norm",] "ffn_norm", ["post_ffn_norm",]
+                              or "mixer": {in_proj, conv_w, conv_b, A_log, D,
+                                           dt_bias, norm, out_proj}  (SSM),
+                 ["post_norm",] ["ffn_norm", ["post_ffn_norm",]
                  "ffn": {"router": (D, E), "experts": {"wi", "wo"}
                          [, "shared": {"wi", "wo"}]}                 (MoE)
-                     or {"wi", "wo"}}, ...]}                         (dense)
+                     or {"wi", "wo"}]}, ...]}                        (dense)
 
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
 eagerly, so the port keeps the flat view ``unstack_layers`` gives there).  A
@@ -33,7 +39,9 @@ then run the dequant-matmul kernel.  The decode cache is a list of per-layer
 {"k", "v"} (B, Smax, Hkv, hd) buffers updated in place -- Smax = max_len for
 "attn" layers, min(max_len, window) for windowed ones, whose cache is a
 ring (``layers.attn_decode``); an MLA layer's is the latent cache
-{"c_kv": (B, max_len, R), "k_rope": (B, max_len, rope)} -- or, for
+{"c_kv": (B, max_len, R), "k_rope": (B, max_len, rope)}, an SSM layer's
+its float32 state {"h": (B, H, P, N), "conv": (B, K - 1, conv_dim)}, the
+same size at any length -- or, for
 all-"attn" models without MLA, a `kv_pages.PagedKVPool`
 (``init_cache(..., paged=True)``) driven by ``decode_step_paged`` /
 ``prefill_chunk_paged``.  Prefix embeddings enter
@@ -51,7 +59,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kv_pages as kvp
-from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 
 
 class Batch(NamedTuple):
@@ -64,13 +72,9 @@ class Batch(NamedTuple):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless `cfg` is in the ported model class:
-    attention decoder layers (full-window, sliding-window, chunked or MLA),
-    each FFN dense or MoE, RMSNorm or layernorm, and no frontend but
-    "vision_patches"."""
-    if not set(cfg.layer_kinds()) <= {"attn", "attn_local", "attn_chunked"} \
-            or cfg.ssm is not None or cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid layers arrive with ROADMAP Queue 1, item 7.4")
+    attention decoder layers (full-window, sliding-window, chunked or MLA)
+    and Mamba-2 SSD layers, each FFN dense, MoE or absent, RMSNorm or
+    layernorm, and no frontend but "vision_patches"."""
     if cfg.encoder is not None or cfg.frontend not in (None, "vision_patches"):
         raise NotImplementedError(
             f"{cfg.name}: encoders and the {cfg.frontend!r} frontend (Whisper's audio "
@@ -103,14 +107,17 @@ def _ffn(p, h, cfg: ModelConfig, token_mask=None):
     return layers.ffn_forward(p, h, cfg), None
 
 
-def _layer(p, x, attn, cfg: ModelConfig, token_mask=None):
-    """One decoder layer around its attention call `attn(normed x)`: pre
-    norm, attention, the post norm under sandwich norms, the residual; then
-    the same around the FFN.  Returns (x, aux loss or None)."""
-    out = attn(layers.apply_norm(p["pre_norm"], x, cfg))
+def _layer(p, x, mix, cfg: ModelConfig, token_mask=None):
+    """One decoder layer around its mixer call `mix(normed x)` (attention
+    or the SSM): pre norm, the mixer, the post norm under sandwich norms,
+    the residual; then the same around the FFN, which a layer without one
+    skips.  Returns (x, aux loss or None)."""
+    out = mix(layers.apply_norm(p["pre_norm"], x, cfg))
     if cfg.sandwich_norm:
         out = layers.apply_norm(p["post_norm"], out, cfg)
     x = x + out
+    if "ffn" not in p:
+        return x, None
     y, aux = _ffn(p["ffn"], layers.apply_norm(p["ffn_norm"], x, cfg), cfg,
                   token_mask=token_mask)
     if cfg.sandwich_norm:
@@ -165,18 +172,21 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.dense_init((cfg.d_model, self.v_pad), dt,
                                                   gen, dev)
-        for is_moe in cfg.layer_is_moe():
-            lp = {
-                "pre_norm": layers.norm_init(cfg, dev),
-                "attn": (layers.mla_init(cfg, gen, dev) if cfg.mla is not None
-                         else layers.attn_init(cfg, gen, dev)),
-                "ffn_norm": layers.norm_init(cfg, dev),
-                "ffn": (moe_lib.moe_init(cfg, gen, dev) if is_moe
-                        else layers.ffn_init(cfg, gen, dev)),
-            }
+        for kind, is_moe in zip(cfg.layer_kinds(), cfg.layer_is_moe()):
+            lp: Dict[str, Any] = {"pre_norm": layers.norm_init(cfg, dev)}
+            if kind == "ssm":
+                lp["mixer"] = ssm_lib.ssm_init(cfg, gen, dev)
+            else:
+                lp["attn"] = (layers.mla_init(cfg, gen, dev) if cfg.mla is not None
+                              else layers.attn_init(cfg, gen, dev))
+            if cfg.d_ff > 0 or is_moe:      # Mamba-2's layers have no FFN
+                lp["ffn_norm"] = layers.norm_init(cfg, dev)
+                lp["ffn"] = (moe_lib.moe_init(cfg, gen, dev) if is_moe
+                             else layers.ffn_init(cfg, gen, dev))
             if cfg.sandwich_norm:
                 lp["post_norm"] = layers.norm_init(cfg, dev)
-                lp["post_ffn_norm"] = layers.norm_init(cfg, dev)
+                if "ffn" in lp:
+                    lp["post_ffn_norm"] = layers.norm_init(cfg, dev)
             params["layers"].append(lp)
         return params
 
@@ -208,7 +218,8 @@ class Model:
         to the compute dtype) in front of the token embeddings, positions
         running over both; other models ignore them, as the reference does.
         Returns (hidden (B, P + S, D) with the prefix positions first,
-        [(k, v) per layer, MLA: (c_kv, k_rope)], aux_loss)."""
+        [(k, v) per layer, MLA: (c_kv, k_rope), SSM: the state
+        {"h", "conv"} that decode continues from], aux_loss)."""
         cfg = self.cfg
         tokens = batch.tokens if isinstance(batch, Batch) else batch
         x = self.embed(params, tokens)
@@ -220,14 +231,16 @@ class Model:
         kvs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
         rope = _use_rope(cfg)
         for p, kind in zip(params["layers"], cfg.layer_kinds()):
-            def attn(h, p=p, kind=kind):
-                if cfg.mla is not None:
+            def mix(h, p=p, kind=kind):
+                if kind == "ssm":
+                    out, kv = ssm_lib.ssm_forward(p["mixer"], h, cfg)
+                elif cfg.mla is not None:
                     out, kv = layers.mla_forward(p["attn"], h, positions, cfg)
                 else:
                     out, kv = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
                 kvs.append(kv)
                 return out
-            x, a = _layer(p, x, attn, cfg)
+            x, a = _layer(p, x, mix, cfg)
             if a is not None:
                 aux = aux + a
         return x, kvs, aux
@@ -237,7 +250,8 @@ class Model:
                    num_pages: Optional[int] = None, prefix_sharing: bool = True):
         """Decode cache for every layer.  paged=False: zeroed dense per-slot
         caches, one {"k", "v"} per layer (MLA: {"c_kv", "k_rope"}, the
-        latent and the rope key).  paged=True: a started
+        latent and the rope key; SSM: the zeroed float32 state {"h",
+        "conv"}, ``ssm.init_ssm_state``).  paged=True: a started
         `kv_pages.PagedKVPool` of `num_pages` pages (default the dense
         equivalent, batch * ceil(max_len / page_size)) with the radix prefix
         index on or off (`prefix_sharing`).  A windowed layer's dense cache
@@ -259,6 +273,9 @@ class Model:
             return pool
         cache = []
         for kind in cfg.layer_kinds():
+            if kind == "ssm":
+                cache.append(ssm_lib.init_ssm_state(cfg, batch, dev))
+                continue
             if cfg.mla is not None:
                 m = cfg.mla
                 cache.append({
@@ -274,18 +291,25 @@ class Model:
 
     def prefill(self, params, batch: Union[Batch, torch.Tensor], max_len: int):
         """Run whole prompts (a `Batch`, or tokens (B, S)) and build a decode
-        cache padded to max_len, which must hold the prefix and the prompt;
-        a ring keeps the last Smax keys, position p at slot p % Smax (an MLA
-        layer's latent cache is full-window).
+        cache padded to max_len, which must hold the prefix and the prompt
+        where a layer keeps a row per position (an all-SSM model takes any
+        length); a ring keeps the last Smax keys, position p at slot p % Smax
+        (an MLA layer's latent cache is full-window); an SSM layer's state
+        is copied as the forward left it.
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
         x, kvs, _ = self.forward(params, batch)
         b, s, _ = x.shape
-        if s > max_len:
+        kinds = self.cfg.layer_kinds()
+        if s > max_len and any(k != "ssm" for k in kinds):
             raise ValueError(f"a decode cache of max_len={max_len} cannot hold the "
                              f"{s} prefix and prompt positions")
         cache = self.init_cache(b, max_len, x.device)
-        for c, kv in zip(cache, kvs):
+        for c, kv, kind in zip(cache, kvs, kinds):
+            if kind == "ssm":   # a state, not a row per position
+                for name, buf in c.items():
+                    buf.copy_(kv[name])
+                continue
             for buf, src in zip(c.values(), kv):    # (k, v) or (c_kv, k_rope)
                 sm = buf.shape[1]
                 if s > sm:  # a ring shorter than the prompt: the last sm keys
@@ -300,19 +324,24 @@ class Model:
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     positions: torch.Tensor, active: Optional[torch.Tensor] = None):
         """tokens (B, 1); positions (B,) int64 write index; active: optional
-        (B,) bool live-slot mask (dead slots take no MoE capacity).  The cache
-        is updated in place.  Returns logits (B, V)."""
+        (B,) bool live-slot mask (dead slots take no MoE capacity; an SSM
+        layer steps every row's state, a dead slot's too, as the reference
+        does: a join or a resume overwrites the row).  The cache is updated
+        in place.  Returns logits (B, V)."""
         cfg = self.cfg
         x = self.embed(params, tokens)
         rope = _use_rope(cfg)
         for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
-            if cfg.mla is not None:
-                def attn(h, p=p, c=c):
+            if kind == "ssm":
+                def mix(h, p=p, c=c):
+                    return ssm_lib.ssm_decode(p["mixer"], h, c, cfg)
+            elif cfg.mla is not None:
+                def mix(h, p=p, c=c):
                     return layers.mla_decode(p["attn"], h, c, positions, cfg)
             else:
-                def attn(h, p=p, c=c, kind=kind):
+                def mix(h, p=p, c=c, kind=kind):
                     return layers.attn_decode(p["attn"], h, c, positions, cfg, kind, rope)
-            x, _ = _layer(p, x, attn, cfg, token_mask=active)
+            x, _ = _layer(p, x, mix, cfg, token_mask=active)
         return self.logits(params, x)[:, 0, :]
 
     # -------------------- paged decode / chunked prefill --------------------

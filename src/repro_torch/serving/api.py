@@ -117,8 +117,8 @@ class DenseBackend:
         if paged and not supports_paged_kv(model.cfg):
             raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout "
                              "(only all-'attn' models without MLA do; windowed layers "
-                             "keep ring caches and MLA layers latent caches on the "
-                             "dense layout)")
+                             "keep ring caches, MLA layers latent caches and SSM layers "
+                             "their states on the dense layout)")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -157,7 +157,9 @@ class DenseBackend:
                                          chunk=self.prefill_chunk, jit=self._jit)
 
     def prefill(self, prompts) -> np.ndarray:
-        """Full-batch prefill; paged: chunked, every row reserving max_len."""
+        """Full-batch prefill; paged: chunked, every row reserving max_len.
+        Dense: each layer's cache buffers copied in place by name (K/V rows,
+        rings, latent rows, an SSM layer's state as the prefill left it)."""
         prompts = np.asarray(prompts, np.int64)
         if self.paged:
             logits = self._admission.run_batch(prompts, self.max_len)
@@ -205,7 +207,8 @@ class DenseBackend:
     def _join_dense(self, slot: int, prompt) -> np.ndarray:
         """A one-row prefill scattered into row `slot` of each layer's cache
         (a ring layer's row is its ring, as long as the batch's; an MLA
-        layer's its latent row)."""
+        layer's its latent row; an SSM layer's its state, overwriting what
+        the dead row was stepped to)."""
         logits, one, positions = self.model.prefill(
             self.params, to_device(prompt.reshape(1, -1), self.device), self.max_len)
         for dst, src in zip(self.cache, one):
@@ -224,7 +227,9 @@ class DenseBackend:
 
     def pause(self, slot: int) -> dict:
         """Preempt `slot`: its KV to the host (dense: each layer's row, a
-        ring layer's ring, an MLA layer's latent row), the slot freed."""
+        ring layer's ring, an MLA layer's latent row, an SSM layer's state
+        row), the slot freed.  A freed row is still stepped (an SSM layer
+        steps every row), so ``resume`` copies the snapshot back over it."""
         if self.paged:
             snap = self.kv.snapshot_slot(slot)
             self.kv.release(slot)
@@ -236,6 +241,9 @@ class DenseBackend:
         return {"layout": "dense", "position": int(self.positions[slot]), "cache": rows}
 
     def resume(self, slot: int, snapshot: dict) -> None:
+        """Restore a paused slot: its snapshot copied back over the row in
+        place, by name (over whatever an SSM layer's dead row was stepped
+        to), and the slot live again at its position."""
         if snapshot["layout"] == "paged":
             self.kv.restore_slot(slot, snapshot["kv"])
         else:

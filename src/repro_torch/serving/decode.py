@@ -3,7 +3,8 @@ sampling and the model-level generate loop.
 
 `make_serve_step` is one new token against a dense KV cache of length
 max_len (a windowed layer's a ring of min(max_len, window) slots, an MLA
-layer's a latent cache).  ``generate(jit=True)`` runs it as a captured step
+layer's a latent cache, an SSM layer's its fixed-size state, all written in
+place).  ``generate(jit=True)`` runs it as a captured step
 (``capture.CapturedStep``): a CUDA graph replayed per token on the card,
 eager on the CPU.  The prefill stays eager on both: the loop calls it once
 per prompt shape, so a graph would only add the cost of its capture.

@@ -136,14 +136,16 @@ def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
     """The reference's parameter tree (numpy leaves, stacked ``blocks/<j>/...``
     layout, the scanned blocks at any period plus the tail) as the port's
     parameters on `device`.  Matrices take the config dtype, the untied
-    ``lm_head`` and a MoE's ``shared`` experts too; norm scales (and
-    layernorm biases) -- the sandwich norms, the qk-norm gains and MLA's
-    latent ``kv_norm`` among them -- and routers stay float32, as the
+    ``lm_head``, a MoE's ``shared`` experts and an SSM mixer's
+    ``in_proj`` / ``conv_w`` / ``out_proj`` too; norm scales (and layernorm
+    biases) -- the sandwich norms, the qk-norm gains, MLA's latent
+    ``kv_norm`` and the SSM's gated ``norm`` among them -- routers and the
+    SSM's ``A_log``, ``D``, ``dt_bias`` and ``conv_b`` stay float32, as the
     reference keeps them."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     f32_keys = ("pre_norm", "ffn_norm", "post_norm", "post_ffn_norm", "q_norm", "k_norm",
-                "kv_norm", "final_norm", "router")
+                "kv_norm", "final_norm", "router", "norm", "A_log", "D", "dt_bias", "conv_b")
     out: Dict[str, Any] = {
         "embed": _to_torch(params["embed"], dt, dev),
         "final_norm": _to_torch(params["final_norm"], torch.float32, dev),

@@ -410,7 +410,7 @@ def _assert_no_host_reads(tree, where: str) -> None:
 
 
 @pytest.mark.parametrize("module", ["models/layers.py", "models/moe.py", "models/model.py",
-                                    "kernels/ops.py", "capture.py"])
+                                    "models/ssm.py", "kernels/ops.py", "capture.py"])
 def test_captured_code_has_no_host_reads(module):
     """The decode steps and segments run inside a CUDA-graph capture on the
     card, where a host read (or a host scalar copied to the card with

@@ -8,6 +8,9 @@ runs on the machine with the card:
   the eager step's logits bit for bit (the same kernels on the same
   inputs), one capture and then replays, and the kernel launch counts of
   the eager run (a replay adds its captured launches);
+* the same for the SSM models (Mamba2-780m's and Jamba's smoke variants,
+  bf16): the replayed step steps the state in the buffers it baked in,
+  and slot 0 paused and resumed continues as the eager run does;
 * ``start_batch`` drops the graphs with the buffers they bake in;
 * ``CapturedStep`` around one kernel: replays agree with the plain version
   and count one launch each;
@@ -83,6 +86,31 @@ def test_dense_backend_replay_equals_eager_on_card(card, paged):
     kernels = {k: v for k, v in counts.items()
                if not k.startswith(("serve_step.", "prefill_chunk."))}
     assert kernels == logits[False][1]          # launches grow on every replay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_ssm_backend_replay_equals_eager_on_card(card, arch):
+    cfg = smoke_variant(get_config(arch), d_model=256, vocab=512)
+    port = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+    params = port.init(0, device=card)
+    logits = {}
+    for jit in (True, False):
+        be = api.DenseBackend(port, params, jit=jit)
+        be.start_batch(2, 48)
+        ops.reset_dispatch_counts()
+        out = [be.prefill(_prompts(port.cfg, s=37))]
+        for t in range(8):
+            if t == 3:
+                snap = be.pause(0)
+            if t == 5:
+                be.resume(0, snap)
+            out.append(be.step(np.asarray([t, t + 1])))
+        logits[jit] = np.stack(out), ops.dispatch_counts()
+    np.testing.assert_array_equal(logits[True][0], logits[False][0])
+    counts = logits[True][1]
+    assert counts["serve_step.capture"] == 1 and counts["serve_step.graph"] == 7
+    assert "serve_step.eager" not in counts
 
 
 @pytest.mark.cuda

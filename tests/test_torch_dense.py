@@ -306,7 +306,8 @@ def test_hobbit_backend_on_a_dense_arch_fails_clearly(granite):
 
 def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     for arch in ("granite-3-2b", "mixtral-8x7b", "phi-moe", "nemotron-4-15b",
-                 "internvl2-26b", "gemma2-27b", "gemma3-27b", "llama4-scout-17b-a16e"):
+                 "internvl2-26b", "gemma2-27b", "gemma3-27b", "llama4-scout-17b-a16e",
+                 "deepseek-v2-236b", "mamba2-780m", "jamba-v0.1-52b"):
         check_supported(get_config(arch))
     nemotron = dataclasses.replace(get_config(ARCH), name="nemotron-like",
                                    norm_type="layernorm", ffn_activation="sq_relu",
@@ -325,8 +326,7 @@ def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     check_supported(mixed)              # dense and MoE FFN layers mixed: item 7.3, done
     ssm = dataclasses.replace(get_config(ARCH), name="ssm", block_pattern=("ssm",),
                               moe_pattern=(False,), ssm=SSMConfig()).validate()
-    with pytest.raises(NotImplementedError, match="SSM and hybrid.*ROADMAP Queue 1, item 7.4"):
-        check_supported(ssm)
+    check_supported(ssm)                # SSM and hybrid layers: item 7.4, done
     enc = dataclasses.replace(get_config(ARCH), name="enc", encoder=EncoderConfig()).validate()
     with pytest.raises(NotImplementedError, match="encoders.*ROADMAP Queue 1, item 7.5"):
         check_supported(enc)
