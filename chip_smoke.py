@@ -222,7 +222,36 @@ and each printing its seconds:
   14e. jamba-long — one 8-layer period in float32 weights (52.0 GB): the
                300-token prompt (over the 256-token SSD chunk) and 6
                captured steps held to ``Model.forward`` within 0.1
-               (capacity factor E / top_k = 8: no drops).
+               (capacity factor E / top_k = 8: no drops);
+  15. serve-whisper — whisper-tiny as published (4 encoder + 4 decoder
+               layers, 384 wide, 6 heads of 64, vocab 51865; ~73 MB of
+               seeded bf16, no cut; no kernel on its path: the reference
+               decodes it on the dense cache's plain attention and its
+               cross-attention is plain ``mha``) through
+               ``decode.generate(jit=True)`` with seeded frames (4, 1500,
+               384) x 0.02, 4-token prompts and 64 new tokens, every decode
+               step after the first a graph replay; the same steps timed one
+               by one (median step, decode tok/s), the encoder and the
+               prefill per call, a profiler window (kernels and device ms
+               per step, the busy share), peak memory, the cross K/V bytes
+               per slot (9,216,000);
+  15b. whisper-parity — card against CPU at full width on the same seeded
+               weights and frames, float32 and bf16, each gated at 0.1;
+  15c. whisper-long — float32: a 16-token prompt, then 48 captured steps
+               against ``Model.forward``, each position within 0.1;
+  16. train-mixtral — Mixtral-8x7B at full width cut from 32 to 2 layers
+               (3.03 B parameters: 6.1 GB of bf16 parameters, 6.1 GB of
+               gradients, 24.3 GB of float32 moments), ``make_train_step``
+               with remat on 4 x 512 tokens of the port's data pipeline, 6
+               steps: the step's wall split into forward + backward and the
+               optimizer, tokens/s, the model-FLOPs share of the bf16 dense
+               peak, peak memory; gated: finite losses, 6 optimizer steps,
+               the parameters moved (no kernel on the training path);
+  16b. train-parity — the repository's float32 mixtral-smoke checkpoint
+               (step 300) restored by the port on the card and on the CPU,
+               10 steps on each from the same batches, every step's loss
+               within 1e-3; the card's checkpoint, saved in the reference's
+               format, restored on the CPU bit-identical.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -267,6 +296,7 @@ LLAMA4 = "llama4-scout-17b-a16e"
 DEEPSEEK = "deepseek-v2-236b"
 MAMBA2 = "mamba2-780m"
 JAMBA = "jamba-v0.1-52b"
+WHISPER = "whisper-tiny"
 
 
 def fail(msg: str) -> None:
@@ -3438,7 +3468,7 @@ def _recording_routes():
 
 def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
                 seed: int, *, gate: bool = True, routes_at: Optional[int] = None,
-                routes_over: Optional[float] = None) -> dict:
+                routes_over: Optional[float] = None, frames=None) -> dict:
     """A seeded prompt of `prompt_len` tokens prefilled into dense caches of
     max_len (windowed layers: rings of min(max_len, window) slots), then
     `steps` teacher-forced decode steps through a captured step
@@ -3454,17 +3484,26 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     the step (the step again, eagerly, from a copy of the cache it started
     from) and for the forward; `routes_over`: the same at every decoded
     position whose gap exceeds it.  An MLA model's latent cache and an SSM
-    layer's state pass through the same way."""
+    layer's state pass through the same way; a Whisper model takes its
+    audio `frames` (1, F, d_enc) in the prefill and in the forward."""
     from repro_torch.capture import CapturedStep, addresses
     from repro_torch.device import to_device, to_host
     from repro_torch.kernels import ops
+    from repro_torch.models.model import Batch
     from repro_torch.serving import decode
 
     cfg = model.cfg
     dev = params["embed"].device
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, prompt_len + steps))
+
+    def batch(t):
+        if frames is None:
+            return to_device(t, dev)
+        return Batch(tokens=to_device(t, dev), loss_mask=torch.ones(t.shape, device=dev),
+                     audio_frames=to_device(frames, dev))
+
     t0 = time.perf_counter()
-    lg, cache, pos = model.prefill(params, to_device(toks[:, :prompt_len], dev), max_len)
+    lg, cache, pos = model.prefill(params, batch(toks[:, :prompt_len]), max_len)
     got = [to_host(lg)[0]]
     prefill_s = time.perf_counter() - t0
     serve_step = decode.make_serve_step(model)
@@ -3488,7 +3527,7 @@ def _ring_check(label, model, params, prompt_len: int, max_len: int, steps: int,
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with _recording_routes() as seen:
-        x, _, _ = model.forward(params, to_device(toks, dev))
+        x, _, _ = model.forward(params, batch(toks))
     forward_routes = [t.tolist() for t in seen]
     del seen
     want = to_host(model.logits(params, x[:, prompt_len - 1:]))[0][0]   # (steps + 1, V)
@@ -4042,6 +4081,394 @@ def phases_jamba(dev) -> dict:
             "jamba_long_bf16": long_bf16}
 
 
+# ---------------------------------------------------------------------------
+# phases 15-15c: Whisper-tiny (the encoder and cross-attention)
+# ---------------------------------------------------------------------------
+WHISPER_BATCH = 4
+WHISPER_PROMPT = 4
+WHISPER_NEW = 64
+WHISPER_CROSS_BYTES = 9_216_000     # 4 layers x (k, v) x 1500 frames x 384 x 2 B per slot
+WHISPER_LONG_PROMPT = 16
+WHISPER_LONG_STEPS = 48
+
+
+def _whisper_inputs(cfg, b: int, s: int, seed: int):
+    """(prompts (b, s), frames (b, 1500, 384) float32 x 0.02): the stubbed
+    conv frontend's output, seeded as tests/test_arch_smoke.py seeds it."""
+    rng = np.random.default_rng(seed)
+    frames = (rng.normal(size=(b, cfg.encoder.seq_len, cfg.encoder.d_model)) * 0.02
+              ).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, (b, s)), frames
+
+
+def _profile(fn, steps: int) -> dict:
+    """`fn()` called `steps` times under torch.profiler: kernel launches and
+    device ms per call, the busy share (kernel time over wall) and the top
+    kernels; "not measured" when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us <= 0:
+        return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured"}
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"step_ms": wall / steps * 1e3, "device_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
+                                        for e in top}}
+
+
+def phase_serve_whisper(dev, model, params) -> dict:
+    """15: whisper-tiny as published through ``decode.generate(jit=True)``:
+    4 rows of seeded frames and 4-token prompts, 64 new tokens, every
+    decode step after the first a replay of one CUDA graph (the cross K/V
+    buffers in the cache, under the capture key).  Then the same steps
+    timed one by one (median step wall and decode tok/s, with the greedy
+    tokens equal to generate's), the encoder and the prefill timed alone,
+    3 replays under the profiler, the peak device memory and the cross
+    K/V bytes per slot."""
+    from repro_torch.capture import CapturedStep, addresses
+    from repro_torch.device import to_device, to_host
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Batch
+    from repro_torch.serving import decode
+
+    cfg = model.cfg
+    prompts, frames = _whisper_inputs(cfg, WHISPER_BATCH, WHISPER_PROMPT, SEED + 33)
+    cache = model.init_cache(1, cfg.max_seq_len, "meta")
+    cross = sum(nbytes(c["cross_k"], c["cross_v"]) for c in cache)
+    check(cross == WHISPER_CROSS_BYTES, f"serve-whisper: cross K/V {cross} B per slot")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_dispatch_counts()
+    gen = decode.generate(model, params, prompts, WHISPER_NEW,
+                          extra={"audio_frames": frames}, jit=True)
+    counts = ops.dispatch_counts()
+    steps = WHISPER_NEW - 1
+    check(counts.get("serve_step.capture", 0) == 1 and counts.get("serve_step.graph", 0)
+          == steps - 1 and counts.get("serve_step.eager", 0) == 0,
+          f"serve-whisper: decode steps {_kernel_counts(counts)} / {counts}")
+    check(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab_size)).all()),
+          "serve-whisper: token out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # the same decode, each step timed (host sync and greedy pick included)
+    batch = Batch(tokens=to_device(prompts.astype(np.int32), dev),
+                  loss_mask=torch.ones(prompts.shape, device=dev),
+                  audio_frames=to_device(frames, dev))
+    max_len = WHISPER_PROMPT + WHISPER_NEW + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, kv, pos = model.prefill(params, batch, max_len)
+    (lg,) = to_host(lg)
+    prefill_s = time.perf_counter() - t0
+    serve_step = decode.make_serve_step(model)
+    captured = CapturedStep(lambda tok, p: serve_step(params, kv, tok, p)[0], "serve_step")
+    key = addresses(b for c in kv for b in c.values())
+    tok, out, walls = lg.argmax(-1).astype(np.int32), [], []
+    for i in range(steps):
+        out.append(tok)
+        t0 = time.perf_counter()
+        (lg,) = to_host(captured(to_device(tok[:, None], dev), to_device(pos, dev), key=key))
+        tok = lg.argmax(-1).astype(np.int32)
+        walls.append(time.perf_counter() - t0)
+        pos = pos + 1
+    out.append(tok)
+    check(np.array_equal(np.stack(out, 1), gen.tokens[:, WHISPER_PROMPT:]),
+          "serve-whisper: the timed steps' tokens differ from decode.generate's")
+    median = statistics.median(walls[1:]) * 1e3
+    x = to_device(np.zeros((WHISPER_BATCH, 1), np.int32), dev)
+    p = to_device(pos, dev)
+    window = _profile(lambda: captured(x, p, key=key), 3)
+    encoder_ms = cuda_ms(lambda: model.encode(params, batch.audio_frames), warmup=1, iters=5)
+    prefill_ms = cuda_ms(lambda: model.prefill(params, batch, max_len), warmup=1, iters=3)
+    del captured, kv
+    run = {"card": card_line(), "decode_tok_s": gen.decode_tok_s,
+           "median_step_ms": median, "decode_tok_s_timed": WHISPER_BATCH / (median / 1e3),
+           "prefill_s_first": prefill_s, "encoder_ms": encoder_ms, "prefill_ms": prefill_ms,
+           "peak_allocated_gb": peak, "cross_kv_bytes_per_slot": cross,
+           "steps": steps, "captures": 1, "replays": counts["serve_step.graph"],
+           "window": window, "kernel_dispatch": counts}
+    print(f"[serve-whisper] {run['card']}: {cfg.name} as published ({cfg.param_count() / 1e6:.1f} "
+          f"M parameters, bf16), {WHISPER_BATCH} rows x {WHISPER_NEW} new tokens: "
+          f"decode.generate {gen.decode_tok_s:.1f} tok/s; median step {median:.3f} ms "
+          f"({run['decode_tok_s_timed']:.1f} tok/s); encoder {encoder_ms:.3f} ms, prefill "
+          f"{prefill_ms:.3f} ms per call; {steps - 1} of {steps} decode steps replayed one "
+          f"graph; peak {peak:.2f} GB; cross K/V {cross} B per slot; "
+          f"{json.dumps({k: v for k, v in run.items() if k != 'kernel_dispatch'})}", flush=True)
+    return run
+
+
+def _whisper_card_cpu(label, model, params, *, gate: bool = True) -> dict:
+    """`model` on the card and on the CPU with the same weights and frames:
+    prefill of 8-token prompts for 2 rows, then 8 teacher-forced decode
+    steps; each step's logits within PARITY_ATOL (`gate` False: measured)."""
+    from repro_torch.device import to_device, to_host
+    from repro_torch.models.model import Batch
+
+    cfg = model.cfg
+    prompts, frames = _whisper_inputs(cfg, 2, 8, SEED + 34)
+    teacher = np.random.default_rng(SEED + 35).integers(0, cfg.vocab_size, (8, 2))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        p = params if where == "cuda" else _tree_to(params, "cpu")
+        d = torch.device(where, 0) if where == "cuda" else torch.device("cpu")
+        batch = Batch(tokens=to_device(prompts.astype(np.int32), d),
+                      loss_mask=torch.ones(prompts.shape, device=d),
+                      audio_frames=to_device(frames, d))
+        t0 = time.perf_counter()
+        lg, cache, pos = model.prefill(p, batch, 24)
+        got = [to_host(lg)[0]]
+        for t in range(8):
+            got.append(to_host(model.decode_step(p, cache, to_device(teacher[t][:, None], d),
+                                                 to_device(pos, d)))[0])
+            pos = pos + 1
+        runs[where] = np.stack(got)
+        print(f"[{label}] {where}: prefill + 8 steps in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del p, cache
+    check(bool(np.isfinite(runs["cuda"]).all()), f"{label}: non-finite logits")
+    diffs = np.abs(runs["cuda"] - runs["cpu"]).max(axis=(1, 2))
+    same = int((runs["cuda"].argmax(-1) == runs["cpu"].argmax(-1)).sum())
+    for i, e in enumerate(diffs):
+        check(e <= PARITY_ATOL or not gate, f"{label} step {i}: max |card - CPU| = {e:.4g} > "
+                                            f"{PARITY_ATOL}")
+    out = {"dtype": cfg.dtype, "max_abs_diff": float(diffs.max()),
+           "max_abs_diff_by_step": diffs.tolist(), "logit_std": float(runs["cpu"].std()),
+           "argmax_equal": same, "compared": runs["cpu"].shape[0] * 2, "gated": gate}
+    print(f"[{label}] {cfg.name} {cfg.dtype}: max |card - CPU| {diffs.max():.4g} "
+          f"{'<= ' + str(PARITY_ATOL) if gate else '(measured)'}; greedy equal "
+          f"{same}/{out['compared']}; {json.dumps(out)}", flush=True)
+    return out
+
+
+def phases_whisper(dev) -> dict:
+    """15: serve-whisper (``phase_serve_whisper``) on whisper-tiny as
+    published (arXiv:2212.04356: 4 encoder + 4 decoder layers, 384 wide, 6
+    heads of 64, vocab 51865; ~36.4 M parameters, ~73 MB of seeded bf16; no
+    cut; the reference decodes it on the dense cache's plain attention and
+    its cross-attention is plain ``mha``: no kernel on its path).  15b: card
+    against CPU at full width on the same weights and frames, gated at
+    PARITY_ATOL in float32 and in bf16.  15c: a 16-token prompt then 48
+    captured steps against ``Model.forward`` in float32, gated at
+    RING_ATOL, each position's gap printed."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER)
+    model, params, seed_s = _seeded(cfg, SEED + 32, dev, "serve-whisper")
+    with phase("serve-whisper"):
+        serve = phase_serve_whisper(dev, model, params)
+    parity = {}
+    with phase("whisper-parity"):
+        parity["bf16"] = _whisper_card_cpu("whisper-parity", model, params)
+        f32, p32, _ = _seeded(dataclasses.replace(cfg, dtype="float32"), SEED + 32, dev,
+                              "whisper-parity")
+        parity["float32"] = _whisper_card_cpu("whisper-parity", f32, p32)
+    with phase("whisper-long"):
+        _, frames = _whisper_inputs(cfg, 1, 1, SEED + 36)
+        long = _ring_check("whisper-long", f32, p32, WHISPER_LONG_PROMPT,
+                           WHISPER_LONG_PROMPT + WHISPER_LONG_STEPS + 1, WHISPER_LONG_STEPS,
+                           SEED + 37, frames=frames)
+    del model, params, f32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seed_s": seed_s, "serve": serve, "parity": parity, "whisper_long": long}
+
+
+# ---------------------------------------------------------------------------
+# phases 16-16b: training (Model.loss, AdamW, the train loop, checkpoints)
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 2            # 3.03 B parameters; 4 layers would need ~73 GB before activations
+TRAIN_STEPS = 6
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_PARITY_STEPS = 10
+TRAIN_PARITY_ATOL = 1e-3
+MIXTRAL_SMOKE_CKPT = os.path.join(ROOT, "results", "bench_models_l8", "mixtral-smoke")
+
+
+def _timed_updates():
+    """Patches ``optimizer.apply_updates`` (as the train step calls it) to
+    record CUDA events around each call; returns the list of (start, end)
+    pairs and the function that restores it."""
+    from repro_torch.training import optimizer
+
+    marks, orig = [], optimizer.apply_updates
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    optimizer.apply_updates = timed
+    return marks, lambda: setattr(optimizer, "apply_updates", orig)
+
+
+def phase_train_mixtral(dev) -> dict:
+    """16: Mixtral-8x7B at its published width (4096 wide, 32/8 heads, 8
+    experts at top-2, d_ff 14336) cut from 32 to 2 layers (3.03 B
+    parameters: 6.1 GB of seeded bf16, 6.1 GB of bf16 gradients, 24.3 GB
+    of float32 moments), ``make_train_step(remat=True)`` on batches of 4 x
+    512 tokens from the port's data pipeline, 6 steps: each step's wall
+    split into forward + backward and the optimizer (CUDA events around
+    ``apply_updates``), tokens/s, the model-FLOPs share of the bf16 dense
+    peak (6 x active parameters x tokens per step over the wall and 989
+    TFLOP/s), peak memory.  Gated: the loss finite at every step,
+    ``opt.step == 6``, the parameters changed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step
+    from repro_torch.weights import tree_leaves
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS).validate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, seed_s = _seeded(cfg, SEED + 38, dev, "train-mixtral")
+    probe = [t.flatten()[:4096].clone() for t in tree_leaves(params)]
+    state = TrainState(params, init_opt_state(params))
+    print(f"[train-mixtral] parameters {nbytes(*tree_leaves(params)) / 1e9:.2f} GB, moments "
+          f"{nbytes(*tree_leaves(state.opt.mu), *tree_leaves(state.opt.nu)) / 1e9:.2f} GB "
+          f"(float32) on the card", flush=True)
+    it = batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            batch_size=TRAIN_BATCH, seed=SEED), device=dev)
+    step = make_train_step(model, OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                                  total_steps=TRAIN_STEPS), remat=True)
+    marks, restore = _timed_updates()
+    ops.reset_dispatch_counts()
+    walls, losses = [], []
+    try:
+        for _ in range(TRAIN_STEPS):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+    finally:
+        restore()
+    opt_ms = [a.elapsed_time(b) for a, b in marks]
+    check(all(np.isfinite(losses)), f"train-mixtral: losses {losses}")
+    check(state.opt.step == TRAIN_STEPS, f"train-mixtral: opt.step {state.opt.step}")
+    changed = sum(not torch.equal(a, b.flatten()[:4096])
+                  for a, b in zip(probe, tree_leaves(state.params)))
+    check(changed > 0.9 * len(probe), f"train-mixtral: {changed} of {len(probe)} leaves moved")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = statistics.median(walls[1:])
+    opt = statistics.median(opt_ms[1:])
+    flops = 6 * cfg.active_param_count() * tokens
+    out = {"card": card_line(), "layers": cfg.num_layers, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(), "tokens_per_step": tokens,
+           "losses": losses, "step_ms": [w * 1e3 for w in walls], "optimizer_ms": opt_ms,
+           "median_step_ms": wall * 1e3, "median_optimizer_ms": opt,
+           "median_fwd_bwd_ms": wall * 1e3 - opt, "optimizer_share": opt / (wall * 1e3),
+           "tokens_per_s": tokens / wall, "model_flops_per_step": flops,
+           "mfu_bf16_dense": flops / wall / BF16_FLOPS, "leaves_moved": changed,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
+           "kernel_dispatch": ops.dispatch_counts(), "seed_s": seed_s}
+    print(f"[train-mixtral] {out['card']}: {cfg.name} at full width, {cfg.num_layers} layers, "
+          f"bf16, float32 moments, remat, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: median step "
+          f"{wall * 1e3:.1f} ms = forward + backward {wall * 1e3 - opt:.1f} + optimizer "
+          f"{opt:.1f} ({100 * out['optimizer_share']:.0f}%); {out['tokens_per_s']:.0f} tokens/s; "
+          f"model FLOPs (6 x {cfg.active_param_count() / 1e9:.2f} B active x {tokens} tokens = "
+          f"{flops / 1e12:.1f} TFLOP) {100 * out['mfu_bf16_dense']:.1f}% of the 989 TFLOP/s "
+          f"bf16 dense peak; peak {out['peak_allocated_gb']:.1f} GB; losses {losses}; "
+          f"{json.dumps(out)}", flush=True)
+    del state, params, model, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_smoke():
+    """benchmarks/common.py's "mixtral-smoke" config (8 layers, 128 wide, 8
+    experts at top-2, router aux weight 0.02, float32), built from the
+    port's configs: the model of results/bench_models_l8/mixtral-smoke."""
+    from repro_torch.configs import get_config, smoke_variant
+    cfg = smoke_variant(get_config(ARCH), layers=8, d_model=128, vocab=512)
+    moe = dataclasses.replace(cfg.moe, num_experts=8, top_k=2, router_aux_weight=0.02)
+    return dataclasses.replace(cfg, name="mixtral-smoke", dtype="float32", moe=moe).validate()
+
+
+def phase_train_parity(dev) -> dict:
+    """16b: the port restores the repository's float32 mixtral-smoke
+    checkpoint (step 300) on the card and on the CPU and trains 10 steps on
+    each from the same batches (16 x 64 tokens): every step's loss within
+    TRAIN_PARITY_ATOL (gated).  The card's parameters, saved with the
+    port's ``save`` (the reference's format) and restored on the CPU, are
+    bit-identical to the card's."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.models import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState, train
+    from repro_torch.weights import tree_leaves
+
+    cfg = mixtral_smoke()
+    model = build_model(cfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=16, seed=SEED)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_PARITY_STEPS)
+    curves, states = {}, {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        params, step = ckpt.restore(MIXTRAL_SMOKE_CKPT, model.init(SEED, device=d), cfg=cfg)
+        check(step == 300, f"train-parity: restored step {step}")
+        t0 = time.perf_counter()
+        states[where], hist = train(model, ocfg, batches(dc, device=d), TRAIN_PARITY_STEPS,
+                                    log_every=1, state=TrainState(params,
+                                                                  init_opt_state(params)),
+                                    device=d, log=lambda *_: None)
+        curves[where] = [h["loss"] for h in hist]
+        print(f"[train-parity] {where}: {TRAIN_PARITY_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f} s, losses {curves[where]}", flush=True)
+    gaps = np.abs(np.array(curves["cuda"]) - np.array(curves["cpu"]))
+    check(bool(np.isfinite(curves["cuda"]).all()), "train-parity: non-finite loss on the card")
+    for i, e in enumerate(gaps):
+        check(e <= TRAIN_PARITY_ATOL, f"train-parity step {i}: |card - CPU| loss {e:.3g} > "
+                                      f"{TRAIN_PARITY_ATOL}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, states["cuda"].params, step=310, cfg=cfg)
+        back, _ = ckpt.restore(tmp, states["cpu"].params, cfg=cfg)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(tree_leaves(back),
+                                                       tree_leaves(states["cuda"].params)))
+    check(same, "train-parity: the card's checkpoint restored on the CPU differs")
+    out = {"card": card_line(), "losses_card": curves["cuda"], "losses_cpu": curves["cpu"],
+           "max_abs_loss_gap": float(gaps.max()), "loss_gap_by_step": gaps.tolist(),
+           "checkpoint_bit_identical": same}
+    print(f"[train-parity] {cfg.name} from step 300, {TRAIN_PARITY_STEPS} steps: max |card - "
+          f"CPU| loss {gaps.max():.3g} <= {TRAIN_PARITY_ATOL}; the card's checkpoint restored "
+          f"on the CPU bit-identical; {json.dumps(out)}", flush=True)
+    return out
+
+
+def phases_train(dev) -> dict:
+    with phase("train-mixtral"):
+        run = phase_train_mixtral(dev)
+    with phase("train-parity"):
+        parity = phase_train_parity(dev)
+    return {"train": run, "parity": parity}
+
+
 def main() -> None:
     with phase("device"):
         phase_device()
@@ -4122,6 +4549,8 @@ def main() -> None:
     ds = phases_deepseek(dev)
     mb = phases_mamba2(dev)
     jb = phases_jamba(dev)
+    wh = phases_whisper(dev)
+    tr = phases_train(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
@@ -4147,7 +4576,8 @@ def main() -> None:
              "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"],
              "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"],
              "serve_mamba2": mb["serve"], "serve_jamba": jb["serve"],
-             "serve_jamba_q4": jb["serve_q4"]}
+             "serve_jamba_q4": jb["serve_q4"], "serve_whisper": wh["serve"],
+             "train_mixtral": tr["train"]}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

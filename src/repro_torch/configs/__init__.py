@@ -1,6 +1,6 @@
 """Architecture registry of the PyTorch port: --arch <id> resolves here.
 
-Registered so far: the all-"attn" MoE class the offload engine serves (the
+Registered: the all-"attn" MoE class the offload engine serves (the
 paper's own evaluation models), the dense all-"attn" family: Granite-3.0-2B,
 Nemotron-4-15B (layernorm, squared-ReLU FFN, untied LM head) and
 InternVL2-26B (its InternLM2 backbone behind 256 precomputed vision-patch
@@ -13,8 +13,11 @@ latent cache; a dense first layer, then 160 experts at top-6 beside 2
 shared experts), and the state-space class: Mamba2-780m (48 Mamba-2 SSD
 layers, no attention, no FFN) and Jamba-v0.1-52B (periods of 7 SSD layers
 and one attention layer without positional encoding, 16 experts at top-2
-in every other layer).  The JAX package's last architecture, Whisper,
-arrives with its audio encoder (ROADMAP, Queue 1 item 7.5)."""
+in every other layer), and the encoder-decoder Whisper-tiny (a 4-layer
+bidirectional encoder over 1500 precomputed audio frames, the conv/mel
+frontend stubbed as in the JAX package, and 4 decoder layers with
+cross-attention into it, sinusoidal absolute positions): every
+architecture of the JAX package."""
 
 from repro_torch.configs.base import (
     INPUT_SHAPES,
@@ -36,6 +39,7 @@ from repro_torch.configs import (  # noqa: E402
     mixtral_8x7b,
     nemotron_4_15b,
     phi_moe,
+    whisper_tiny,
 )
 
 PAPER_ARCHS = {
@@ -43,7 +47,7 @@ PAPER_ARCHS = {
     "phi-moe": phi_moe.CONFIG,
 }
 
-# the JAX package's assigned architectures ported so far
+# the JAX package's assigned architectures
 ASSIGNED_ARCHS = {
     "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
     "gemma2-27b": gemma2_27b.CONFIG,
@@ -54,6 +58,7 @@ ASSIGNED_ARCHS = {
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "nemotron-4-15b": nemotron_4_15b.CONFIG,
+    "whisper-tiny": whisper_tiny.CONFIG,
 }
 
 ARCHS = {**ASSIGNED_ARCHS, **PAPER_ARCHS}

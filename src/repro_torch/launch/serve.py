@@ -55,6 +55,10 @@ configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --layers 16 --backend dense --serve-requests 6 --max-batch 4
 
+``--arch whisper-tiny`` exits with a message: an encoder-decoder model is
+served through ``serving.decode.generate`` with its audio frames, not
+through a backend (chip_smoke.py phase 15 runs it so).
+
 Prints one JSON report; with ``--paged-kv`` it carries the page pool's
 counters under ``"kv"``.
 """
@@ -72,7 +76,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.kernels import ops as kops
 from repro_torch.quant.quantize import expert_nbytes
-from repro_torch.serving.api import BackendConfig, generate, make_backend
+from repro_torch.serving.api import BackendConfig, generate, make_backend, refuse_encoder
 from repro_torch.serving.batching import BatchingServer, Request
 from repro_torch.serving.workload import DEFAULT_AGING_S
 from repro_torch.weights import from_jax_params, load_checkpoint
@@ -163,6 +167,10 @@ def main(argv=None):
         cfg = dataclasses.replace(smoke_variant(cfg), dtype="float32")
     elif args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers).validate()
+    try:
+        refuse_encoder(cfg)
+    except ValueError as e:     # Whisper: served by decode.generate with audio frames
+        raise SystemExit(f"--arch {args.arch}: {e}") from None
     if kind == "hobbit" and cfg.moe is None:
         raise SystemExit(f"--backend hobbit requires a MoE arch; {cfg.name} is dense "
                          "(use --backend dense)")

@@ -2,7 +2,9 @@
 attention masks (global, sliding-window, chunked), grouped-query attention
 for prefill and for one-token decode against a dense per-slot cache (a ring
 of `window` slots for windowed layers) or a paged KV pool, DeepSeek-V2's
-multi-head latent attention (MLA) over a latent cache, and the dense FFN.
+multi-head latent attention (MLA) over a latent cache, Whisper's
+cross-attention into encoder states and its sinusoidal position table, and
+the dense FFN.
 
 PyTorch twin of the JAX package's ``models/layers.py`` for the decoder
 layers ported so far: full-window "attn" layers (Mixtral / Phi-MoE,
@@ -30,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -106,6 +109,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(max_len: int, d: int) -> np.ndarray:
+    """(max_len, d) float32 absolute position table (Whisper's decoder and
+    encoder): sin then cos of pos / 10000^(2i/d), computed in float64 numpy
+    and rounded to float32, as the reference computes it; callers cast it
+    to the compute dtype, so bf16 rounds the same float32 values."""
+    pos = np.arange(max_len)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
 def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str,
               window: int) -> torch.Tensor:
     """Boolean (..., Sq, Sk) mask, True = attendable.  q_pos / k_pos:
@@ -165,19 +179,23 @@ def chunked_mha(q, k, v, q_pos, k_pos, kind: str, window: int, softcap: float,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
+              cross: bool = False):
     """wq, wk, wv, wo in the config dtype; with qk-norm also the float32
-    "q_norm" / "k_norm" gains (zeros: a unit gain)."""
+    "q_norm" / "k_norm" gains (zeros: a unit gain).  `cross`: a decoder
+    layer's cross-attention into the encoder, whose wk / wv project from
+    the encoder's width, without qk-norm."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg)
+    kv_d = cfg.encoder.d_model if (cross and cfg.encoder) else d
     p = {
         "wq": dense_init((d, hq * hd), dt, gen, device),
-        "wk": dense_init((d, hkv * hd), dt, gen, device),
-        "wv": dense_init((d, hkv * hd), dt, gen, device),
+        "wk": dense_init((kv_d, hkv * hd), dt, gen, device),
+        "wv": dense_init((kv_d, hkv * hd), dt, gen, device),
         "wo": dense_init((hq * hd, d), dt, gen, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=device)
     return p
@@ -317,6 +335,20 @@ def paged_attn_prefill_chunk(p, x, k_pages, v_pages, table, start, n,
     mask = kidx[None, None, :] <= positions[:, :, None]           # (B, C, Smax)
     out = mha(q, kg, vg, mask, cfg.attn_logit_softcap, 1.0 / math.sqrt(hd))
     return out.reshape(b, c, hq * hd) @ p["wo"]
+
+
+def cross_attn_forward(p, x, enc_kv, cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention of x (B, S, D) into the encoder's keys and values
+    enc_kv = (k, v), each (B, F, Hkv, hd), projected once per layer
+    (Whisper's decoder): every frame attendable, no softcap, no RoPE.
+    Returns (B, S, D)."""
+    b, s, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k, v = enc_kv
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = mha(q, k, v, mask, 0.0, 1.0 / math.sqrt(hd))
+    return out.reshape(b, s, hq * hd) @ p["wo"]
 
 
 # --------------------------------------------------------------------------

@@ -15,8 +15,13 @@ Nemotron-4 (layernorm, squared ReLU, an untied LM head), InternVL2's
 InternLM2 backbone, whose "vision_patches" frontend puts precomputed patch
 embeddings (``Batch.prefix_embeds``) in front of the text, and Gemma-2 /
 Gemma-3 (sandwich norms, embeddings scaled by sqrt(d_model), attention and
-final logit softcaps, qk-norm).  Other configurations raise
-NotImplementedError naming the ROADMAP item that brings them.
+final logit softcaps, qk-norm); and the encoder-decoder Whisper: a
+bidirectional encoder over precomputed audio frames (``Batch.audio_frames``,
+the "audio_frames" frontend; the conv/mel feature extractor is stubbed, as
+in the reference), then decoder layers with cross-attention into the
+encoder states after the self-attention, sinusoidal absolute positions in
+place of RoPE (``rope_theta <= 0``).  Other configurations raise
+NotImplementedError.
 
 Parameters are a plain dict of tensors with a flat per-layer list::
 
@@ -26,10 +31,13 @@ Parameters are a plain dict of tensors with a flat per-layer list::
                                   or {wq, w_dkv, w_uk, w_uv, wo, kv_norm} (MLA),
                               or "mixer": {in_proj, conv_w, conv_b, A_log, D,
                                            dt_bias, norm, out_proj}  (SSM),
+                 ["cross_norm", "cross": {wq, wk, wv, wo}]       (Whisper)
                  ["post_norm",] ["ffn_norm", ["post_ffn_norm",]
                  "ffn": {"router": (D, E), "experts": {"wi", "wo"}
                          [, "shared": {"wi", "wo"}]}                 (MoE)
-                     or {"wi", "wo"}]}, ...]}                        (dense)
+                     or {"wi", "wo"}]}, ...]
+     ["encoder": {"layers": [{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
+                              "ffn": {wi, wo}}, ...], "final_norm"}]}  (Whisper)
 
 (the JAX package stacks repeating blocks for ``lax.scan``; PyTorch runs
 eagerly, so the port keeps the flat view ``unstack_layers`` gives there).  A
@@ -41,20 +49,27 @@ then run the dequant-matmul kernel.  The decode cache is a list of per-layer
 ring (``layers.attn_decode``); an MLA layer's is the latent cache
 {"c_kv": (B, max_len, R), "k_rope": (B, max_len, rope)}, an SSM layer's
 its float32 state {"h": (B, H, P, N), "conv": (B, K - 1, conv_dim)}, the
-same size at any length -- or, for
+same size at any length; a Whisper decoder layer's also holds the encoder's
+keys and values {"cross_k", "cross_v"} (B, F, Hkv, hd), projected once at
+prefill -- or, for
 all-"attn" models without MLA, a `kv_pages.PagedKVPool`
 (``init_cache(..., paged=True)``) driven by ``decode_step_paged`` /
-``prefill_chunk_paged``.  Prefix embeddings enter
+``prefill_chunk_paged``.  Prefix embeddings and audio frames enter
 through ``forward`` and ``prefill`` (a `Batch`); the paged chunked prefill
-is text-only, as in the reference.
+is text-only, as in the reference.  ``loss`` is the reference's training
+objective (next-token cross-entropy in float32 chunks plus the MoE aux
+losses), differentiated by autograd (``training``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -74,11 +89,12 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless `cfg` is in the ported model class:
     attention decoder layers (full-window, sliding-window, chunked or MLA)
     and Mamba-2 SSD layers, each FFN dense, MoE or absent, RMSNorm or
-    layernorm, and no frontend but "vision_patches"."""
-    if cfg.encoder is not None or cfg.frontend not in (None, "vision_patches"):
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and the {cfg.frontend!r} frontend (Whisper's audio "
-            "frames) arrive with ROADMAP Queue 1, item 7.5")
+    layernorm, an optional Whisper encoder read through cross-attention,
+    and no frontend but "vision_patches" (InternVL2's precomputed patch
+    embeddings) or "audio_frames" (Whisper's precomputed encoder frames)."""
+    if cfg.frontend not in (None, "vision_patches", "audio_frames"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not "
+                                  "one of the JAX package's")
     if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(
             f"{cfg.name}: norm_type={cfg.norm_type!r} is neither RMSNorm nor "
@@ -107,15 +123,20 @@ def _ffn(p, h, cfg: ModelConfig, token_mask=None):
     return layers.ffn_forward(p, h, cfg), None
 
 
-def _layer(p, x, mix, cfg: ModelConfig, token_mask=None):
+def _layer(p, x, mix, cfg: ModelConfig, token_mask=None, enc_kv=None):
     """One decoder layer around its mixer call `mix(normed x)` (attention
     or the SSM): pre norm, the mixer, the post norm under sandwich norms,
-    the residual; then the same around the FFN, which a layer without one
-    skips.  Returns (x, aux loss or None)."""
+    the residual; then, given the encoder's keys and values `enc_kv`
+    (Whisper), cross-attention into them behind its own norm and residual;
+    then the same around the FFN, which a layer without one skips.
+    Returns (x, aux loss or None)."""
     out = mix(layers.apply_norm(p["pre_norm"], x, cfg))
     if cfg.sandwich_norm:
         out = layers.apply_norm(p["post_norm"], out, cfg)
     x = x + out
+    if enc_kv is not None:
+        x = x + layers.cross_attn_forward(
+            p["cross"], layers.apply_norm(p["cross_norm"], x, cfg), enc_kv, cfg)
     if "ffn" not in p:
         return x, None
     y, aux = _ffn(p["ffn"], layers.apply_norm(p["ffn_norm"], x, cfg), cfg,
@@ -141,6 +162,67 @@ def _layer_chunk_paged(p, x, kp, vp, table, start, n, wstart, valid_flat,
         token_mask=valid_flat)[0]
 
 
+def _ln(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The encoder's layernorm: float32 statistics, a (1 + scale) gain and a
+    bias, the result in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return (((xf - mu) * torch.rsqrt(var + eps)) * (1.0 + p["scale"]) + p["bias"]).to(x.dtype)
+
+
+def _encoder_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device):
+    """Whisper's encoder: per layer two layernorms (float32 zeros), the
+    square attention projections and the GELU FFN in the config dtype; a
+    final layernorm."""
+    e, dt = cfg.encoder, layers.dtype_of(cfg)
+
+    def ln():
+        return {"scale": torch.zeros((e.d_model,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((e.d_model,), dtype=torch.float32, device=device)}
+
+    def w(shape):
+        return layers.dense_init(shape, dt, gen, device)
+
+    sq = (e.d_model, e.d_model)
+    return {"layers": [{"norm1": ln(),
+                        "attn": {"wq": w(sq), "wk": w(sq), "wv": w(sq), "wo": w(sq)},
+                        "norm2": ln(),
+                        "ffn": {"wi": w((e.d_model, e.d_ff)), "wo": w((e.d_ff, e.d_model))}}
+                       for _ in range(e.num_layers)],
+            "final_norm": ln()}
+
+
+def _encoder_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, F, d_enc) frames with their positions added, in the compute
+    dtype -> encoder states (B, F, d_enc): pre-norm layers of bidirectional
+    attention (every frame attends to every frame) and a GELU FFN (tanh
+    form, in float32), then the final layernorm."""
+    e = cfg.encoder
+    hd = e.d_model // e.num_heads
+    b, f, _ = x.shape
+    mask = torch.ones((b, f, f), dtype=torch.bool, device=x.device)
+    for lp in p["layers"]:
+        a = lp["attn"]
+        h = _ln(lp["norm1"], x, cfg.norm_eps)
+        q, k, v = ((h @ a[n]).reshape(b, f, e.num_heads, hd) for n in ("wq", "wk", "wv"))
+        o = layers.mha(q, k, v, mask, 0.0, 1.0 / math.sqrt(hd))
+        x = x + o.reshape(b, f, e.d_model) @ a["wo"]
+        h = _ln(lp["norm2"], x, cfg.norm_eps)
+        h = F.gelu((h @ lp["ffn"]["wi"]).to(torch.float32), approximate="tanh").to(x.dtype)
+        x = x + h @ lp["ffn"]["wo"]
+    return _ln(p["final_norm"], x, cfg.norm_eps)
+
+
+def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig):
+    """A decoder layer's keys and values over the encoder states enc
+    (B, F, d_enc): (k, v), each (B, F, Hkv, hd)."""
+    b, f, _ = enc.shape
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc @ p["cross"]["wk"]).reshape(b, f, hkv, hd),
+            (enc @ p["cross"]["wv"]).reshape(b, f, hkv, hd))
+
+
 def _generator(seed: Union[int, torch.Generator], device: torch.device):
     if isinstance(seed, torch.Generator):
         return seed
@@ -151,8 +233,10 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
         check_supported(self.cfg)
+        self.has_cross = cfg.encoder is not None
         # padded vocab as in the reference (pad columns are masked)
         self.v_pad = -(-cfg.vocab_size // 256) * 256
+        self._pos_tables: Dict[tuple, torch.Tensor] = {}
 
     # -------------------- init --------------------
     def init(self, seed: Union[int, torch.Generator] = 0,
@@ -179,6 +263,9 @@ class Model:
             else:
                 lp["attn"] = (layers.mla_init(cfg, gen, dev) if cfg.mla is not None
                               else layers.attn_init(cfg, gen, dev))
+            if self.has_cross:
+                lp["cross_norm"] = layers.norm_init(cfg, dev)
+                lp["cross"] = layers.attn_init(cfg, gen, dev, cross=True)
             if cfg.d_ff > 0 or is_moe:      # Mamba-2's layers have no FFN
                 lp["ffn_norm"] = layers.norm_init(cfg, dev)
                 lp["ffn"] = (moe_lib.moe_init(cfg, gen, dev) if is_moe
@@ -188,6 +275,8 @@ class Model:
                 if "ffn" in lp:
                     lp["post_ffn_norm"] = layers.norm_init(cfg, dev)
             params["layers"].append(lp)
+        if self.has_cross:
+            params["encoder"] = _encoder_init(cfg, gen, dev)
         return params
 
     # -------------------- embedding / logits --------------------
@@ -211,15 +300,47 @@ class Model:
         return x * torch.full((), float(np.sqrt(self.cfg.d_model)), dtype=x.dtype,
                               device=x.device)
 
+    def pos_table(self, n: int, d: int, device) -> torch.Tensor:
+        """The first n rows (at least the config's max_seq_len, so that
+        one table serves every call) of the float32 sinusoidal table of
+        width d on `device`, built once per (length, width, device): the
+        decode step only indexes it, with nothing copied to the device
+        inside a captured step."""
+        n = max(n, self.cfg.max_seq_len)
+        key = (n, d, str(device))
+        if key not in self._pos_tables:
+            self._pos_tables[key] = torch.from_numpy(
+                layers.sinusoidal_positions(n, d)).to(device)
+        return self._pos_tables[key]
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder: frames (B, F, d_enc) (the stubbed conv
+        frontend's output, any float dtype, moved to the parameters'
+        device) cast to the compute dtype, sinusoidal positions added, then
+        the encoder layers.  Returns the states (B, F, d_enc)."""
+        e = self.cfg.encoder
+        dev = params["embed"].device
+        # float32 first, as the reference holds host frames, then the compute dtype
+        x = frames.to(device=dev, dtype=torch.float32).to(layers.dtype_of(self.cfg))
+        x = x + self.pos_table(x.shape[1], e.d_model, dev)[: x.shape[1]].to(x.dtype)[None]
+        return _encoder_forward(params["encoder"], x, self.cfg)
+
     # -------------------- prefill --------------------
-    def forward(self, params, batch: Union[Batch, torch.Tensor]):
+    def forward(self, params, batch: Union[Batch, torch.Tensor], *, remat: bool = False):
         """Full-sequence forward of a `Batch` (or its tokens (B, S) alone).
         A "vision_patches" model puts the batch's P prefix embeddings (cast
         to the compute dtype) in front of the token embeddings, positions
         running over both; other models ignore them, as the reference does.
+        A model with an encoder (Whisper) needs the batch's audio frames:
+        each layer projects the encoder states to its cross keys and
+        values.  Sinusoidal positions are added when the config has no
+        RoPE (rope_theta <= 0).  `remat`: each layer runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward pass) and no cache entries are kept.
         Returns (hidden (B, P + S, D) with the prefix positions first,
-        [(k, v) per layer, MLA: (c_kv, k_rope), SSM: the state
-        {"h", "conv"} that decode continues from], aux_loss)."""
+        [(k, v) per layer (Whisper: (k, v, cross k, cross v)), MLA:
+        (c_kv, k_rope), SSM: the state {"h", "conv"} that decode continues
+        from], or None under remat, aux_loss)."""
         cfg = self.cfg
         tokens = batch.tokens if isinstance(batch, Batch) else batch
         x = self.embed(params, tokens)
@@ -227,23 +348,96 @@ class Model:
         if cfg.frontend == "vision_patches" and prefix is not None:
             x = torch.cat([prefix.to(device=x.device, dtype=x.dtype), x], dim=1)
         b, s, _ = x.shape
+        if cfg.rope_theta <= 0:     # absolute positions (Whisper)
+            x = x + self.pos_table(s, cfg.d_model, x.device)[:s].to(x.dtype)[None]
+        enc = None
+        if self.has_cross:
+            frames = batch.audio_frames if isinstance(batch, Batch) else None
+            if frames is None:
+                raise ValueError(f"{cfg.name} has an encoder: its batch needs audio_frames "
+                                 f"(B, F, {cfg.encoder.d_model})")
+            enc = self.encode(params, frames)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        kvs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         rope = _use_rope(cfg)
-        for p, kind in zip(params["layers"], cfg.layer_kinds()):
-            def mix(h, p=p, kind=kind):
+
+        def run(x, p, kind):
+            kv = []
+
+            def mix(h):
                 if kind == "ssm":
-                    out, kv = ssm_lib.ssm_forward(p["mixer"], h, cfg)
+                    out, c = ssm_lib.ssm_forward(p["mixer"], h, cfg)
                 elif cfg.mla is not None:
-                    out, kv = layers.mla_forward(p["attn"], h, positions, cfg)
+                    out, c = layers.mla_forward(p["attn"], h, positions, cfg)
                 else:
-                    out, kv = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
-                kvs.append(kv)
+                    out, c = layers.attn_forward(p["attn"], h, positions, cfg, kind, rope)
+                kv.append(c)
                 return out
-            x, a = _layer(p, x, mix, cfg)
+
+            cross = None if enc is None else _cross_kv(p, enc, cfg)
+            x, a = _layer(p, x, mix, cfg, enc_kv=cross)
+            return x, a, (kv[0] if cross is None else (*kv[0], *cross))
+
+        kvs = None if remat else []
+        for p, kind in zip(params["layers"], cfg.layer_kinds()):
+            if remat:
+                x, a, _ = checkpoint(run, x, p, kind, use_reentrant=False)
+            else:
+                x, a, kv = run(x, p, kind)
+                kvs.append(kv)
             if a is not None:
                 aux = aux + a
         return x, kvs, aux
+
+    # -------------------- loss --------------------
+    def loss(self, params, batch: Batch, *, remat: bool = True, xent_chunk: int = 65536):
+        """The reference's training objective: next-token cross-entropy
+        (position t predicts token t + 1, weighted by the batch's loss
+        mask) plus the MoE aux losses summed over layers.  Returns (loss,
+        {"nll", "aux", "tokens"}), 0-dim float32 tensors.
+
+        As the reference computes it: the logits come from the forward's
+        hidden state WITHOUT the final norm (``logits`` applies it, this
+        objective does not, so ``final_norm`` gets no gradient); float32
+        products with the (tied or untied) head, the final softcap, the
+        padded vocabulary columns masked to NEG_INF; a vision model's
+        prefix positions dropped; the tokens in chunks of the largest
+        divisor of T = B (S - 1) not above `xent_chunk`, each chunk's logits
+        recomputed in the backward pass (``torch.utils.checkpoint``, the
+        reference's ``jax.checkpoint``); `remat` checkpoints every layer."""
+        cfg = self.cfg
+        x, _, aux = self.forward(params, batch, remat=remat)
+        if cfg.frontend == "vision_patches" and batch.prefix_embeds is not None:
+            x = x[:, batch.prefix_embeds.shape[1]:]
+        d = x.shape[-1]
+        h = x[:, :-1].reshape(-1, d)
+        y = batch.tokens[:, 1:].reshape(-1).to(device=x.device, dtype=torch.long)
+        m = batch.loss_mask[:, 1:].reshape(-1).to(device=x.device, dtype=torch.float32)
+        t = h.shape[0]
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        chunk = min(xent_chunk, t)
+        while t % chunk:
+            chunk -= 1
+        pad = None
+        if self.v_pad != cfg.vocab_size:
+            pad = torch.arange(self.v_pad, device=x.device) >= cfg.vocab_size
+
+        def xent_block(hc, yc, mc):
+            lg = layers._softcap(hc.to(torch.float32) @ w.to(torch.float32),
+                                 cfg.final_logit_softcap)
+            if pad is not None:
+                lg = lg.masked_fill(pad, layers.NEG_INF)
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, yc[:, None])[:, 0]
+            return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, t, chunk):
+            args = (h[c0:c0 + chunk], y[c0:c0 + chunk], m[c0:c0 + chunk])
+            a, c = checkpoint(xent_block, *args, use_reentrant=False)
+            tot, cnt = tot + a, cnt + c
+        nll = tot / torch.clamp(cnt, min=1.0)
+        return nll + aux, {"nll": nll, "aux": aux, "tokens": cnt}
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike, *,
                    paged: bool = False, page_size: int = 64,
@@ -255,10 +449,15 @@ class Model:
         `kv_pages.PagedKVPool` of `num_pages` pages (default the dense
         equivalent, batch * ceil(max_len / page_size)) with the radix prefix
         index on or off (`prefix_sharing`).  A windowed layer's dense cache
-        is a ring of min(max_len, window_size) slots."""
+        is a ring of min(max_len, window_size) slots.  With an encoder
+        (Whisper) each layer's dict also holds zeroed cross keys and values
+        {"cross_k", "cross_v"} (B, F = encoder seq_len, Hkv, hd), which
+        ``prefill`` fills; a sinusoidal-position model refuses a max_len
+        past its max_seq_len (the reference's position table ends there)."""
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         dev = torch.device(device)
+        self._check_max_len(max_len)
         if paged:
             if not supports_paged_kv(cfg):
                 raise ValueError(f"paged KV unsupported for arch {cfg.name}: needs "
@@ -285,9 +484,23 @@ class Model:
                 continue
             sm = max_len if kind == "attn" else min(max_len, cfg.window_size)
             shape = (batch, sm, cfg.num_kv_heads, cfg.resolved_head_dim)
-            cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                          "v": torch.zeros(shape, dtype=dt, device=dev)})
+            c = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if self.has_cross:
+                xs = (batch, cfg.encoder.seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+                c["cross_k"] = torch.zeros(xs, dtype=dt, device=dev)
+                c["cross_v"] = torch.zeros(xs, dtype=dt, device=dev)
+            cache.append(c)
         return cache
+
+    def _check_max_len(self, max_len: int) -> None:
+        """A decode step gathers row `position` of the sinusoidal table, whose
+        reference ends at max_seq_len (its gather clamps past the end; a
+        CUDA gather out of range is a device assert): refuse the length."""
+        if self.cfg.rope_theta <= 0 and max_len > self.cfg.max_seq_len:
+            raise ValueError(f"{self.cfg.name}: max_len={max_len} exceeds max_seq_len="
+                             f"{self.cfg.max_seq_len}, where its sinusoidal position "
+                             "table ends")
 
     def prefill(self, params, batch: Union[Batch, torch.Tensor], max_len: int):
         """Run whole prompts (a `Batch`, or tokens (B, S)) and build a decode
@@ -295,9 +508,12 @@ class Model:
         where a layer keeps a row per position (an all-SSM model takes any
         length); a ring keeps the last Smax keys, position p at slot p % Smax
         (an MLA layer's latent cache is full-window); an SSM layer's state
-        is copied as the forward left it.
+        is copied as the forward left it; a Whisper layer's cross keys and
+        values over the batch's audio frames are written whole (a frame
+        count other than the encoder's seq_len gets buffers of its own).
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
+        self._check_max_len(max_len)
         x, kvs, _ = self.forward(params, batch)
         b, s, _ = x.shape
         kinds = self.cfg.layer_kinds()
@@ -310,7 +526,14 @@ class Model:
                 for name, buf in c.items():
                     buf.copy_(kv[name])
                 continue
-            for buf, src in zip(c.values(), kv):    # (k, v) or (c_kv, k_rope)
+            for name, src in zip(list(c), kv):      # (k, v) or (c_kv, k_rope)
+                buf = c[name]
+                if name.startswith("cross_"):       # the encoder's, every frame
+                    if buf.shape == src.shape:
+                        buf.copy_(src)
+                    else:
+                        c[name] = src.to(buf.dtype).contiguous()
+                    continue
                 sm = buf.shape[1]
                 if s > sm:  # a ring shorter than the prompt: the last sm keys
                     slots = torch.remainder(s - sm + torch.arange(sm, device=x.device), sm)
@@ -326,10 +549,15 @@ class Model:
         """tokens (B, 1); positions (B,) int64 write index; active: optional
         (B,) bool live-slot mask (dead slots take no MoE capacity; an SSM
         layer steps every row's state, a dead slot's too, as the reference
-        does: a join or a resume overwrites the row).  The cache is updated
-        in place.  Returns logits (B, V)."""
+        does: a join or a resume overwrites the row).  A sinusoidal-position
+        model adds row `positions` of its table (on the device since the
+        prefill); a Whisper layer attends into the cross keys and values in
+        its cache.  The cache is updated in place.  Returns logits (B, V)."""
         cfg = self.cfg
         x = self.embed(params, tokens)
+        if cfg.rope_theta <= 0:
+            table = self.pos_table(cfg.max_seq_len, cfg.d_model, x.device)
+            x = x + table[positions][:, None, :].to(x.dtype)
         rope = _use_rope(cfg)
         for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
             if kind == "ssm":
@@ -341,7 +569,8 @@ class Model:
             else:
                 def mix(h, p=p, c=c, kind=kind):
                     return layers.attn_decode(p["attn"], h, c, positions, cfg, kind, rope)
-            x, _ = _layer(p, x, mix, cfg, token_mask=active)
+            cross = (c["cross_k"], c["cross_v"]) if self.has_cross else None
+            x, _ = _layer(p, x, mix, cfg, token_mask=active, enc_kv=cross)
         return self.logits(params, x)[:, 0, :]
 
     # -------------------- paged decode / chunked prefill --------------------

@@ -96,6 +96,16 @@ def _blocking_join(backend, slot: int, prompt) -> np.ndarray:
             return lg
 
 
+def refuse_encoder(cfg) -> None:
+    """Backends serve decoder-only models: their batches are built from
+    prompts alone (so is the reference's DenseBackend, which has no audio
+    frames to give Whisper's encoder)."""
+    if cfg.encoder is not None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: serve it through "
+                         "serving.decode.generate(model, params, prompts, n, "
+                         "extra={'audio_frames': frames}), not through a backend")
+
+
 class DenseBackend:
     """All weights resident on the parameters' device; prefill + decode
     through the dense model (capacity-dispatched MoE).
@@ -114,6 +124,7 @@ class DenseBackend:
     def __init__(self, model: Model, params, *, jit: bool = True, paged: bool = False,
                  page_size: int = 64, kv_pages: Optional[int] = None,
                  prefill_chunk: int = 64, prefix_sharing: bool = True):
+        refuse_encoder(model.cfg)
         if paged and not supports_paged_kv(model.cfg):
             raise ValueError(f"arch {model.cfg.name} does not support the paged KV layout "
                              "(only all-'attn' models without MLA do; windowed layers "
@@ -406,6 +417,7 @@ def make_backend(kind, model: Model, params, *, engine_config=_UNSET, jit=_UNSET
                           "make_backend(BackendConfig(kind=..., ...), model, params)",
                           DeprecationWarning, stacklevel=2)
         cfg = BackendConfig(kind=kind, **legacy)
+    refuse_encoder(model.cfg)
     if cfg.kind == "dense":
         return DenseBackend(model, params, jit=cfg.jit, paged=cfg.paged,
                             page_size=cfg.page_size, kv_pages=cfg.kv_pages,

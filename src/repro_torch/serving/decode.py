@@ -39,12 +39,11 @@ def make_prefill_step(model: Model, max_len: int) -> Callable:
     """prefill_step(params, batch: Batch) -> (last-token logits (B, V), a
     decode cache padded to max_len, next positions (B,) on the host).  A
     "vision_patches" model takes the batch's prefix embeddings in front of
-    its tokens; audio frames are refused."""
+    its tokens; an encoder model (Whisper) the batch's audio frames, whose
+    cross keys and values land in the cache; other models ignore both, as
+    the reference does."""
 
     def prefill_step(params, batch: Batch):
-        if batch.audio_frames is not None:
-            raise NotImplementedError("audio frames arrive with the encoder model "
-                                      "class (ROADMAP Queue 1, item 7.5)")
         return model.prefill(params, batch, max_len)
 
     return prefill_step
@@ -82,9 +81,12 @@ def generate(model: Model, params, prompts, new_tokens: int, *,
              seed: int = 0, extra: Optional[dict] = None,
              jit: bool = True) -> GenerateResult:
     """Greedy/temperature generation on the parameters' device.  prompts:
-    (B, S) host array; `extra` holds further `Batch` fields, such as
-    "prefix_embeds" (B, P, D) (a host array or a tensor), whose P positions
-    the default cache length counts beside the prompt's.  With `jit` the
+    (B, S) host array; `extra` holds further `Batch` fields (host arrays,
+    copied to the parameters' device, or tensors), such as "prefix_embeds"
+    (B, P, D), whose P positions the default cache length counts beside the
+    prompt's, or Whisper's "audio_frames" (B, F, d_enc), whose cross keys
+    and values the cache holds (a sinusoidal-position model refuses a
+    max_len past its max_seq_len).  With `jit` the
     decode step is a captured step (one CUDA graph for the call on the
     card); without, every step runs eagerly."""
     prompts = np.asarray(prompts, np.int32)

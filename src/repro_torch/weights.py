@@ -12,6 +12,12 @@ port and the reference compute the same function.  A quantized leaf (the
 reference's ``quantize_tree`` output: an object with ``data``, ``scale``,
 ``bits``, ``group_size`` and ``orig_k``, its arrays stacked over the scanned
 blocks) becomes one `QTensor` per layer.
+
+``to_jax_params(cfg, params)`` is its inverse for plain (unquantized)
+parameters: the port's flat per-layer list back into the reference's
+layout (``prefix`` / ``blocks`` stacked over the scanned blocks / ``tail``,
+plus ``encoder``), each leaf a CPU tensor in its own dtype, which
+``training.checkpoint.save`` writes in the reference's format.
 """
 
 from __future__ import annotations
@@ -124,6 +130,8 @@ def _to_torch(node, dtype: torch.dtype, device: torch.device, f32_keys=()):
     if isinstance(node, dict):
         return {k: _to_torch(v, torch.float32 if k in f32_keys else dtype, device,
                              f32_keys) for k, v in node.items()}
+    if isinstance(node, list):      # the encoder's layers
+        return [_to_torch(v, dtype, device, f32_keys) for v in node]
     if _is_quantized(node):
         # int8 codes and float32 scales as they are, whatever the config dtype
         data = torch.from_numpy(np.array(node.data, dtype=np.int8)).to(device)
@@ -141,11 +149,15 @@ def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
     biases) -- the sandwich norms, the qk-norm gains, MLA's latent
     ``kv_norm`` and the SSM's gated ``norm`` among them -- routers and the
     SSM's ``A_log``, ``D``, ``dt_bias`` and ``conv_b`` stay float32, as the
-    reference keeps them."""
+    reference keeps them.  Whisper's ``encoder`` (its layernorms ``norm1``,
+    ``norm2`` and ``final_norm`` float32, the rest in the config dtype) and
+    each decoder layer's ``cross`` projections and float32 ``cross_norm``
+    map as they are."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     f32_keys = ("pre_norm", "ffn_norm", "post_norm", "post_ffn_norm", "q_norm", "k_norm",
-                "kv_norm", "final_norm", "router", "norm", "A_log", "D", "dt_bias", "conv_b")
+                "kv_norm", "final_norm", "router", "norm", "A_log", "D", "dt_bias", "conv_b",
+                "cross_norm", "norm1", "norm2")
     out: Dict[str, Any] = {
         "embed": _to_torch(params["embed"], dt, dev),
         "final_norm": _to_torch(params["final_norm"], torch.float32, dev),
@@ -153,7 +165,64 @@ def from_jax_params(cfg: ModelConfig, params, device: DeviceLike = "cuda"):
     }
     if "lm_head" in params:
         out["lm_head"] = _to_torch(params["lm_head"], dt, dev)
+    if "encoder" in params:
+        out["encoder"] = _to_torch(params["encoder"], dt, dev, f32_keys)
     if len(out["layers"]) != cfg.num_layers:
         raise ValueError(f"{cfg.name}: tree holds {len(out['layers'])} layers, "
                          f"config has {cfg.num_layers}")
+    return out
+
+
+def tree_flatten(tree, prefix: str = ""):
+    """(path, leaf) pairs of a tree of dicts and lists in jax.tree_util's
+    order (dict keys sorted, lists in order), path components joined by
+    '/' as the checkpoint manifest writes them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_flatten(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_flatten(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of `tree` in ``tree_flatten``'s order."""
+    return [leaf for _, leaf in tree_flatten(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` and of equally shaped trees, walking
+    dicts in sorted key order (so a map's leaves come out in
+    ``tree_leaves``' order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+    return fn(tree, *rest)
+
+
+def to_jax_params(cfg: ModelConfig, params) -> Dict[str, Any]:
+    """The port's parameters (or a tree shaped like them, such as their
+    gradients) in the reference's layout: ``prefix`` and ``tail`` lists of
+    layer dicts, ``blocks`` a list over the period of dicts whose leaves
+    stack the scanned blocks' layers (block-major, as ``_flat_layers``
+    reads them), ``embed`` / ``final_norm`` / ``lm_head`` / ``encoder`` as
+    they are; every leaf a detached CPU tensor in its own dtype."""
+    def cpu(t):
+        if isinstance(t, QTensor):
+            raise TypeError("to_jax_params takes plain parameters, not QTensor leaves")
+        return t.detach().to("cpu")
+
+    lys = params["layers"]
+    np_, nb, per = len(cfg.prefix_pattern), cfg.num_blocks, cfg.period
+    if len(lys) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {len(lys)} layers, config has {cfg.num_layers}")
+    out: Dict[str, Any] = {k: tree_map(cpu, v) for k, v in params.items() if k != "layers"}
+    out["prefix"] = [tree_map(cpu, lp) for lp in lys[:np_]]
+    out["blocks"] = [tree_map(lambda *xs: torch.stack([cpu(x) for x in xs]),
+                              *[lys[np_ + i * per + j] for i in range(nb)])
+                     for j in range(per)] if nb else []
+    out["tail"] = [tree_map(cpu, lp) for lp in lys[np_ + nb * per:]]
     return out

@@ -144,15 +144,20 @@ def test_serve_step_logits_match_reference(models):
 
 
 def test_prefill_step_refuses_frontend_inputs(models):
-    """Audio frames (Whisper's encoder, item 7.5) are refused; prefix
-    embeddings are taken (tests/test_torch_gqa6_dense.py holds them to the
-    reference on InternVL2)."""
+    """Frontend inputs a model has no use for are ignored, as the reference
+    ignores them: audio frames (read only by an encoder model, Whisper:
+    tests/test_torch_whisper.py holds them to the reference) leave a
+    decoder-only model's prefill unchanged.  Prefix embeddings are taken by
+    a "vision_patches" model (tests/test_torch_gqa6_dense.py)."""
     _, _, _, port, tparams = models
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    batch = decode.Batch(tokens=tokens, loss_mask=torch.ones((1, 4)),
-                         audio_frames=torch.zeros((1, 2, port.cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        decode.make_prefill_step(port, 8)(tparams, batch)
+    plain = decode.Batch(tokens=tokens, loss_mask=torch.ones((1, 4)))
+    batch = plain._replace(audio_frames=torch.ones((1, 2, port.cfg.d_model)))
+    prefill = decode.make_prefill_step(port, 8)
+    (lg, cache, pos), (lg0, cache0, pos0) = prefill(tparams, batch), prefill(tparams, plain)
+    assert torch.equal(lg, lg0) and np.array_equal(pos, pos0)
+    assert all(torch.equal(c[n], c0[n]) for c, c0 in zip(cache, cache0) for n in c0)
+    assert all(set(c) == set(c0) for c, c0 in zip(cache, cache0))
 
 
 # --------------------------------------------------------------------------

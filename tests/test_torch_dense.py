@@ -307,7 +307,7 @@ def test_hobbit_backend_on_a_dense_arch_fails_clearly(granite):
 def test_check_supported_takes_dense_and_moe_and_names_what_remains():
     for arch in ("granite-3-2b", "mixtral-8x7b", "phi-moe", "nemotron-4-15b",
                  "internvl2-26b", "gemma2-27b", "gemma3-27b", "llama4-scout-17b-a16e",
-                 "deepseek-v2-236b", "mamba2-780m", "jamba-v0.1-52b"):
+                 "deepseek-v2-236b", "mamba2-780m", "jamba-v0.1-52b", "whisper-tiny"):
         check_supported(get_config(arch))
     nemotron = dataclasses.replace(get_config(ARCH), name="nemotron-like",
                                    norm_type="layernorm", ffn_activation="sq_relu",
@@ -328,8 +328,10 @@ def test_check_supported_takes_dense_and_moe_and_names_what_remains():
                               moe_pattern=(False,), ssm=SSMConfig()).validate()
     check_supported(ssm)                # SSM and hybrid layers: item 7.4, done
     enc = dataclasses.replace(get_config(ARCH), name="enc", encoder=EncoderConfig()).validate()
-    with pytest.raises(NotImplementedError, match="encoders.*ROADMAP Queue 1, item 7.5"):
-        check_supported(enc)
+    check_supported(enc)                # encoders: item 7.5, done
+    other = dataclasses.replace(get_config(ARCH), name="other", frontend="mel").validate()
+    with pytest.raises(NotImplementedError, match="'mel' frontend"):
+        check_supported(other)          # what remains: a frontend the reference has not
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu", "sq_relu"])
