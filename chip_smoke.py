@@ -251,7 +251,23 @@ and each printing its seconds:
                (step 300) restored by the port on the card and on the CPU,
                10 steps on each from the same batches, every step's loss
                within 1e-3; the card's checkpoint, saved in the reference's
-               format, restored on the CPU bit-identical.
+               format, restored on the CPU bit-identical;
+  17. roofline-check — the op analysis (``launch.op_analysis``) of two
+               kernel-free steps twice, on fake CPU tensors and on the card:
+               train-mixtral (phase 16's step) and the bf16 Granite-3.0-2B
+               decode step on dense KV at batch 4; gated: FLOPs equal,
+               bytes within 1%, the analysed peak within 15% of
+               max_memory_allocated; printed: the roofline step from the
+               H100 SXM5 datasheet constants, the measured median step and
+               their ratio;
+  17b. nccl-mesh — NCCL at world size 1 (FileStore, no network), the
+               production mesh's code path at shape (1, 1) on cuda,
+               mixtral-smoke's checkpoint trained one step with DTensor
+               parameters laid out by the rule table against the unsharded
+               step: loss and every parameter within 1e-6 in float32;
+  17c. dryrun — ``launch.dryrun.run_one`` for Mixtral-8x7B x train_4k and
+               x decode_32k on the (32, 8) production mesh (fake process
+               group and tensors; analysis, not measurement): both ok.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -4469,6 +4485,238 @@ def phases_train(dev) -> dict:
     return {"train": run, "parity": parity}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-17c: the sharding module group (no kernel on these paths)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BYTES_RTOL = 0.01      # analysed bytes against the card run's
+ANALYSIS_PEAK_RTOL = 0.15       # the analysis's peak against max_memory_allocated
+DECODE_BATCH, DECODE_MAX_LEN, DECODE_POS = 4, 4096, 1024
+NCCL_MESH_ATOL = 1e-6
+
+
+def _train_args(cfg, model, device, fake: bool):
+    """Phase 16's step: seeded parameters, float32 moments, a batch of
+    TRAIN_BATCH x TRAIN_SEQ tokens (zeros and ones under a fake mode)."""
+    from repro_torch.models.model import Batch
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step
+
+    params = model.init(SEED + 38, device=device)
+    state = TrainState(params, init_opt_state(params))
+    if fake:
+        tokens = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device=device)
+    else:
+        g = torch.Generator(device=device).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                               device=device, dtype=torch.int32)
+    batch = Batch(tokens, torch.ones((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.float32,
+                                     device=device))
+    step = make_train_step(model, OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                                  total_steps=TRAIN_STEPS), remat=True)
+    return step, (state, batch)
+
+
+def _decode_args(cfg, model, device, fake: bool):
+    """The bf16 Granite decode step on dense KV: batch DECODE_BATCH, a
+    DECODE_MAX_LEN cache, every row at position DECODE_POS."""
+    from repro_torch.serving.decode import make_serve_step
+
+    params = model.init(SEED, device=device)
+    cache = model.init_cache(DECODE_BATCH, DECODE_MAX_LEN, device)
+    tokens = torch.zeros((DECODE_BATCH, 1), dtype=torch.int32, device=device)
+    pos = torch.full((DECODE_BATCH,), DECODE_POS, dtype=torch.long, device=device)
+    step = make_serve_step(model)
+
+    @torch.no_grad()
+    def run(*a):
+        return step(*a)
+    return run, (params, cache, tokens, pos)
+
+
+def _analysis_vs_card(label, cfg, build, dev, *, iters: int) -> dict:
+    """The op analysis of one step twice: on fake CPU tensors (what the dry
+    run sees at a (1, 1) mesh: one GPU holds every shard, so the sharded
+    program is the plain one) and on the card.  Gated: FLOPs equal, bytes
+    within ANALYSIS_BYTES_RTOL, the analysed peak within ANALYSIS_PEAK_RTOL
+    of max_memory_allocated over the analysed step (less what the card held
+    before the step's arguments).  Printed: the roofline step from the
+    H100 datasheet constants, the measured median step and their ratio."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.roofline import Roofline
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fn, args = build(cfg, model, "cpu", True)
+        _, fake = analyze(fn, *args)
+    fake_s = time.perf_counter() - t0
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    fn, args = build(cfg, model, dev, False)
+    fn(*args)                                       # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, real = analyze(fn, *args)
+    torch.cuda.synchronize()
+    peak_real = torch.cuda.max_memory_allocated(dev) - base
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    step_ms = statistics.median(walls) * 1e3
+    rl = Roofline(cfg.name, label, "1x1", fake["flops"], fake["bytes"], 0.0)
+    out = {"card": card_line(), "flops_fake": fake["flops"], "flops_card": real["flops"],
+           "bytes_fake": fake["bytes"], "bytes_card": real["bytes"],
+           "bytes_rel_gap": abs(fake["bytes"] - real["bytes"]) / real["bytes"],
+           "peak_fake_gb": fake["peak_bytes"] / 1e9, "peak_card_gb": peak_real / 1e9,
+           "peak_rel_gap": abs(fake["peak_bytes"] - peak_real) / peak_real,
+           "ops_fake": fake["ops"], "ops_card": real["ops"],
+           "roofline": rl.asdict(), "roofline_ms": rl.step_s * 1e3,
+           "measured_median_ms": step_ms, "roofline_over_measured": rl.step_s * 1e3 / step_ms,
+           "fake_trace_s": fake_s}
+    check(fake["flops"] == real["flops"],
+          f"{label}: analysed FLOPs {fake['flops']:.6e} != card run's {real['flops']:.6e}")
+    check(out["bytes_rel_gap"] <= ANALYSIS_BYTES_RTOL,
+          f"{label}: analysed bytes {fake['bytes']:.6e} vs card run's {real['bytes']:.6e}")
+    check(out["peak_rel_gap"] <= ANALYSIS_PEAK_RTOL,
+          f"{label}: analysed peak {out['peak_fake_gb']:.2f} GB vs max_memory_allocated "
+          f"{out['peak_card_gb']:.2f} GB")
+    print(f"[roofline-check] {label} on {out['card']}: FLOPs {fake['flops']:.4e} (fake) = "
+          f"{real['flops']:.4e} (card); bytes {fake['bytes']:.4e} vs {real['bytes']:.4e} "
+          f"({100 * out['bytes_rel_gap']:.3f}%); peak {out['peak_fake_gb']:.2f} GB analysed vs "
+          f"{out['peak_card_gb']:.2f} GB max_memory_allocated ({100 * out['peak_rel_gap']:.1f}%); "
+          f"roofline step (H100 SXM5 datasheet constants) {out['roofline_ms']:.3f} ms "
+          f"({rl.bottleneck}-bound: compute {rl.compute_s * 1e3:.3f} ms, memory "
+          f"{rl.memory_s * 1e3:.3f} ms), measured median {step_ms:.3f} ms, ratio "
+          f"{out['roofline_over_measured']:.3f}; {json.dumps(out)}", flush=True)
+    del fn, args, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_roofline_check(dev) -> dict:
+    """17: the op analysis (``launch.op_analysis``) against the card on two
+    kernel-free steps the card already runs: train-mixtral (phase 16's
+    step) and the bf16 Granite-3.0-2B decode step on dense KV at batch 4."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS).validate()
+    train = _analysis_vs_card("train-mixtral", cfg, _train_args, dev, iters=4)
+    decode = _analysis_vs_card("decode-granite", granite_full(), _decode_args, dev, iters=20)
+    return {"train_mixtral": train, "decode_granite": decode}
+
+
+def phase_nccl_mesh(dev) -> dict:
+    """17b: NCCL at world size 1 (a FileStore in a temporary directory, no
+    network), ``make_production_mesh``'s code path at shape (1, 1) on cuda,
+    and mixtral-smoke's checkpoint (step 300) trained one step with DTensor
+    parameters, moments and batch laid out by the rule table, against the
+    unsharded step on the same inputs: the loss and every parameter within
+    NCCL_MESH_ATOL in float32 (gated).  Returns the kernel launches of the
+    sharded step (none: the path reaches no kernel)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import Batch
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import OptimizerConfig, OptState, init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step
+    from repro_torch.weights import tree_leaves, tree_map
+
+    cfg = mixtral_smoke()
+    model = build_model(cfg)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_PARITY_STEPS)
+    params, step = ckpt.restore(MIXTRAL_SMOKE_CKPT, model.init(SEED, device=dev), cfg=cfg)
+    check(step == 300, f"nccl-mesh: restored step {step}")
+    batch = next(batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=16,
+                                    seed=SEED), device=dev))
+    plain = tree_map(lambda t: t.clone(), params)
+    s_ref, m_ref = make_train_step(model, ocfg, remat=True)(
+        TrainState(plain, init_opt_state(plain)), batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_production_mesh(shape=(1, 1))
+            specs = sh.param_shardings(mesh, params)
+            opt = init_opt_state(params)
+            state = TrainState(sh.distribute_tree(mesh, params, specs),
+                               OptState(opt.step, sh.distribute_tree(mesh, opt.mu, specs),
+                                        sh.distribute_tree(mesh, opt.nu, specs)))
+            dbatch = Batch(*(None if f is None else sh.distribute(mesh, f, ("data",))
+                             for f in batch))
+            ops.reset_dispatch_counts()
+            t0 = time.perf_counter()
+            s_sp, m_sp = make_train_step(model, ocfg, remat=True, mesh=mesh)(state, dbatch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            counts = ops.dispatch_counts()
+            loss_sp = float(m_sp["loss"].full_tensor())
+            sp = [t.full_tensor() for t in tree_leaves(s_sp.params)]
+        finally:
+            dist.destroy_process_group()
+    ref = tree_leaves(s_ref.params)
+    loss_gap = abs(float(m_ref["loss"]) - loss_sp)
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(ref, sp))
+    check(loss_gap <= NCCL_MESH_ATOL, f"nccl-mesh: |loss gap| {loss_gap:.3g}")
+    check(param_gap <= NCCL_MESH_ATOL, f"nccl-mesh: max |param gap| {param_gap:.3g}")
+    out = {"card": card_line(), "loss_unsharded": float(m_ref["loss"]), "loss_sharded": loss_sp,
+           "loss_gap": loss_gap, "max_param_gap": param_gap, "leaves": len(ref),
+           "sharded_step_s": step_s, "kernel_dispatch": counts}
+    print(f"[nccl-mesh] {cfg.name} from step 300 on a (1, 1) NCCL mesh: loss {loss_sp:.7f} "
+          f"sharded vs {float(m_ref['loss']):.7f} unsharded (gap {loss_gap:.3g}), max |param "
+          f"gap| {param_gap:.3g} over {len(ref)} leaves (<= {NCCL_MESH_ATOL}); "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_dryrun() -> dict:
+    """17c: ``dryrun.run_one`` for Mixtral-8x7B x train_4k and x decode_32k
+    on the (32, 8) production mesh (fake process group, fake tensors; an
+    analysis from H100 SXM5 datasheet constants): both records ok."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in ("train_4k", "decode_32k"):
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(ARCH, shape)
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""), flush=True)
+        rec.pop("traceback", None)
+        rec["wall_s"] = time.perf_counter() - t0
+        check(rec["status"] == "ok", f"dryrun {ARCH} x {shape}: {rec.get('error')}")
+        print(f"[dryrun] {ARCH} x {shape} @ {rec['mesh']} in {rec['wall_s']:.1f} s; "
+              f"{json.dumps(rec)}", flush=True)
+        out[shape] = rec
+    return out
+
+
+def phases_sharding(dev) -> dict:
+    with phase("roofline-check"):
+        roof = phase_roofline_check(dev)
+    with phase("nccl-mesh"):
+        nccl = phase_nccl_mesh(dev)
+    with phase("dryrun"):
+        dry = phase_dryrun()
+    return {"roofline": roof, "nccl": nccl, "dryrun": dry}
+
+
 def main() -> None:
     with phase("device"):
         phase_device()
@@ -4551,6 +4799,7 @@ def main() -> None:
     jb = phases_jamba(dev)
     wh = phases_whisper(dev)
     tr = phases_train(dev)
+    shd = phases_sharding(dev)
 
     # launches: each kernel's from its main path (the grouped and gating
     # kernels' from the dense-KV serve, the paged flash decode's from the
@@ -4577,7 +4826,7 @@ def main() -> None:
              "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"],
              "serve_mamba2": mb["serve"], "serve_jamba": jb["serve"],
              "serve_jamba_q4": jb["serve_q4"], "serve_whisper": wh["serve"],
-             "train_mixtral": tr["train"]}
+             "train_mixtral": tr["train"], "train_sharded": shd["nccl"]}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

@@ -70,5 +70,23 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+# (arch, shape) pairs excluded from the dry-run matrix, with reasons (the
+# JAX package's table)
+LONG_CONTEXT_SKIPS = {
+    "deepseek-v2-236b": "pure full attention (MLA is still global); no sub-quadratic variant",
+    "granite-3-2b": "pure full attention",
+    "nemotron-4-15b": "pure full attention",
+    "internvl2-26b": "pure full attention backbone",
+    "whisper-tiny": "enc-dec decoder context is 448 by construction",
+}
+
+
+def shape_supported(arch: str, shape_name: str) -> bool:
+    if shape_name == "long_500k" and arch in LONG_CONTEXT_SKIPS:
+        return False
+    return True
+
+
 __all__ = ["ARCHS", "ASSIGNED_ARCHS", "PAPER_ARCHS", "INPUT_SHAPES", "InputShape",
-           "ModelConfig", "MoEConfig", "get_config", "smoke_variant"]
+           "LONG_CONTEXT_SKIPS", "ModelConfig", "MoEConfig", "get_config",
+           "shape_supported", "smoke_variant"]

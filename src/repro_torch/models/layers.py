@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import shard_utils
 from repro_torch.quant.quantize import QTensor
 
 NEG_INF = -1e30
@@ -147,15 +148,65 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
+def _score_spec(b: int, hkv: int, sq: int, sk: int):
+    """Sharding cascade for the (B, Hkv, g, Sq, Sk) score tensor under a
+    mesh, the reference's: kv heads over `model`; else the query dim, then
+    the key dim (context parallel); with a batch that cannot shard
+    (long_500k's B = 1) the key dim takes every mesh axis, as the
+    context-parallel cache does."""
+    mdl = shard_utils.axis_size("model")
+    dp = shard_utils.dp_size()
+    if mdl * dp <= 1:
+        return (None,) * 5
+    if b % dp != 0:
+        if sk % (dp * mdl) == 0:
+            return (None, None, None, None, "all")
+        if sk % mdl == 0:
+            return (None, None, None, None, "model")
+        return (None,) * 5
+    if hkv % mdl == 0:
+        return ("batch", "model", None, None, None)
+    if sq % mdl == 0:
+        return ("batch", None, None, "model", None)
+    if sk % mdl == 0:
+        return ("batch", None, None, None, "model")
+    return ("batch", None, None, None, None)
+
+
 def mha(q, k, v, mask, softcap: float, scale: float) -> torch.Tensor:
     """q: (B,Sq,Hq,hd) k/v: (B,Sk,Hkv,hd); mask (B,Sq,Sk) bool (True =
-    attendable).  GQA grouped einsum, float32 softmax."""
+    attendable).  GQA grouped einsum, float32 softmax.
+
+    Under a mesh the scores are laid out by `_score_spec`.  Split over
+    batch, kv heads or queries, every shard's attention is its own: it
+    runs on the local shards (``shard_utils.run_local``).  Split over keys
+    (the context-parallel layout), the softmax spans shards and DTensor
+    carries it."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    spec = _score_spec(b, hkv, sq, k.shape[1])
+    if shard_utils.is_sharded(q):
+        qd, kd, md = (spec[0], spec[3], spec[1], None), (spec[0], spec[4], spec[1], None), \
+            (spec[0], spec[3], spec[4])
+        if spec[4] is None:
+            return shard_utils.run_local(
+                lambda q, k, v, m: _mha(q, k, v, m, softcap, scale), (q, k, v, mask),
+                (qd, kd, kd, md), (qd,), partial_model=(1, 2) if spec[3] else ())
+        q = shard_utils.constrain(q, *qd)
+        k = shard_utils.constrain(k, *kd)
+        v = shard_utils.constrain(v, *kd)
+    return _mha(q, k, v, mask, softcap, scale, spec)
+
+
+def _mha(q, k, v, mask, softcap: float, scale: float, spec=None) -> torch.Tensor:
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
+    if spec is not None:
+        logits = shard_utils.constrain(logits, *spec)
     logits = _softcap(logits, softcap)
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
@@ -201,14 +252,35 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     return p
 
 
+def heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """A projection (..., H * hd) reshaped to `shape` (..., H, hd).  Under a
+    mesh, a head count the model axis does not divide (6 Whisper heads on
+    8 GPUs) first gathers the feature dim, which the weights' layout may
+    have split mid-head."""
+    if shard_utils.is_sharded(t) and shape[-2] % shard_utils.axis_size("model"):
+        t = shard_utils.constrain(t, "batch", *([None] * (t.dim() - 1)))
+    return t.reshape(*shape)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., H, hd) -> (..., H * hd).  Under a mesh, with a head count the
+    model axis does not divide, the merged features are pinned replicated,
+    so the gradient coming back from the output projection is gathered
+    before it is split into heads again."""
+    out = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    if shard_utils.is_sharded(t) and t.shape[-2] % shard_utils.axis_size("model"):
+        out = shard_utils.constrain(out, "batch", *([None] * (out.dim() - 1)))
+    return out
+
+
 def _qkv(p, x, positions, cfg: ModelConfig, use_rope: bool = True):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd): the projections, qk-norm
     (when the config has it) and then RoPE at `positions` (B, S)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    q = heads(x @ p["wq"], b, s, hq, hd)
+    k = heads(x @ p["wk"], b, s, hkv, hd)
+    v = heads(x @ p["wv"], b, s, hkv, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -224,10 +296,32 @@ def attn_forward(p, x, positions, cfg: ModelConfig, kind: str = "attn",
     by `make_mask`, in query chunks (`chunked_mha`).  positions (B, S).
     Returns (out (B, S, D), (k, v)) with the unexpanded GQA heads."""
     b, s, _ = x.shape
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
     q, k, v = _qkv(p, x, positions, cfg, use_rope)
+    # under a mesh: the cache keeps the unexpanded GQA heads, laid out as
+    # ``sharding.cache_shardings`` lays them (heads over model when they
+    # divide it, else the sequence); attention expands the kv heads to the
+    # q heads when only those divide the model axis (a layout change: the
+    # numbers are the same)
+    mdl = shard_utils.axis_size("model")
+    kv_head_ax = "model" if hkv % mdl == 0 else None
+    kv_seq_ax = None if kv_head_ax else "model"
+    kv_out = (shard_utils.constrain(k, "batch", kv_seq_ax, kv_head_ax, None),
+              shard_utils.constrain(v, "batch", kv_seq_ax, kv_head_ax, None))
+    if mdl > 1 and hkv % mdl != 0 and hq % mdl == 0:
+        k = torch.repeat_interleave(k, hq // hkv, dim=2)
+        v = torch.repeat_interleave(v, hq // hkv, dim=2)
+    h_ok = k.shape[2] % mdl == 0
+    q_ax = "model" if hq % mdl == 0 else None
+    q = shard_utils.constrain(q, "batch", None, q_ax, None)
+    k = shard_utils.constrain(k, "batch", None if h_ok else "model",
+                              "model" if h_ok else None, None)
+    v = shard_utils.constrain(v, "batch", None if h_ok else "model",
+                              "model" if h_ok else None, None)
     out = chunked_mha(q, k, v, positions, positions, kind, cfg.window_size,
                       cfg.attn_logit_softcap, 1.0 / math.sqrt(cfg.resolved_head_dim))
-    return out.reshape(b, s, -1) @ p["wo"], (k, v)
+    out = shard_utils.constrain(out, "batch", None, q_ax, None)
+    return merge_heads(out) @ p["wo"], kv_out
 
 
 def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig, kind: str = "attn",
@@ -246,12 +340,16 @@ def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig, kind: str = "attn",
     q, k, v = _qkv(p, x, positions[:, None], cfg, use_rope)
     smax = kv_cache["k"].shape[1]
     ring = kind != "attn" and smax <= cfg.window_size
-    rows = torch.arange(b, device=x.device)
     # a full-window cache is clamped like the reference's dynamic_update_slice
     # (only a finished, inactive slot can sit at smax; its row is junk either way)
     at = positions % smax if ring else positions.clamp(max=smax - 1)
-    kv_cache["k"][rows, at] = k[:, 0].to(kv_cache["k"].dtype)
-    kv_cache["v"][rows, at] = v[:, 0].to(kv_cache["v"].dtype)
+    if shard_utils.is_sharded(kv_cache["k"]):
+        shard_utils.put_rows(kv_cache["k"], at, k[:, 0])
+        shard_utils.put_rows(kv_cache["v"], at, v[:, 0])
+    else:
+        rows = torch.arange(b, device=x.device)
+        kv_cache["k"][rows, at] = k[:, 0].to(kv_cache["k"].dtype)
+        kv_cache["v"][rows, at] = v[:, 0].to(kv_cache["v"].dtype)
     idx = torch.arange(smax, device=x.device)[None, :]
     q_pos = positions[:, None]
     if ring:
@@ -261,7 +359,7 @@ def attn_decode(p, x, kv_cache, positions, cfg: ModelConfig, kind: str = "attn",
         mask = make_mask(q_pos, idx, kind, cfg.window_size)       # (B, 1, Smax)
     out = mha(q, kv_cache["k"], kv_cache["v"], mask, cfg.attn_logit_softcap,
               1.0 / math.sqrt(cfg.resolved_head_dim))
-    return out.reshape(b, 1, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def _paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -344,11 +442,11 @@ def cross_attn_forward(p, x, enc_kv, cfg: ModelConfig) -> torch.Tensor:
     Returns (B, S, D)."""
     b, s, _ = x.shape
     hq, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    q = heads(x @ p["wq"], b, s, hq, hd)
     k, v = enc_kv
     mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
     out = mha(q, k, v, mask, 0.0, 1.0 / math.sqrt(hd))
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 # --------------------------------------------------------------------------
@@ -376,7 +474,7 @@ def _mla_split_q(p, x, cfg: ModelConfig):
     """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), RoPE not applied."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    q = heads(x @ p["wq"], b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
     return q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
 
 
@@ -406,23 +504,42 @@ def mla_forward(p, x, positions, cfg: ModelConfig, q_chunk: int = 1024):
     q_nope, q_rope = _mla_split_q(p, x, cfg)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _mla_compress_kv(p, x, positions, cfg)
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.nope_head_dim).to(torch.float32)
-    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim).to(torch.float32)
-    k_rope_f = k_rope[:, :, 0].to(torch.float32)
+    k_nope = heads(c_kv @ p["w_uk"], b, s, h, m.nope_head_dim)
+    v = heads(c_kv @ p["w_uv"], b, s, h, m.v_head_dim)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    outs = []
-    for s0 in range(0, s, q_chunk):
-        s1 = min(s0 + q_chunk, s)
-        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope[:, s0:s1].to(torch.float32), k_nope)
-                  + torch.einsum("bqhd,bkd->bhqk", q_rope[:, s0:s1].to(torch.float32),
-                                 k_rope_f)) * scale
-        mask = make_mask(positions[:, s0:s1], positions, "attn", 0)
-        logits = torch.where(mask[:, None], logits,
-                             torch.full((), NEG_INF, dtype=logits.dtype, device=x.device))
-        w = torch.softmax(logits, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", w, v).to(x.dtype))
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"], (c_kv, k_rope[:, :, 0])
+    k_rope_2d = k_rope[:, :, 0]
+
+    def attend(q_nope, q_rope, k_nope, k_rope, v, positions):
+        k_nope, v = k_nope.to(torch.float32), v.to(torch.float32)
+        k_rope_f = k_rope.to(torch.float32)
+        outs = []
+        for s0 in range(0, s, q_chunk):
+            s1 = min(s0 + q_chunk, s)
+            logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope[:, s0:s1].to(torch.float32),
+                                   k_nope)
+                      + torch.einsum("bqhd,bkd->bhqk", q_rope[:, s0:s1].to(torch.float32),
+                                     k_rope_f)) * scale
+            mask = make_mask(positions[:, s0:s1], positions, "attn", 0)
+            logits = torch.where(mask[:, None], logits,
+                                 torch.full((), NEG_INF, dtype=logits.dtype,
+                                            device=logits.device))
+            w = torch.softmax(logits, dim=-1)
+            outs.append(torch.einsum("bhqk,bkhd->bqhd", w, v).to(q_nope.dtype))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    args = (q_nope, q_rope, k_nope, k_rope_2d, v, positions)
+    if shard_utils.is_sharded(x):   # per batch row and head: each shard its own
+        head_ax = "model" if h % shard_utils.axis_size("model") == 0 else None
+        rows = "batch" if b % shard_utils.dp_size() == 0 else None
+        hd4 = (rows, None, head_ax, None)
+        out = shard_utils.run_local(attend, args, (hd4, hd4, hd4, (rows, None, None), hd4,
+                                                   (rows, None)), (hd4,),
+                                    partial_model=(3,) if head_ax else ())
+    else:
+        out = attend(*args)
+    return merge_heads(out) @ p["wo"], (
+        shard_utils.constrain(c_kv, "batch", "model", None),
+        shard_utils.constrain(k_rope[:, :, 0], "batch", "model", None))
 
 
 def mla_decode(p, x, cache, positions, cfg: ModelConfig):
@@ -440,10 +557,14 @@ def mla_decode(p, x, cache, positions, cfg: ModelConfig):
     c_new, k_rope_new = _mla_compress_kv(p, x, positions[:, None], cfg)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     smax = c_kv.shape[1]
-    rows = torch.arange(b, device=x.device)
     at = positions.clamp(max=smax - 1)
-    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[rows, at] = k_rope_new[:, 0, 0].to(k_rope.dtype)
+    if shard_utils.is_sharded(c_kv):
+        shard_utils.put_rows(c_kv, at, c_new[:, 0])
+        shard_utils.put_rows(k_rope, at, k_rope_new[:, 0, 0])
+    else:
+        rows = torch.arange(b, device=x.device)
+        c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
+        k_rope[rows, at] = k_rope_new[:, 0, 0].to(k_rope.dtype)
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.nope_head_dim)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32), w_uk.to(torch.float32))
     c_f = c_kv.to(torch.float32)
@@ -458,7 +579,7 @@ def mla_decode(p, x, cache, positions, cfg: ModelConfig):
     o_lat = torch.einsum("bhqk,bkr->bqhr", w, c_f)                    # (B, 1, H, R)
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv.to(torch.float32)).to(x.dtype)
-    return out.reshape(b, 1, h * m.v_head_dim) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def activate(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -500,4 +621,6 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 def ffn_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Dense FFN: wi, the activation, wo.  x (..., D) -> (..., D)."""
-    return _matmul(activate(_matmul(x, p["wi"]), cfg), p["wo"])
+    h = _matmul(x, p["wi"])
+    h = shard_utils.constrain(h, *(("batch",) + (None,) * (h.dim() - 2) + ("model",)))
+    return _matmul(activate(h, cfg), p["wo"])

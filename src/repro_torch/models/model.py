@@ -74,7 +74,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kv_pages as kvp
-from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
+from repro_torch.models import layers, moe as moe_lib, shard_utils, ssm as ssm_lib
 
 
 class Batch(NamedTuple):
@@ -133,17 +133,24 @@ def _layer(p, x, mix, cfg: ModelConfig, token_mask=None, enc_kv=None):
     out = mix(layers.apply_norm(p["pre_norm"], x, cfg))
     if cfg.sandwich_norm:
         out = layers.apply_norm(p["post_norm"], out, cfg)
-    x = x + out
+    x = _residual(x + out)
     if enc_kv is not None:
-        x = x + layers.cross_attn_forward(
-            p["cross"], layers.apply_norm(p["cross_norm"], x, cfg), enc_kv, cfg)
+        x = _residual(x + layers.cross_attn_forward(
+            p["cross"], layers.apply_norm(p["cross_norm"], x, cfg), enc_kv, cfg))
     if "ffn" not in p:
         return x, None
     y, aux = _ffn(p["ffn"], layers.apply_norm(p["ffn_norm"], x, cfg), cfg,
                   token_mask=token_mask)
     if cfg.sandwich_norm:
         y = layers.apply_norm(p["post_ffn_norm"], y, cfg)
-    return x + y, aux
+    return _residual(x + y), aux
+
+
+def _residual(x):
+    """The residual stream under a mesh: rows over the data axes, whole over
+    the model axis (the row-parallel products' partial sums reduced here,
+    as Megatron reduces them); the identity without one."""
+    return shard_utils.constrain(x, "batch", None, None)
 
 
 def _layer_decode_paged(p, x, kp, vp, table, positions, active, cfg: ModelConfig):
@@ -203,11 +210,12 @@ def _encoder_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, f, _ = x.shape
     mask = torch.ones((b, f, f), dtype=torch.bool, device=x.device)
     for lp in p["layers"]:
+        lp = shard_utils.gather_data_axes(lp)
         a = lp["attn"]
         h = _ln(lp["norm1"], x, cfg.norm_eps)
-        q, k, v = ((h @ a[n]).reshape(b, f, e.num_heads, hd) for n in ("wq", "wk", "wv"))
+        q, k, v = (layers.heads(h @ a[n], b, f, e.num_heads, hd) for n in ("wq", "wk", "wv"))
         o = layers.mha(q, k, v, mask, 0.0, 1.0 / math.sqrt(hd))
-        x = x + o.reshape(b, f, e.d_model) @ a["wo"]
+        x = x + layers.merge_heads(o) @ a["wo"]
         h = _ln(lp["norm2"], x, cfg.norm_eps)
         h = F.gelu((h @ lp["ffn"]["wi"]).to(torch.float32), approximate="tanh").to(x.dtype)
         x = x + h @ lp["ffn"]["wo"]
@@ -219,8 +227,31 @@ def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig):
     (B, F, d_enc): (k, v), each (B, F, Hkv, hd)."""
     b, f, _ = enc.shape
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return ((enc @ p["cross"]["wk"]).reshape(b, f, hkv, hd),
-            (enc @ p["cross"]["wv"]).reshape(b, f, hkv, hd))
+    return (layers.heads(enc @ p["cross"]["wk"], b, f, hkv, hd),
+            layers.heads(enc @ p["cross"]["wv"], b, f, hkv, hd))
+
+
+def _xent_chunks(h, y, m, chunk: int):
+    """The loss's token chunks (h (T, D), targets y (T,), mask m (T,)):
+    consecutive runs of `chunk` tokens.  Under a mesh the tokens are split
+    over the data shards, so a run would gather them; there each chunk
+    takes chunk / dp tokens from every shard's own rows instead (the same
+    tokens per chunk, summed in another order)."""
+    t, d = h.shape
+    n = shard_utils.dp_size() if shard_utils.is_sharded(h) else 1
+    if n == 1 or t % n:
+        for c0 in range(0, t, chunk):
+            yield h[c0:c0 + chunk], y[c0:c0 + chunk], m[c0:c0 + chunk]
+        return
+    rows = t // n
+    c = max(1, min(chunk // n, rows))
+    while rows % c:
+        c -= 1
+    lr = shard_utils.local_reshape     # each shard's own rows
+    h3, y2, m2 = lr(h, n, rows, d), lr(y, n, rows), lr(m, n, rows)
+    for c0 in range(0, rows, c):
+        yield (lr(h3[:, c0:c0 + c], n * c, d), lr(y2[:, c0:c0 + c], n * c),
+               lr(m2[:, c0:c0 + c], n * c))
 
 
 def _generator(seed: Union[int, torch.Generator], device: torch.device):
@@ -294,7 +325,10 @@ class Model:
         """Token embeddings, times sqrt(d_model) under scale_embedding: the
         factor rounded to the compute dtype first, as the reference has it
         (torch.full on the device: no host copy inside a captured step)."""
-        x = params["embed"][tokens.to(torch.long)]
+        if shard_utils.is_sharded(params["embed"]):
+            x = shard_utils.vocab_parallel_embed(params["embed"], tokens.to(torch.long))
+        else:
+            x = params["embed"][tokens.to(torch.long)]
         if not self.cfg.scale_embedding:
             return x
         return x * torch.full((), float(np.sqrt(self.cfg.d_model)), dtype=x.dtype,
@@ -350,6 +384,7 @@ class Model:
         b, s, _ = x.shape
         if cfg.rope_theta <= 0:     # absolute positions (Whisper)
             x = x + self.pos_table(s, cfg.d_model, x.device)[:s].to(x.dtype)[None]
+        x = shard_utils.constrain(x, "batch", None, None)
         enc = None
         if self.has_cross:
             frames = batch.audio_frames if isinstance(batch, Batch) else None
@@ -362,6 +397,9 @@ class Model:
         rope = _use_rope(cfg)
 
         def run(x, p, kind):
+            # under a mesh: the layer's weights gathered over the data axes
+            # (FSDP), inside the checkpoint so the backward gathers again
+            p = shard_utils.gather_data_axes(p)
             kv = []
 
             def mix(h):
@@ -422,18 +460,33 @@ class Model:
         if self.v_pad != cfg.vocab_size:
             pad = torch.arange(self.v_pad, device=x.device) >= cfg.vocab_size
 
+        # a vocabulary split over the model axis takes the sharded form below
+        sharded = shard_utils.is_sharded(h) and shard_utils.axis_size("model") > 1
+        if shard_utils.is_sharded(h):     # the head's d_model dim gathered once (FSDP)
+            w = shard_utils.constrain(w, None, "model")
+
         def xent_block(hc, yc, mc):
-            lg = layers._softcap(hc.to(torch.float32) @ w.to(torch.float32),
-                                 cfg.final_logit_softcap)
+            hc = shard_utils.constrain(hc, "batch", None)
+            lg = hc.to(torch.float32) @ w.to(torch.float32)
+            lg = shard_utils.constrain(lg, "batch", "model")    # (T, V_pad) sharded
+            lg = layers._softcap(lg, cfg.final_logit_softcap)
             if pad is not None:
                 lg = lg.masked_fill(pad, layers.NEG_INF)
-            lse = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, yc[:, None])[:, 0]
+            if not sharded:
+                lse = torch.logsumexp(lg, dim=-1)
+                gold = torch.gather(lg, -1, yc[:, None])[:, 0]
+                return torch.sum((lse - gold) * mc), torch.sum(mc)
+            # vocabulary shards: the max, the exp-sum and the target's logit
+            # reduced over the model axis; no logit leaves its shard
+            top = lg.detach().amax(dim=-1, keepdim=True)
+            lse = torch.log(torch.sum(torch.exp(lg - top), dim=-1)) + top[:, 0]
+            ids = torch.arange(lg.shape[-1], device=lg.device)
+            hit = shard_utils.constrain(ids[None, :] == yc[:, None], "batch", "model")
+            gold = torch.sum(torch.where(hit, lg, 0.0), dim=-1)
             return torch.sum((lse - gold) * mc), torch.sum(mc)
 
         tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c0 in range(0, t, chunk):
-            args = (h[c0:c0 + chunk], y[c0:c0 + chunk], m[c0:c0 + chunk])
+        for args in _xent_chunks(h, y, m, chunk):
             a, c = checkpoint(xent_block, *args, use_reentrant=False)
             tot, cnt = tot + a, cnt + c
         nll = tot / torch.clamp(cnt, min=1.0)
@@ -457,6 +510,7 @@ class Model:
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         dev = torch.device(device)
+        zeros = shard_utils.cache_zeros
         self._check_max_len(max_len)
         if paged:
             if not supports_paged_kv(cfg):
@@ -478,18 +532,16 @@ class Model:
             if cfg.mla is not None:
                 m = cfg.mla
                 cache.append({
-                    "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt, device=dev),
-                    "k_rope": torch.zeros((batch, max_len, m.rope_head_dim), dtype=dt,
-                                          device=dev)})
+                    "c_kv": zeros("c_kv", (batch, max_len, m.kv_lora_rank), dt, dev),
+                    "k_rope": zeros("k_rope", (batch, max_len, m.rope_head_dim), dt, dev)})
                 continue
             sm = max_len if kind == "attn" else min(max_len, cfg.window_size)
             shape = (batch, sm, cfg.num_kv_heads, cfg.resolved_head_dim)
-            c = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+            c = {"k": zeros("k", shape, dt, dev), "v": zeros("v", shape, dt, dev)}
             if self.has_cross:
                 xs = (batch, cfg.encoder.seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-                c["cross_k"] = torch.zeros(xs, dtype=dt, device=dev)
-                c["cross_v"] = torch.zeros(xs, dtype=dt, device=dev)
+                c["cross_k"] = zeros("cross_k", xs, dt, dev)
+                c["cross_v"] = zeros("cross_v", xs, dt, dev)
             cache.append(c)
         return cache
 
@@ -509,8 +561,8 @@ class Model:
         length); a ring keeps the last Smax keys, position p at slot p % Smax
         (an MLA layer's latent cache is full-window); an SSM layer's state
         is copied as the forward left it; a Whisper layer's cross keys and
-        values over the batch's audio frames are written whole (a frame
-        count other than the encoder's seq_len gets buffers of its own).
+        values over the batch's audio frames are copied whole (any frame
+        count).
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
         self._check_max_len(max_len)
@@ -520,28 +572,39 @@ class Model:
         if s > max_len and any(k != "ssm" for k in kinds):
             raise ValueError(f"a decode cache of max_len={max_len} cannot hold the "
                              f"{s} prefix and prompt positions")
-        cache = self.init_cache(b, max_len, x.device)
-        for c, kv, kind in zip(cache, kvs, kinds):
-            if kind == "ssm":   # a state, not a row per position
-                for name, buf in c.items():
-                    buf.copy_(kv[name])
-                continue
-            for name, src in zip(list(c), kv):      # (k, v) or (c_kv, k_rope)
-                buf = c[name]
-                if name.startswith("cross_"):       # the encoder's, every frame
-                    if buf.shape == src.shape:
-                        buf.copy_(src)
-                    else:
-                        c[name] = src.to(buf.dtype).contiguous()
-                    continue
-                sm = buf.shape[1]
-                if s > sm:  # a ring shorter than the prompt: the last sm keys
-                    slots = torch.remainder(s - sm + torch.arange(sm, device=x.device), sm)
-                    buf[:, slots] = src[:, -sm:].to(buf.dtype)
-                else:
-                    buf[:, :s] = src.to(buf.dtype)
+        cache = [self._layer_cache(kv, kind, s, max_len) for kv, kind in zip(kvs, kinds)]
         last = self.logits(params, x[:, -1:, :])[:, 0, :]
         return last, cache, np.full((b,), s, np.int64)
+
+    def _layer_cache(self, kv, kind: str, s: int, max_len: int):
+        """One layer's decode cache from its forward entry, in fresh buffers
+        laid out as ``init_cache`` lays them out: a row-per-position entry
+        keeps Smax rows (a ring the last Smax, position p at slot p % Smax;
+        a full window padded with zeros to max_len); an SSM state and the
+        cross keys and values are copied whole.  Under a mesh each entry
+        is redistributed to its decode-cache layout (``as_cache``); without
+        one that is the identity."""
+        cfg = self.cfg
+        if kind == "ssm":   # a state, not a row per position
+            return {n: shard_utils.as_cache(n, _fresh(v, torch.float32))
+                    for n, v in kv.items()}
+        dt = layers.dtype_of(cfg)
+        names = (("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")) + (
+            ("cross_k", "cross_v") if self.has_cross else ())
+        sm = (max_len if kind == "attn" or cfg.mla is not None
+              else min(max_len, cfg.window_size))
+        c = {}
+        for name, src in zip(names, kv):
+            if name.startswith("cross_"):       # the encoder's, every frame
+                src = _fresh(src, dt)
+            elif s >= sm:
+                src = torch.roll(src[:, -sm:].to(dt), (s - sm) % sm, dims=1)
+            else:
+                pad = torch.zeros((src.shape[0], sm - s, *src.shape[2:]), dtype=dt,
+                                  device=src.device)
+                src = torch.cat([src.to(dt), pad], dim=1)
+            c[name] = shard_utils.as_cache(name, src)
+        return c
 
     # -------------------- decode --------------------
     def decode_step(self, params, cache, tokens: torch.Tensor,
@@ -603,6 +666,12 @@ class Model:
         last = torch.clamp(n - 1, 0, c - 1).to(torch.long)
         xl = x[torch.arange(b, device=x.device), last][:, None, :]
         return self.logits(params, xl)[:, 0, :]
+
+
+def _fresh(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A contiguous copy of `t` in `dtype` (never `t`'s own storage: the
+    decode step writes its cache in place)."""
+    return t.to(dtype, copy=True, memory_format=torch.contiguous_format)
 
 
 def unstack_layers(cfg: ModelConfig, params) -> List[Dict[str, Any]]:

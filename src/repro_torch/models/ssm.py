@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import shard_utils
 from repro_torch.models.layers import dense_init, dtype_of
 
 
@@ -202,8 +203,8 @@ def ssm_decode(p, x: torch.Tensor, state, cfg: ModelConfig) -> torch.Tensor:
     y = y + xs * p["D"][None, :, None]
     y = y.reshape(bsz, d_in).to(x.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    state["h"].copy_(h)
-    state["conv"].copy_(window[:, 1:, :])
+    state["h"].copy_(shard_utils.as_cache("h", h))
+    state["conv"].copy_(shard_utils.as_cache("conv", window[:, 1:, :]))
     return (y @ p["out_proj"])[:, None, :]
 
 
@@ -213,8 +214,6 @@ def init_ssm_state(cfg: ModelConfig, batch: int, device) -> dict:
     s = cfg.ssm
     _, nheads, conv_dim = ssm_dims(cfg)
     return {
-        "h": torch.zeros((batch, nheads, s.head_dim, s.d_state), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=torch.float32,
-                            device=device),
+        "h": shard_utils.cache_zeros("h", (batch, nheads, s.head_dim, s.d_state), torch.float32, device),
+        "conv": shard_utils.cache_zeros("conv", (batch, s.d_conv - 1, conv_dim), torch.float32, device),
     }

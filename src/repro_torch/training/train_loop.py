@@ -10,12 +10,15 @@ tensors on the device until the loop logs them.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike
+from repro_torch.models import shard_utils
 from repro_torch.models.model import Batch, Model
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.optimizer import OptimizerConfig, OptState
@@ -34,17 +37,29 @@ def _unflatten(like, leaves: List[torch.Tensor]):
 
 
 def _split(batch: Batch, n: int) -> List[Batch]:
-    """The batch cut into n equal parts along its batch axis."""
+    """The batch cut into n equal parts along its batch axis.  A DTensor
+    batch is cut shard by shard (each microbatch takes the i-th part of
+    every rank's rows), so every part keeps the batch's layout."""
     b = batch.tokens.shape[0]
     if b % n:
         raise ValueError(f"batch of {b} rows does not split into {n} microbatches")
-    rows = b // n
-    return [Batch(*(None if f is None else f[i * rows:(i + 1) * rows] for f in batch))
-            for i in range(n)]
+
+    def part(f, i):
+        if f is None:
+            return None
+        if isinstance(f, DTensor):
+            loc = f.to_local()
+            r = loc.shape[0] // n
+            return DTensor.from_local(loc[i * r:(i + 1) * r], f.device_mesh, f.placements,
+                                      run_check=False)
+        r = b // n
+        return f[i * r:(i + 1) * r]
+
+    return [Batch(*(part(f, i) for f in batch)) for i in range(n)]
 
 
 def make_train_step(model: Model, ocfg: OptimizerConfig, *, remat: bool = True,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1, mesh=None) -> Callable:
     """train_step(state, batch) -> (state, metrics), the parameters and
     moments updated in place.
 
@@ -55,20 +70,31 @@ def make_train_step(model: Model, ocfg: OptimizerConfig, *, remat: bool = True,
     float32 summation order.  Leaves without a gradient (``final_norm``:
     the loss reads the hidden state before it) get zeros, as under
     ``jax.grad``.  Weight decay follows the reference's layout
-    (``optimizer.decay_mask``)."""
+    (``optimizer.decay_mask``).
+
+    `mesh`: the parameters, moments and batch are DTensors over it (laid
+    out by ``launch.sharding``); the loss runs under
+    ``shard_utils.mesh_scope`` and each gradient is redistributed to its
+    parameter's layout before the update, which then runs shard by shard."""
     acc_dt = opt_lib._DTYPES[ocfg.moment_dtype]
+
+    def scope():
+        return contextlib.nullcontext() if mesh is None else shard_utils.mesh_scope(mesh)
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         try:
-            loss, metrics = model.loss(params, batch, remat=remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with scope():
+                loss, metrics = model.loss(params, batch, remat=remat)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        if mesh is not None:
+            grads = [g.redistribute(t.device_mesh, t.placements) for t, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: Batch):
@@ -89,9 +115,10 @@ def make_train_step(model: Model, ocfg: OptimizerConfig, *, remat: bool = True,
             grads = [a / microbatches for a in gsum]
             loss = sum(losses) / microbatches
             metrics = {k: torch.mean(torch.stack([m[k] for m in mets])) for k in mets[0]}
-        _, new_opt, om = opt_lib.apply_updates(ocfg, params, _unflatten(params, grads),
-                                               state.opt,
-                                               decay=opt_lib.decay_mask(model.cfg, params))
+        with scope():
+            _, new_opt, om = opt_lib.apply_updates(ocfg, params, _unflatten(params, grads),
+                                                   state.opt,
+                                                   decay=opt_lib.decay_mask(model.cfg, params))
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss"] = loss
