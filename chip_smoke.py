@@ -91,8 +91,14 @@ and each printing its seconds:
                cache, dense and paged KV: equal routes, precision decisions
                and load counts and logits within atol 0.1 until a row's
                routes part at a near tie, the dense dequant-matmul kernel
-               for every lo expert and no grouped kernel; both paths'
-               decode tok/s;
+               for every lo expert and no grouped kernel; the per-expert
+               path's embedding, segments (attention and FFN norm,
+               ``engine_attn<i>``), hi and lo experts (one graph per
+               precision and pool slot) and logits replayed as CUDA graphs
+               and never run eagerly, the one-shot dense-KV prefill's one
+               call eager (a shape's first) on both paths; both paths'
+               decode tok/s, the per-expert path's beside commit e06ac32's (its
+               steps eager);
   7c. host-mode — ``score_nll`` through the engine in host compute mode
                (experts on the CPU in float32) against the device
                per-expert path, and its seconds;
@@ -100,6 +106,14 @@ and each printing its seconds:
                through HobbitBackend on one prompt, and ``api.score_nll``
                through HobbitBackend against DenseBackend (the unconstrained
                configuration of phase 5);
+  7e. engine-prefill — the offload engine's dense-KV ``prefill_batch`` and
+               joins captured (``models.prefill.DenseKVPrefill``): a 4 x 64
+               prefill 21 times across ``start_batch`` and 21 one-row
+               64-token joins into slots 0-3, each shape's first call
+               eager, its second captured, every later call a replay,
+               against the same series through ``DenseBackend(jit=False)``:
+               logits and KV cache equal, first-call / capture / replay /
+               eager ms and the graphs' memory;
   8. serve-dense — Granite-3.0-2B at full width and depth (40 layers,
                seeded random bf16 weights) through DenseBackend(paged=True)
                under BatchingServer, once with bf16 FFN weights and once
@@ -117,6 +131,20 @@ and each printing its seconds:
                both runs' decode tok/s and median step wall, the profiler
                window both ways, and ``decode.generate`` captured against
                eager;
+  8c. prefill-capture — the one-shot dense-KV prefill of Granite-3.0-2B
+               (40 layers) through ``DenseBackend`` captured (``jit=True``)
+               against eager (``jit=False``), bf16 and with the 4-bit FFN:
+               the series of 7e (two graphs surviving ``start_batch``, the q4
+               prefills on the tensor-core prefill kernel only), logits,
+               cache and launches equal, eager / first-call (eager) /
+               capture / replay ms (medians of 19), the graphs' pool
+               memory, and one prefill each way under torch.profiler
+               (kernels and device ms per prefill); phases 10, 12, 12d, 13,
+               14 and 14d add one B = 1 64-token prefill of their model,
+               four times (eager, captured, replayed twice) against eager;
+               every dense-KV serve phase prints its prefill calls by
+               route, the prefill graphs' memory after serving prompts of
+               32-64 tokens, and its time to first token;
   9. dense parity — the quantized Granite at full width cut to 4 layers on
                the card (kernels) against the same weights on the CPU (plain
                versions), step by step;
@@ -2655,6 +2683,12 @@ def _tie_gap(entry_g, entry_r, th):
     return max(gaps)
 
 
+# The per-expert path with every step eager (commit e06ac32) in phase 7b, decode
+# tok/s on dense and paged KV: two runs of that commit's phase_per_expert beside
+# two of this one's in one call, NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
+EAGER_PER_EXPERT_TOK_S = {"dense": "23.27 / 25.11", "paged": "24.40 / 23.71"}
+
+
 def phase_per_expert(dev, model, params) -> dict:
     """The per-expert reference path (``grouped=False``) against the grouped
     path, both loading synchronously (``async_prefetch=False``) on the
@@ -2692,6 +2726,15 @@ def phase_per_expert(dev, model, params) -> dict:
                       f"per-expert ({kv} KV), {name} path: no paged flash-decode launch")
         check(r["kernel_dispatch"].get("dequant_matmul.cuda", 0) > 0,
               f"per-expert ({kv} KV): no dequant_matmul launch for the lo experts")
+        # the per-expert path's device work replays graphs, never eagerly
+        _captured_path(r["kernel_dispatch"], ["engine_embed", "engine_logits", "engine_hi",
+                                              "engine_lo"]
+                       + [f"engine_attn{mi}" for mi in range(cfg.num_layers)],
+                       f"per-expert ({kv} KV)")
+        for name, run in (("grouped", g), ("per-expert", r)):
+            pf = {k: v for k, v in run["kernel_dispatch"].items() if k.startswith("prefill.")}
+            check(pf == ({} if paged else {"prefill.eager": 1}),
+                  f"per-expert ({kv} KV), {name} path: one-shot prefill {pf}")
         for op in GROUPED_OPS:
             check(r["kernel_dispatch"].get(f"{op}.cuda", 0) == 0,
                   f"per-expert ({kv} KV): {op} launched on the per-expert path")
@@ -2744,6 +2787,9 @@ def phase_per_expert(dev, model, params) -> dict:
               f"tok/s grouped {g['decode_tok_s']:.2f}, per-expert {r['decode_tok_s']:.2f} "
               f"({g['decode_tok_s'] / r['decode_tok_s']:.2f}x); per-expert dequant_matmul "
               f"launches {lo_calls}", flush=True)
+        print(f"[per-expert] {kv} KV: per-expert decode tok/s {r['decode_tok_s']:.2f} with "
+              f"its segments and experts replayed as graphs; the eager per-expert path (e06ac32): "
+              f"{EAGER_PER_EXPERT_TOK_S[kv]}", flush=True)
         for name, run in (("grouped", g), ("per_expert", r)):
             out[f"{name}_{kv}"] = {k: v for k, v in run.items()
                                    if k not in ("logits", "per_step", "th")}
@@ -2952,7 +2998,8 @@ def phase_serve_dense(dev, model, params, label: str, must_launch, *, jit: bool 
                   f"[{counts['prefill_chunk.capture']}, "
                   f"{counts.get('prefill_chunk.graph', 0)}]", flush=True)
     else:
-        check(not any(k.startswith(("serve_step.", "prefill_chunk.")) for k in counts),
+        check(not any(k.startswith(("serve_step.", "prefill_chunk.", "prefill."))
+                      for k in counts),
               f"{label}: the eager backend went through a captured step")
     summary = {
         "requests": n_req, "new_tokens": new_tokens, "max_batch": max_batch,
@@ -2960,8 +3007,13 @@ def phase_serve_dense(dev, model, params, label: str, must_launch, *, jit: bool 
         "decode_tok_s": st["decode_tok_s"], "decode_steps": len(probe.step_s),
         "median_step_ms": statistics.median(probe.step_s) * 1e3,
         "mean_prefill_s": st["mean_prefill_s"], "mean_decode_s": st["mean_decode_s"],
+        "p99_ttft_s": st["p99_ttft_s"],
         "kernel_dispatch": counts, "dequant_matmul_kernels": dq_kernels,
     }
+    if jit and not paged:   # the one-shot prefill captures only shapes that come back
+        summary["prefill_calls"] = {k: v for k, v in counts.items() if k.startswith("prefill.")}
+        summary["prefill_graphs"] = backend._prefill.step.graphs
+        summary["prefill_graph_memory"] = _pool_bytes(backend._prefill.step.pool)
     print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, {'captured' if jit else 'eager'} "
           f"step, {'paged' if paged else 'dense'} KV: wall {wall:.2f} s, "
           f"{st['decode_tok_s']:.1f} decode tok/s, median step "
@@ -3026,7 +3078,7 @@ def _decode_window(model, params, steps: int = 3, *, jit: bool = True,
 def _kernel_counts(counts) -> dict:
     """Per-op kernel launches, without the captured steps' own counters."""
     return {k: v for k, v in counts.items()
-            if not k.startswith(("serve_step.", "prefill_chunk."))}
+            if not k.startswith(("serve_step.", "prefill_chunk.", "prefill."))}
 
 
 def phase_serve_dense_jit(dev, model, params, captured: dict) -> dict:
@@ -3093,6 +3145,215 @@ def phase_serve_dense_jit(dev, model, params, captured: dict) -> dict:
           f"captured {dense_kv['decode_tok_s']:.1f} tok/s, tokens equal to the paged run's "
           f"in {same_kv:.3f} of positions; decode.generate captured = eager; "
           f"{json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the captured one-shot dense-KV prefill (models.prefill.DenseKVPrefill)
+# ---------------------------------------------------------------------------
+PREFILL_REPS = 21           # eager, capture, then the median of 19 replays
+PREFILL_B, PREFILL_S = 4, 64
+
+
+def _pool_bytes(pool) -> dict:
+    """Device memory held by the graphs of a ``capture.GraphPool``: the
+    reserved bytes of the allocator's segments in its pool and the bytes
+    allocated in them (the graphs' static outputs), from the allocator's
+    snapshot; "not measured" when the snapshot names no pools."""
+    if pool.handle is None:
+        return {"reserved_bytes": 0, "allocated_bytes": 0}
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if segs and "segment_pool_id" not in segs[0]:
+        return {"reserved_bytes": "not measured", "allocated_bytes": "not measured"}
+    mine = [g for g in segs if tuple(g["segment_pool_id"]) == tuple(pool.handle)]
+    return {"reserved_bytes": sum(g["total_size"] for g in mine),
+            "allocated_bytes": sum(g["allocated_size"] for g in mine)}
+
+
+def _cache_copy(be) -> list:
+    """A copy of a backend's dense decode cache (DenseBackend's, or the
+    offload engine's behind HobbitBackend)."""
+    cache = be.engine.kv_cache if hasattr(be, "engine") else be.cache
+    return [{n: b.clone() for n, b in c.items()} for c in cache]
+
+
+def _prefill_series(be, prompts, joins) -> dict:
+    """`be` on dense KV: PREFILL_REPS full-batch prefills of `prompts`, each
+    after a start_batch (the prefill's graphs outlive it), then
+    PREFILL_REPS one-row joins of joins[i] into slot i % B; the host wall
+    of each call (each ends in its logits' readback), the last prefill's
+    and the last join's logits, the cache after each series, the launches."""
+    from repro_torch.kernels import ops
+
+    b, s = prompts.shape
+    ops.reset_dispatch_counts()
+    out = {"prefill_ms": [], "join_ms": []}
+    for _ in range(PREFILL_REPS):
+        be.start_batch(b, s + 16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = be.prefill(prompts)
+        out["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["prefill_logits"], out["prefill_cache"] = lg, _cache_copy(be)
+    for i in range(PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = be.join(i % b, joins[i])
+        out["join_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["join_logits"], out["join_cache"] = lg, _cache_copy(be)
+    out["kernel_dispatch"] = ops.dispatch_counts()
+    out["dequant_matmul_kernels"] = ops.dequant_mm_launches()
+    return out
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, np.ndarray):
+        return float(np.abs(a - b).max())
+    return max(float((x[n].float() - y[n].float()).abs().max()) for x, y in zip(a, b)
+               for n in x)
+
+
+def _prefill_compare(label, got, want, pool, must_launch=()) -> dict:
+    """A captured series (`got`) against the eager one (`want`): each of the
+    two prompt shapes (the batch's and the join's) run eagerly on its first
+    call, captured on its second, replayed on every later one; logits and
+    caches equal (the same kernels on the same inputs: expect 0, held at
+    DENSE_PARITY_ATOL); the eager run's launches (a replay adds what its
+    capture recorded).  Prints eager ms (median of PREFILL_REPS - 1), the
+    first call's (eager), the capture's, the replays' (median of
+    PREFILL_REPS - 2) and the graphs' memory."""
+    counts = got["kernel_dispatch"]
+    check(counts.get("prefill.eager", 0) == 2 and counts.get("prefill.capture", 0) == 2
+          and counts.get("prefill.graph", 0) == 2 * PREFILL_REPS - 4,
+          f"{label}: prefill steps { {k: v for k, v in counts.items() if 'prefill' in k} }")
+    diff = {k: _max_diff(got[k], want[k]) for k in
+            ("prefill_logits", "prefill_cache", "join_logits", "join_cache")}
+    check(max(diff.values()) <= DENSE_PARITY_ATOL, f"{label}: captured vs eager {diff}")
+    kc, ke = _kernel_counts(counts), _kernel_counts(want["kernel_dispatch"])
+    check(kc == ke, f"{label}: launches captured {kc} != eager {ke}")
+    check(got["dequant_matmul_kernels"] == want["dequant_matmul_kernels"],
+          f"{label}: dequant kernels {got['dequant_matmul_kernels']} != "
+          f"{want['dequant_matmul_kernels']}")
+    for op in must_launch:
+        check(counts.get(f"{op}.cuda", 0) > 0, f"{label}: {op} never launched")
+    if "dequant_matmul" in must_launch:     # M = 256 and 64 rows: the prefill kernel only
+        dq = got["dequant_matmul_kernels"]
+        check(dq.get("mma", 0) == counts["dequant_matmul.cuda"],
+              f"{label}: dequant-matmul kernels {dq}, not all the tensor-core prefill kernel")
+    bad = {k: v for k, v in counts.items() if k.endswith(".torch")}
+    check(not bad, f"{label}: plain versions ran on the card: {bad}")
+    med = statistics.median
+    out = {"max_abs_diff": diff, "kernel_dispatch": counts,
+           "dequant_matmul_kernels": got["dequant_matmul_kernels"], "graphs": 2,
+           "graph_memory": _pool_bytes(pool)}
+    for kind in ("prefill_ms", "join_ms"):
+        out[kind] = {"eager": med(want[kind][1:]), "first_call": got[kind][0],
+                     "capture": got[kind][1], "replay": med(got[kind][2:])}
+    p, j = out["prefill_ms"], out["join_ms"]
+    print(f"[{label}] {PREFILL_B} x {PREFILL_S} prefill ms eager {p['eager']:.2f} / first "
+          f"call {p['first_call']:.2f} / capture {p['capture']:.2f} / replay "
+          f"{p['replay']:.2f}; one-row join ms eager {j['eager']:.2f} / first call "
+          f"{j['first_call']:.2f} / capture {j['capture']:.2f} / replay {j['replay']:.2f}; "
+          f"captured = eager (max |diff| {max(diff.values())}), launches equal; graphs "
+          f"hold {out['graph_memory']}", flush=True)
+    return out
+
+
+def _prefill_inputs(cfg):
+    rng = np.random.default_rng(SEED + 41)
+    return (rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
+            rng.integers(0, cfg.vocab_size, (PREFILL_REPS, PREFILL_S)))
+
+
+def phase_prefill_capture(dev, model, params, label: str, must_launch=()) -> dict:
+    """DenseBackend on dense KV, captured (jit=True) and eager (jit=False), on
+    the same series (``_prefill_series``): a 4 x 64 prefill PREFILL_REPS
+    times across start_batch, then PREFILL_REPS one-row 64-token joins;
+    compared by ``_prefill_compare``; then one prefill of each kind under
+    torch.profiler (kernels and device ms per prefill, the busy share)."""
+    from repro_torch.serving.api import DenseBackend
+
+    prompts, joins = _prefill_inputs(model.cfg)
+    runs = {jit: (DenseBackend(model, params, jit=jit)) for jit in (True, False)}
+    series = {jit: _prefill_series(be, prompts, joins) for jit, be in runs.items()}
+    out = _prefill_compare(label, series[True], series[False], runs[True]._prefill.step.pool,
+                           must_launch)
+    for jit, be in runs.items():
+        be.start_batch(PREFILL_B, PREFILL_S + 16)
+        out["profile_captured" if jit else "profile_eager"] = _profile(
+            lambda be=be: be.prefill(prompts), 3)
+    out["card"] = card_line()
+    print(f"[{label}] {out['card']}; per prefill captured "
+          f"{json.dumps(out['profile_captured'])}, eager {json.dumps(out['profile_eager'])}",
+          flush=True)
+    return out
+
+
+def _family_prefill(label, model, params, prompt_len: int = PREFILL_S) -> dict:
+    """One B = 1 prefill of a seeded prompt through DenseBackend on dense KV,
+    four times captured (eager, a capture, then two replays, a start_batch
+    before each) and four times eagerly: the replays' logits and cache
+    equal the eager call's (expect 0, held at DENSE_PARITY_ATOL), the same
+    launches; first-call, capture, replay and eager ms and the graph's
+    memory printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import DenseBackend
+
+    prompt = np.random.default_rng(SEED + 42).integers(0, model.cfg.vocab_size,
+                                                       (1, prompt_len))
+    runs = {}
+    for jit in (True, False):
+        be = DenseBackend(model, params, jit=jit)
+        ms = []
+        ops.reset_dispatch_counts()
+        for _ in range(4):
+            be.start_batch(1, prompt_len + 8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = be.prefill(prompt)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[jit] = dict(ms=ms, logits=lg, cache=_cache_copy(be),
+                         counts=ops.dispatch_counts(),
+                         memory=_pool_bytes(be._prefill.step.pool) if jit else None)
+        del be
+    c, e = runs[True], runs[False]
+    pf = {k: v for k, v in c["counts"].items() if k.startswith("prefill.")}
+    check(pf == {"prefill.eager": 1, "prefill.capture": 1, "prefill.graph": 2},
+          f"{label}: prefill steps {pf}")
+    check(_kernel_counts(c["counts"]) == _kernel_counts(e["counts"]),
+          f"{label}: launches captured {c['counts']} != eager {e['counts']}")
+    diff = max(_max_diff(c["logits"], e["logits"]), _max_diff(c["cache"], e["cache"]))
+    check(diff <= DENSE_PARITY_ATOL, f"{label}: captured vs eager prefill max |diff| {diff}")
+    out = {"prompt": [1, prompt_len], "max_abs_diff": diff, "first_call_ms": c["ms"][0],
+           "capture_ms": c["ms"][1], "replay_ms": c["ms"][2:], "eager_ms": e["ms"][1:],
+           "graph_memory": c["memory"]}
+    print(f"[{label}] B = 1 x {prompt_len} prefill ms first call {c['ms'][0]:.2f}, capture "
+          f"{c['ms'][1]:.2f}, replays {c['ms'][2]:.2f} / {c['ms'][3]:.2f}, eager "
+          f"{e['ms'][1]:.2f} / {e['ms'][2]:.2f}; captured = eager (max |diff| {diff}); "
+          f"graph holds {c['memory']}", flush=True)
+    return out
+
+
+def phase_engine_prefill(dev, model, params) -> dict:
+    """The offload engine's dense-KV prefill_batch and join on the Mixtral cut
+    (HobbitBackend, EngineConfig defaults), captured, against the same
+    series through DenseBackend(jit=False) on the same weights (the eager
+    split prefill: the same forward, the same cache layout)."""
+    from repro_torch.core import EngineConfig, OffloadEngine
+    from repro_torch.serving.api import DenseBackend, HobbitBackend
+
+    prompts, joins = _prefill_inputs(model.cfg)
+    hob = HobbitBackend(OffloadEngine(model, params, EngineConfig()))
+    try:
+        got = _prefill_series(hob, prompts, joins)
+        pool = hob.engine._prefill.step.pool
+        out = _prefill_compare("engine-prefill", got,
+                               _prefill_series(DenseBackend(model, params, jit=False),
+                                               prompts, joins), pool)
+    finally:
+        hob.close()
+    del hob
+    _free_engine()
     return out
 
 
@@ -3408,6 +3669,8 @@ def phases_48_8(dev):
           f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card", flush=True)
     with phase("serve-nemotron"):
         nem = phase_serve_full(dev, nmodel, nparams, "serve-nemotron", DENSE_OPS)
+    with phase("prefill-nemotron"):
+        nem["prefill_capture"] = _family_prefill("prefill-nemotron", nmodel, nparams)
     t0 = time.perf_counter()
     _quantize_ffn_in_place(nparams)
     torch.cuda.synchronize()
@@ -3685,6 +3948,7 @@ def phase_llama4(dev) -> dict:
     cfg = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS).validate()
     model, params, seed_s = _seeded(cfg, SEED + 20, dev, "llama4-scout")
     serve = phase_serve_dense(dev, model, params, "serve-llama4", (), paged=False)
+    serve["prefill_capture"] = _family_prefill("prefill-llama4", model, params)
     gc.collect()
     torch.cuda.empty_cache()
     refusal = _hobbit_refusal("llama4-scout", model, params,
@@ -3762,6 +4026,7 @@ def phase_deepseek(dev) -> dict:
     with phase("serve-deepseek"):
         serve = phase_serve_full(dev, model, params, "serve-deepseek", (), paged=False)
         mla = _mla_cache_and_casts(model, params)
+        serve["prefill_capture"] = _family_prefill("prefill-deepseek", model, params)
         check(mla["latent_bytes_per_token_layer"] == 1152,
               f"serve-deepseek: latent cache of {mla['latent_bytes_per_token_layer']} B "
               "per token and layer")
@@ -3870,6 +4135,8 @@ def phases_windowed(dev):
     model, params, seed_s = _seeded(get_config(GEMMA2), SEED, dev, "serve-gemma2")
     with phase("serve-gemma2"):
         g2 = phase_serve_full(dev, model, params, "serve-gemma2", (), paged=False)
+    with phase("prefill-gemma2"):
+        g2["prefill_capture"] = _family_prefill("prefill-gemma2", model, params)
     t0 = time.perf_counter()
     _quantize_ffn_in_place(params)
     torch.cuda.synchronize()
@@ -3969,6 +4236,7 @@ def phases_mamba2(dev) -> dict:
           and cache["kv_bytes_per_token"] == 0, f"serve-mamba2: cache {cache}")
     with phase("serve-mamba2"):
         serve = phase_serve_full(dev, model, params, "serve-mamba2", (), paged=False)
+        serve["prefill_capture"] = _family_prefill("prefill-mamba2", model, params)
         replays = serve["kernel_dispatch"].get("serve_step.graph", 0)
         print(f"[serve-mamba2] state {cache['state_bytes_per_slot'] / 1e6:.1f} MB per slot "
               f"at any length ({cache['ssm_layers']} SSD layers, float32); {replays} decode "
@@ -4040,6 +4308,7 @@ def phases_jamba(dev) -> dict:
           f"per token ({cache['attn_layers']} layers)", flush=True)
     with phase("serve-jamba"):
         serve = phase_serve_full(dev, model, params, "serve-jamba", (), paged=False)
+        serve["prefill_capture"] = _family_prefill("prefill-jamba", model, params)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("jamba-long-bf16"):
@@ -4757,6 +5026,8 @@ def main() -> None:
         host_mode = phase_host_mode(dev, model, params)
     with phase("single-sequence"):
         single = phase_single_sequence(dev, cfg, params)
+    with phase("engine-prefill"):
+        engine_prefill = phase_engine_prefill(dev, model, params)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4784,6 +5055,10 @@ def main() -> None:
           "positions (4-bit FFN weights change the function)", flush=True)
     with phase("serve-dense-jit"):
         phase_serve_dense_jit(dev, gmodel, qparams, dense_q)
+    with phase("prefill-capture"):
+        prefill = {"bf16": phase_prefill_capture(dev, gmodel, gparams, "prefill-capture"),
+                   "q4": phase_prefill_capture(dev, gmodel, qparams, "prefill-capture-q4",
+                                               ("dequant_matmul",))}
     del gmodel, gparams, qparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -4826,7 +5101,9 @@ def main() -> None:
              "serve_deepseek": ds["serve"], "serve_deepseek_q4": ds["serve_q4"],
              "serve_mamba2": mb["serve"], "serve_jamba": jb["serve"],
              "serve_jamba_q4": jb["serve_q4"], "serve_whisper": wh["serve"],
-             "train_mixtral": tr["train"], "train_sharded": shd["nccl"]}
+             "train_mixtral": tr["train"], "train_sharded": shd["nccl"],
+             "prefill_capture": prefill["bf16"], "prefill_capture_q4": prefill["q4"],
+             "engine_prefill": engine_prefill}
     for r in rows:
         key = f"{r.get('op', r['name'])}.cuda"
         by_path = {name: run["kernel_dispatch"].get(key, 0) for name, run in paths.items()

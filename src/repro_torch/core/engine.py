@@ -71,9 +71,24 @@ What changes on a card:
   downgrades, union-overflow commits before the replay, the stats) and
   writes the layer's pairs into a pinned table, copied to the card with
   one H2D copy per layer.  Paged admission captures each prefill chunk
-  (``ChunkedPrefill``, "prefill_chunk").  The per-expert path, host
-  compute mode and the one-shot dense-KV prefill stay eager: the reference
-  jits single experts there and each prompt shape comes once.
+  (``ChunkedPrefill``, "prefill_chunk"); the one-shot dense-KV prefill and
+  joins capture the forward of a prompt shape that comes back and lay its
+  entries out in the KV cache eagerly (``models.prefill.DenseKVPrefill``,
+  "prefill": keyed by the prompt's shape alone, so its graphs outlive
+  ``start_batch``; a few graphs at most, a shape's first call eager).
+* The per-expert path captures what the reference jits there
+  (``engine.py:991-993``): the step's embedding and logits, each MoE
+  layer's attention, FFN norm and float32 copy of the normed hidden state
+  as one segment without the gating kernel ("engine_attn<i>": this path
+  gates on the host in numpy), and each hi and lo expert as a graph per
+  (precision, pool slot), its weights fixed addresses in the graph
+  ("engine_hi", "engine_lo"; the expert graphs share one memory pool and
+  live until ``_ensure_pools`` reallocates the pools, which it never does
+  on this path after the first; ``start_batch`` drops the segments, which
+  read the KV cache it replaces).  The host loop stays
+  eager, as in the reference: decisions, loads, union-overflow reloads,
+  the float32 combine and the renormalisation; so do host compute mode's
+  experts, which run on the CPU.
 """
 
 from __future__ import annotations
@@ -88,7 +103,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.capture import CapturedStep, addresses
+from repro_torch.capture import CapturedStep, GraphPool, addresses
 from repro_torch.core.cache import MultidimensionalCache
 from repro_torch.core.fleet_heat import FleetHeat
 from repro_torch.core.loader import (ON_DEMAND, DynamicExpertLoader, LoadTask,
@@ -103,6 +118,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
 from repro_torch.models.model import Model, unstack_layers
+from repro_torch.models.prefill import DenseKVPrefill
 from repro_torch.quant.quantize import (PACK_FACTOR, QTensor, dequantize, expert_nbytes,
                                         quantize)
 
@@ -360,6 +376,13 @@ class OffloadEngine:
         self._ffn_step = CapturedStep(self._ffn, "engine_ffn")
         self._ffn_table: Optional[torch.Tensor] = None
         self._table_host: Optional[torch.Tensor] = None
+        # the per-expert path's segments (attention and FFN norm, no gating);
+        # its single experts' steps (_expert_step) come with the pools
+        self._attn_steps = [CapturedStep(functools.partial(self._attn_segment, mi),
+                                         f"engine_attn{mi}")
+                            for mi in range(self.num_moe_layers)]
+        # the one-shot dense-KV prefill, captured per repeated prompt shape
+        self._prefill = DenseKVPrefill(model, params)
 
     # ------------------------------------------------------------------
     # host storage and device pools
@@ -410,6 +433,10 @@ class OffloadEngine:
                     new[:slots].copy_(pool[n][:slots])
                 pool[n] = new
         self._ovf_rows = overflow_rows
+        # the expert graphs bake in the pools replaced here; their memory
+        # pool goes with them, a new one for the next captures
+        self._expert_steps: Dict[Tuple[int, int], CapturedStep] = {}
+        self._expert_pool = GraphPool()
 
     # ------------------------------------------------------------------
     # device transfer
@@ -508,7 +535,7 @@ class OffloadEngine:
         self._ffn_table = torch.zeros((words,), dtype=torch.int32, device=self.device)
         self._table_host = torch.zeros((words,), dtype=torch.int32, pin_memory=self._pin)
         for captured in (self._embed_step, *self._layer_steps, self._ffn_step,
-                         self._logits_step):
+                         self._logits_step, *self._attn_steps):
             captured.reset()            # the graphs bake in the buffers replaced here
         self.positions = np.zeros((batch,), np.int64)
         self.active = np.ones((batch,), bool)
@@ -536,14 +563,10 @@ class OffloadEngine:
             self.positions = np.full((b,), s, np.int64)
             self.active[:] = True
             return logits
-        logits, cache, positions = self.model.prefill(
-            self.params, to_device(prompts, self.device), self.max_len)
-        for dst, src in zip(self.kv_cache, cache):  # in place: the segments read it
-            dst["k"].copy_(src["k"])
-            dst["v"].copy_(src["v"])
-        self.positions = positions
+        logits = self._prefill(self.kv_cache, prompts, self.max_len)  # in place
+        self.positions = np.full((b,), s, np.int64)
         self.active[:] = True
-        return to_host(logits)[0]
+        return logits
 
     def join(self, slot: int, prompt) -> np.ndarray:
         """Blocking admission of one request into `slot` (the shared
@@ -556,15 +579,11 @@ class OffloadEngine:
 
     def _join_dense(self, slot: int, prompt) -> np.ndarray:
         prompt = np.asarray(prompt, np.int64).reshape(1, -1)
-        logits, one, positions = self.model.prefill(
-            self.params, to_device(prompt, self.device), self.max_len)
-        for dst, src in zip(self.kv_cache, one):
-            dst["k"][slot].copy_(src["k"][0])
-            dst["v"][slot].copy_(src["v"][0])
-        self.positions[slot] = positions[0]
+        logits = self._prefill(self.kv_cache, prompt, self.max_len, slot)
+        self.positions[slot] = prompt.shape[1]
         self.active[slot] = True
         self._pending_preds = [pp for pp in self._pending_preds if pp[2] != slot]
-        return to_host(logits[0])[0]
+        return logits[0]
 
     def join_begin(self, slot: int, prompt, reserve_tokens=None):
         """Start an incremental admission.  Paged KV: reserve pages for
@@ -705,16 +724,25 @@ class OffloadEngine:
         return self.model.logits(self.params, x)[:, 0]
 
     def _layer_segment(self, mi: int, x: torch.Tensor):
-        """MoE layer mi's fixed-shape segment: attention, the FFN norm and
-        the gating kernel.  Returns the residual stream, the normed hidden
-        state hs (B, D), its float32 copy (what the host reads) and the
-        router's top-k probabilities and experts (B, k)."""
-        li = self.moe_layers[mi]
-        x = self._attn_layer(li, x, self._step_state)
-        hs = L.apply_norm(self.layer_params[li]["ffn_norm"], x, self.cfg)[:, 0]
+        """MoE layer mi's fixed-shape segment on the grouped path: attention,
+        the FFN norm and the gating kernel.  Returns the residual stream,
+        the normed hidden state hs (B, D), its float32 copy (what the host
+        reads) and the router's top-k probabilities and experts (B, k)."""
+        x, h, h32 = self._attn_segment(mi, x)
+        hs = h[:, 0]
         _, vals, idx = kops.gating_topk(hs, self.routers_dev[mi:mi + 1],
                                         top_k=self.cfg.moe.top_k)
-        return x, hs, hs.to(torch.float32), vals[0], idx[0]
+        return x, hs, h32, vals[0], idx[0]
+
+    def _attn_segment(self, mi: int, x: torch.Tensor):
+        """MoE layer mi's attention and FFN norm (the per-expert path's
+        captured segment: it gates on the host).  Returns the residual
+        stream, the normed hidden state h (B, 1, D) and its float32 copy
+        (B, D), what the host reads."""
+        li = self.moe_layers[mi]
+        x = self._attn_layer(li, x, self._step_state)
+        h = L.apply_norm(self.layer_params[li]["ffn_norm"], x, self.cfg)
+        return x, h, h[:, 0].to(torch.float32)
 
     def _attn_layer(self, li: int, x: torch.Tensor, step: Tuple) -> torch.Tensor:
         """Layer li's attention against whichever KV layout is active (its
@@ -944,15 +972,14 @@ class OffloadEngine:
         tokens = self._step_tokens(tokens)
         rows = [r for r in range(self.batch) if self.active[r]]
         self.cache.advance_token()
-        x = self._embed(to_device(tokens[:, None], self.device))
-        step = self._step_prologue(rows)
+        x = self._embed_step(to_device(tokens[:, None], self.device))
+        self._step_prologue(rows)
 
         row_trace = {r: [] for r in rows}
         for mi, li in enumerate(self.moe_layers):
-            p = self.layer_params[li]
-            x = self._attn_layer(li, x, step)
-            h = L.apply_norm(p["ffn_norm"], x, cfg)                 # (B, 1, D)
-            (h_host,) = to_host(h[:, 0].to(torch.float32))          # host sync
+            # attention and the FFN norm, h (B, 1, D), then one host sync
+            x, h, h32 = self._attn_steps[mi](x, key=self._segment_key(li))
+            (h_host,) = to_host(h32)
 
             # ---- gating on the host, per row, as the reference writes it ----
             tops: Dict[int, np.ndarray] = {}
@@ -1006,10 +1033,9 @@ class OffloadEngine:
                         self._union_reloads += 1
                     if ecfg.compute_mode == "host":
                         out = self._host_expert(mi, e, d_, hr)
-                    elif is_hi:
-                        out = self._hi_expert(slot, hr)
                     else:
-                        out = self._lo_expert(slot, hr)
+                        pool = self.pool_hi if is_hi else self.pool_lo
+                        out = self._expert_step(d_, slot)(hr, key=addresses(pool.values()))
                     y[r] += float(w) * out.reshape(-1).to(torch.float32)
                     wsum += float(w)
                 if wsum > 0:
@@ -1017,7 +1043,24 @@ class OffloadEngine:
                 row_trace[r].append(self._trace_entry(mi, r, tops, gates, pred_entry))
             x = x + y[:, None, :].to(x.dtype)
 
-        return self._step_epilogue(self._logits(x), rows, row_trace)
+        return self._step_epilogue(self._logits_step(x), rows, row_trace)
+
+    def _expert_step(self, precision: int, slot: int) -> CapturedStep:
+        """The captured single expert on pool slot `slot` ("engine_hi" /
+        "engine_lo"): one step per (precision, slot), keyed by the pool
+        tensors' addresses, which its graph bakes in with the slot's
+        weights; every such graph in one shared pool (each output is added
+        into the layer's sum before the next expert replays).  The graphs
+        live across ``start_batch`` until ``_ensure_pools`` reallocates
+        the pools."""
+        step = self._expert_steps.get((precision, slot))
+        if step is None:
+            hi = precision == PREC_HI
+            step = CapturedStep(functools.partial(self._hi_expert if hi else self._lo_expert,
+                                                  slot),
+                                "engine_hi" if hi else "engine_lo", self._expert_pool)
+            self._expert_steps[precision, slot] = step
+        return step
 
     def _hi_expert(self, slot: int, h: torch.Tensor) -> torch.Tensor:
         """One hi expert on its pool slot: two products in the model dtype

@@ -562,19 +562,60 @@ class Model:
         (an MLA layer's latent cache is full-window); an SSM layer's state
         is copied as the forward left it; a Whisper layer's cross keys and
         values over the batch's audio frames are copied whole (any frame
-        count).
+        count).  ``prefill_entries`` then the layout in fresh buffers
+        (``_layer_cache``); the backends run the first part captured and
+        copy the second into their persistent cache (``write_cache``).
         Returns (last-token logits (B, V), cache, next positions as a host
         array (B,): prefix plus prompt tokens)."""
         self._check_max_len(max_len)
-        x, kvs, _ = self.forward(params, batch)
-        b, s, _ = x.shape
+        s = self.prompt_len(batch)
+        self.check_prompt_fits(s, max_len)
+        last, kvs = self.prefill_entries(params, batch)
         kinds = self.cfg.layer_kinds()
-        if s > max_len and any(k != "ssm" for k in kinds):
+        cache = [self._layer_cache(kv, kind, s, max_len) for kv, kind in zip(kvs, kinds)]
+        return last, cache, np.full((last.shape[0],), s, np.int64)
+
+    def prefill_entries(self, params, batch: Union[Batch, torch.Tensor]):
+        """The capturable part of ``prefill``: ``forward`` over whole
+        prompts and the last position's logits.  Returns (last-token
+        logits (B, V), each layer's forward entry at the prompt's own
+        length, as ``forward`` returns them).  Nothing here depends on a
+        cache's length or reads back to the host, so a backend captures it
+        keyed by the prompt's shape alone."""
+        x, kvs, _ = self.forward(params, batch)
+        return self.logits(params, x[:, -1:, :])[:, 0, :], kvs
+
+    def prompt_len(self, batch: Union[Batch, torch.Tensor]) -> int:
+        """Positions a prefill of `batch` fills: its tokens, and in front of
+        them a "vision_patches" model's prefix embeddings."""
+        tokens = batch.tokens if isinstance(batch, Batch) else batch
+        prefix = batch.prefix_embeds if isinstance(batch, Batch) else None
+        if self.cfg.frontend == "vision_patches" and prefix is not None:
+            return tokens.shape[1] + prefix.shape[1]
+        return tokens.shape[1]
+
+    def check_prompt_fits(self, s: int, max_len: int) -> None:
+        """A decode cache of max_len rows cannot hold an s-position prompt
+        where a layer keeps a row per position (an all-SSM model keeps
+        none)."""
+        if s > max_len and any(k != "ssm" for k in self.cfg.layer_kinds()):
             raise ValueError(f"a decode cache of max_len={max_len} cannot hold the "
                              f"{s} prefix and prompt positions")
-        cache = [self._layer_cache(kv, kind, s, max_len) for kv, kind in zip(kvs, kinds)]
-        last = self.logits(params, x[:, -1:, :])[:, 0, :]
-        return last, cache, np.full((b,), s, np.int64)
+
+    def write_cache(self, cache, entries, s: int, max_len: int,
+                    slot: Optional[int] = None) -> None:
+        """The eager layout part of ``prefill``: `entries` (``prefill_entries``'
+        second result for an s-position prompt) laid out by
+        ``_layer_cache``, as ``prefill`` lays them out, and copied in place
+        into `cache`, a dense decode cache of ``init_cache``'s layout for
+        max_len.  `slot` None writes every row; an int writes one prompt's
+        entries (batch 1) into row `slot` of every buffer (a join: an SSM
+        row's state is overwritten, whatever the dead row was stepped to)."""
+        rows = slice(None) if slot is None else slice(slot, slot + 1)
+        for dst, kv, kind in zip(cache, entries, self.cfg.layer_kinds()):
+            laid = self._layer_cache(kv, kind, s, max_len)
+            for name, buf in dst.items():
+                buf[rows].copy_(laid[name])
 
     def _layer_cache(self, kv, kind: str, s: int, max_len: int):
         """One layer's decode cache from its forward entry, in fresh buffers

@@ -26,12 +26,14 @@ as float32 numpy arrays, as in the JAX package.  ``generate`` and
 ``score_nll`` drive any backend through this protocol.
 
 ``DenseBackend(jit=True)`` (the default, as the reference jits its steps)
-runs its decode step on either KV layout, and on paged KV each chunk of
-chunked prefill, as a captured step (``capture.CapturedStep``): a CUDA
-graph per batch shape on the card, eager on the CPU.  The one-shot dense-KV
-prefill and joins stay eager (each prompt shape comes once).  The offload
-engine captures its decode step's device work and its chunked admission
-itself, whatever ``BackendConfig.jit`` says (``core/engine.py``).
+runs its decode step on either KV layout, on paged KV each chunk of
+chunked prefill, and on dense KV the one-shot prefill of a batch or a join
+(``models.prefill.DenseKVPrefill``: the forward captured per prompt
+shape that comes back, its entries laid out in the cache eagerly) as captured steps
+(``capture.CapturedStep``): CUDA graphs on the card, eager on the CPU.
+The offload engine captures its decode step's device work, its dense-KV
+prefill and its chunked admission itself, whatever ``BackendConfig.jit``
+says (``core/engine.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from repro_torch.capture import CapturedStep, addresses
 from repro_torch.device import to_device, to_host
 from repro_torch.models.kv_pages import ChunkedPrefill, PagedKVPool
 from repro_torch.models.model import Model, supports_paged_kv
+from repro_torch.models.prefill import DenseKVPrefill
 from repro_torch.serving.decode import GenerateResult, sample_token
 
 
@@ -113,8 +116,11 @@ class DenseBackend:
     ``jit=True`` runs the decode step as a captured step ("serve_step": a
     CUDA graph replayed per step on the card, keyed by the batch shape and
     the KV buffers it writes; ``start_batch`` drops the graphs with the
-    buffers), and on paged KV each prefill chunk ("prefill_chunk");
-    ``jit=False`` runs both eagerly.
+    buffers), on paged KV each prefill chunk ("prefill_chunk"), and on
+    dense KV the one-shot prefill and joins ("prefill", keyed by the
+    prompt's shape alone, so its graphs outlive ``start_batch``; a shape's
+    first call eager, a few graphs at most: ``models.prefill``);
+    ``jit=False`` runs all three eagerly.
 
     ``paged=True`` swaps the per-slot (B, max_len) cache for a shared
     `PagedKVPool` (page_size-token pages, a pool of `kv_pages` pages —
@@ -135,6 +141,7 @@ class DenseBackend:
         self.device = params["embed"].device
         self._jit = jit
         self._step = CapturedStep(self._decode, "serve_step") if jit else None
+        self._prefill = DenseKVPrefill(model, params, jit=jit)
         self.paged = paged
         self.page_size = page_size
         self.kv_pages = kv_pages
@@ -169,21 +176,19 @@ class DenseBackend:
 
     def prefill(self, prompts) -> np.ndarray:
         """Full-batch prefill; paged: chunked, every row reserving max_len.
-        Dense: each layer's cache buffers copied in place by name (K/V rows,
-        rings, latent rows, an SSM layer's state as the prefill left it)."""
+        Dense: the entries written into each layer's cache buffers in place
+        (``models.prefill.DenseKVPrefill``: K/V rows padded with zeros, rings,
+        latent rows, an SSM layer's state as the prefill left it)."""
         prompts = np.asarray(prompts, np.int64)
         if self.paged:
             logits = self._admission.run_batch(prompts, self.max_len)
             self.positions = np.full(prompts.shape[:1], prompts.shape[1], np.int64)
             self.active[:] = True
             return logits
-        logits, cache, self.positions = self.model.prefill(
-            self.params, to_device(prompts, self.device), self.max_len)
-        for dst, src in zip(self.cache, cache):     # in place: the step's graph reads it
-            for name, buf in dst.items():
-                buf.copy_(src[name])
+        logits = self._prefill(self.cache, prompts, self.max_len)  # in place
+        self.positions = np.full(prompts.shape[:1], prompts.shape[1], np.int64)
         self.active[:] = True
-        return to_host(logits)[0]
+        return logits
 
     def join(self, slot: int, prompt) -> np.ndarray:
         return _blocking_join(self, slot, prompt)
@@ -220,14 +225,11 @@ class DenseBackend:
         (a ring layer's row is its ring, as long as the batch's; an MLA
         layer's its latent row; an SSM layer's its state, overwriting what
         the dead row was stepped to)."""
-        logits, one, positions = self.model.prefill(
-            self.params, to_device(prompt.reshape(1, -1), self.device), self.max_len)
-        for dst, src in zip(self.cache, one):
-            for name, buf in dst.items():
-                buf[slot].copy_(src[name][0])
-        self.positions[slot] = positions[0]
+        prompt = prompt.reshape(1, -1)
+        logits = self._prefill(self.cache, prompt, self.max_len, slot)
+        self.positions[slot] = prompt.shape[1]
         self.active[slot] = True
-        return to_host(logits[0])[0]
+        return logits[0]
 
     def can_admit(self, tokens: int, *, prompt=None) -> bool:
         """Paged: unreserved pages for `tokens`, net of prefix sharing when

@@ -6,9 +6,13 @@ max_len (a windowed layer's a ring of min(max_len, window) slots, an MLA
 layer's a latent cache, an SSM layer's its fixed-size state, all written in
 place).  ``generate(jit=True)`` runs it as a captured step
 (``capture.CapturedStep``): a CUDA graph replayed per token on the card,
-eager on the CPU.  The prefill stays eager on both: the loop calls it once
-per prompt shape, so a graph would only add the cost of its capture.
-Sampling runs on the host with a ``torch.Generator``.
+eager on the CPU.  ``generate``'s prefill (``make_prefill_step``) stays
+eager on both: the reference builds ``jax.jit(prefill)`` anew in every
+call (``src/repro/serving/decode.py:69-72``), so it compiles once per call,
+and a graph that lives for one call would add its warm-up and its capture
+and replay nothing.  The backends' prefill lives as long as the backend,
+so ``models.prefill.DenseKVPrefill`` captures the prompt shapes that come
+back.  Sampling runs on the host with a ``torch.Generator``.
 """
 
 from __future__ import annotations

@@ -167,8 +167,9 @@ def test_prefill_step_refuses_frontend_inputs(models):
 def test_dense_backend_jit_equals_eager_and_reference(models, paged):
     """Greedy tokens and per-step logits of jit=True equal jit=False exactly
     (the same eager code on the CPU), and the tokens equal the reference's
-    decode.generate; only the captured run counts serve_step.eager, and on
-    paged KV prefill_chunk.eager (8-token prompts in 4-token chunks)."""
+    decode.generate; only the captured run counts serve_step.eager, on
+    paged KV prefill_chunk.eager (8-token prompts in 4-token chunks) and on
+    dense KV prefill.eager (the one-shot prefill)."""
     _, _, _, port, tparams = models
     runs = {}
     for jit in (True, False):
@@ -187,9 +188,10 @@ def test_dense_backend_jit_equals_eager_and_reference(models, paged):
     np.testing.assert_array_equal(runs[True][0], _ref_tokens(models, True))
     assert runs[True][1]["serve_step.eager"] == NEW - 1
     assert runs[True][1].get("prefill_chunk.eager", 0) == (2 if paged else 0)
-    assert not any(k.startswith(("serve_step.", "prefill_chunk.")) for k in runs[False][1])
-    kernels = {k: v for k, v in runs[True][1].items()
-               if not k.startswith(("serve_step.", "prefill_chunk."))}
+    assert runs[True][1].get("prefill.eager", 0) == (0 if paged else 1)
+    steps = ("serve_step.", "prefill_chunk.", "prefill.")
+    assert not any(k.startswith(steps) for k in runs[False][1])
+    kernels = {k: v for k, v in runs[True][1].items() if not k.startswith(steps)}
     assert kernels == runs[False][1]            # the same launches on either route
 
 
@@ -433,13 +435,19 @@ def test_captured_code_has_no_host_reads(module):
     ("core/engine.py", "OffloadEngine._attn_layer"),
     ("core/engine.py", "OffloadEngine._embed"),
     ("core/engine.py", "OffloadEngine._logits"),
+    ("core/engine.py", "OffloadEngine._attn_segment"),
+    ("core/engine.py", "OffloadEngine._hi_expert"),
+    ("core/engine.py", "OffloadEngine._lo_expert"),
     ("models/kv_pages.py", "ChunkedPrefill._prefill_chunk"),
+    ("models/model.py", "Model.prefill_entries"),
     ("serving/api.py", "DenseBackend._decode"),
+    ("models/prefill.py", "DenseKVPrefill._entries"),
 ])
 def test_captured_functions_have_no_host_reads(module, function):
     """The functions captured from modules that also hold host code (the
-    engine's segment and grouped FFN, the chunked-prefill step, the dense
-    backend's decode step) read nothing back to the host either."""
+    engine's segments, grouped FFN and single experts, the chunked-prefill
+    step, the one-shot prefill's forward, the dense backend's decode step)
+    read nothing back to the host either."""
     import ast
     import pathlib
     tree = ast.parse((pathlib.Path(capture.__file__).parent / module).read_text())

@@ -21,6 +21,17 @@ runs on the machine with the card:
   replays, and a replay on a fixed input equals the eager call bit for bit;
 * ``ChunkedPrefill(jit=True)``: chunks after the first replay, and the
   logits and the pool's pages equal ``jit=False``'s bit for bit;
+* the one-shot dense-KV prefill (``models.prefill.DenseKVPrefill``,
+  "prefill"): a shape's first call runs eagerly, its second captures, and
+  a replay after ``start_batch`` gives the eager prefill's logits and cache
+  bit for bit; two prompt lengths alternated replay right though their
+  graphs share one memory pool; joins into two slots replay one graph; at
+  the graph bound a more frequent shape replaces the least-used graph (its
+  outputs freed into the shared pool) and every call stays equal to eager;
+* the engine's per-expert path: its segments and experts replay (never
+  eager), and one segment's and one hi and one lo expert's replay on a
+  fixed input equal the eager calls bit for bit; the expert graphs outlive
+  ``start_batch``;
 * ``kops.grouped_matmul`` against its plain version (rtol/atol 1e-4:
   float32 sums in another order), pads and shared slots, the 1024-pair
   maximum, 9 and 17 pairs on one slot, K off the ring's 64-row stage and
@@ -37,10 +48,11 @@ import torch
 
 from repro_torch import capture
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.core import EngineConfig, OffloadEngine
+from repro_torch.core import PREC_HI, PREC_LO, EngineConfig, OffloadEngine, Thresholds
 from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model
 from repro_torch.models.kv_pages import ChunkedPrefill
+from repro_torch.models.prefill import DenseKVPrefill
 from repro_torch.serving import api
 
 
@@ -83,8 +95,11 @@ def test_dense_backend_replay_equals_eager_on_card(card, paged):
     # paged: the prefill's one chunk is the captured chunk step's warm-up
     assert counts.get("prefill_chunk.capture", 0) == (1 if paged else 0)
     assert "prefill_chunk.eager" not in counts
+    # dense: the one-shot prefill's first call of a shape runs eagerly
+    assert counts.get("prefill.eager", 0) == (0 if paged else 1)
+    assert "prefill.capture" not in counts
     kernels = {k: v for k, v in counts.items()
-               if not k.startswith(("serve_step.", "prefill_chunk."))}
+               if not k.startswith(("serve_step.", "prefill_chunk.", "prefill."))}
     assert kernels == logits[False][1]          # launches grow on every replay
 
 
@@ -246,6 +261,145 @@ def test_chunked_prefill_replay_equals_eager_on_card(card):
     assert "prefill_chunk.eager" not in counts
     kernels = {k: v for k, v in counts.items() if not k.startswith("prefill_chunk.")}
     assert kernels == runs[False][2]
+
+
+def _dense_calls(port, params, jit, calls):
+    """DenseBackend(jit=jit) on dense KV through `calls`, a list of
+    ("start", batch) / ("prefill", prompts) / ("join", slot, prompt):
+    each prefill's and join's logits and a copy of the cache after it, and
+    the launch counts."""
+    be = api.DenseBackend(port, params, jit=jit)
+    ops.reset_dispatch_counts()
+    out = []
+    for call in calls:
+        if call[0] == "start":
+            be.start_batch(call[1], 24)
+            continue
+        lg = be.prefill(call[1]) if call[0] == "prefill" else be.join(call[1], call[2])
+        out.append((lg, [{n: b.clone() for n, b in c.items()} for c in be.cache]))
+    return be, out, ops.dispatch_counts()
+
+
+def _assert_same_runs(got, want):
+    for (lg, cache), (lg0, cache0) in zip(got, want):
+        np.testing.assert_array_equal(lg, lg0)
+        for c, c0 in zip(cache, cache0):
+            for name in c0:
+                assert torch.equal(c[name], c0[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "jamba-v0.1-52b"])
+def test_prefill_replay_after_start_batch_equals_eager_on_card(card, arch):
+    """Three prefills of one shape, a start_batch before each: the first
+    runs eagerly, the second captures, the third replays; each writes the
+    eager prefill's logits and cache bit for bit, with the eager run's
+    launches."""
+    cfg = smoke_variant(get_config(arch), d_model=256, vocab=512)
+    port = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+    params = port.init(0, device=card)
+    calls = []
+    for seed in range(3):
+        calls += [("start", 2), ("prefill", _prompts(port.cfg, s=9, seed=seed))]
+    be, got, counts = _dense_calls(port, params, True, calls)
+    _, want, eager = _dense_calls(port, params, False, calls)
+    _assert_same_runs(got, want)
+    assert counts["prefill.eager"] == 1 and counts["prefill.capture"] == 1
+    assert counts["prefill.graph"] == 1
+    assert be._prefill.step.graphs == 1
+    assert {k: v for k, v in counts.items() if not k.startswith("prefill.")} == eager
+
+
+@pytest.mark.cuda
+def test_prefill_lengths_alternated_share_a_pool_on_card(card):
+    """Two prompt lengths alternated: two graphs in one memory pool, each
+    replay right (each call reads its outputs before the next replays),
+    and joins of one length into two slots replay one graph."""
+    port = _granite()
+    params = port.init(0, device=card)
+    calls = [("start", 2)]
+    for i in range(7):      # 11, 6: eager, then captured, then replayed
+        calls.append(("prefill", _prompts(port.cfg, s=6 if i % 2 else 11, seed=i)))
+    calls += [("join", i % 2, _prompts(port.cfg, b=1, s=5, seed=7 + i)[0]) for i in range(4)]
+    be, got, counts = _dense_calls(port, params, True, calls)
+    _, want, _ = _dense_calls(port, params, False, calls)
+    _assert_same_runs(got, want)
+    assert counts["prefill.eager"] == 3 and counts["prefill.capture"] == 3
+    assert counts["prefill.graph"] == 5
+    assert be._prefill.step.graphs == 3
+
+
+@pytest.mark.cuda
+def test_prefill_graph_bound_on_card(card, monkeypatch):
+    """With room for two graphs, a third shape asked for more than twice as
+    often as a held one's is captured and the least-used graph dropped (its
+    static outputs freed into the shared pool, where the next capture may
+    reuse them); every call, replays after the drop included, equals
+    eager."""
+    monkeypatch.setattr(DenseKVPrefill, "MAX_GRAPHS", 2)
+    port = _granite()
+    params = port.init(0, device=card)
+    lens = [7, 7, 9, 9, 11, 11, 11, 11, 11, 9, 7, 11]
+    calls = [("start", 2)] + [("prefill", _prompts(port.cfg, s=n, seed=i))
+                              for i, n in enumerate(lens)]
+    be, got, counts = _dense_calls(port, params, True, calls)
+    _, want, _ = _dense_calls(port, params, False, calls)
+    _assert_same_runs(got, want)
+    held = {k[0][0][0][1] for k in be._prefill.step._graphs}
+    # 7 and 9 captured on their second calls; 11 eager until its fifth
+    # call, which replaces 7's graph (two calls); 9 replays after the drop;
+    # 7's third call is not twice 9's (eager); 11 replays
+    pf = {k: v for k, v in counts.items() if k.startswith("prefill.")}
+    assert pf == {"prefill.eager": 7, "prefill.capture": 3, "prefill.graph": 2}
+    assert held == {9, 11}
+
+
+@pytest.mark.cuda
+def test_per_expert_path_replays_equal_eager_on_card(card):
+    """The per-expert path on the card: every segment and expert call after
+    the first of its key replays a graph, none runs eagerly, and a
+    replayed segment, hi expert and lo expert equal the eager calls on the
+    same input bit for bit; start_batch keeps the expert graphs."""
+    port = _mixtral()
+    # rank 0 hi, rank 1 lo in every row: both expert steps replay
+    eng = OffloadEngine(port, port.init(0, device=card), EngineConfig(
+        hi_slots=3, lo_slots=2, async_prefetch=False, grouped=False,
+        thresholds=Thresholds(0.0, 1.0)))
+    hob = api.HobbitBackend(eng)
+    rng = np.random.default_rng(3)
+    try:
+        hob.start_batch(2, 32)
+        hob.prefill(_prompts(port.cfg))
+        ops.reset_dispatch_counts()
+        for _ in range(6):
+            hob.step(rng.integers(0, port.cfg.vocab_size, 2))
+        counts = ops.dispatch_counts()
+        for name in ("engine_attn0", "engine_attn1", "engine_hi", "engine_lo",
+                     "engine_embed", "engine_logits"):
+            assert counts.get(f"{name}.graph", 0) > 0, name
+            assert f"{name}.eager" not in counts, name
+        g = torch.Generator(device=card).manual_seed(5)
+        x = torch.randn((2, 1, port.cfg.d_model), generator=g, device=card).to(torch.bfloat16)
+        key = eng._segment_key(eng.moe_layers[0])
+        replay = [t.clone() for t in eng._attn_steps[0](x, key=key)]
+        eager = eng._attn_segment(0, x)
+        for a, b in zip(replay, eager):
+            assert torch.equal(a, b)
+        h = eager[1][:1]
+        for prec, fn in ((PREC_HI, eng._hi_expert), (PREC_LO, eng._lo_expert)):
+            slot = next(s for p, s in eng._expert_steps if p == prec)
+            before = ops.dispatch_counts()
+            pool = eng.pool_hi if prec == PREC_HI else eng.pool_lo
+            got = eng._expert_step(prec, slot)(h, key=capture.addresses(pool.values())).clone()
+            name = "engine_hi" if prec == PREC_HI else "engine_lo"
+            assert ops.dispatch_counts()[f"{name}.graph"] == before[f"{name}.graph"] + 1
+            assert torch.equal(got, fn(slot, h))
+        # the expert graphs outlive start_batch (the pools stay)
+        held = {k: (st, st.graphs) for k, st in eng._expert_steps.items()}
+        hob.start_batch(2, 32)
+        assert {k: (st, st.graphs) for k, st in eng._expert_steps.items()} == held
+    finally:
+        hob.close()
 
 
 @pytest.mark.cuda
