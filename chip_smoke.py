@@ -106,6 +106,18 @@ and each printing its seconds:
                through HobbitBackend on one prompt, and ``api.score_nll``
                through HobbitBackend against DenseBackend (the unconstrained
                configuration of phase 5);
+  7f. simulator — the simulator's host model on the card
+               (``core.host_model``): the pinned copy rate of one hi expert
+               and the resident engine's decode_token wall per MoE layer,
+               the slope between 2 and 4 layers (beside the per-step
+               intercept, a profiler window's device time and the
+               committed ``H100_HOST``); then one batch-1 sequence on the
+               serve configuration, the engine's tok/s, load stall,
+               overlap, hit ratio and loads against the simulator's on the
+               same trace under ``H100_HOST`` and under this run's
+               constants, a replay step's wall split into load stall,
+               compute kernels and host work (profiler), and the four
+               systems' simulated table;
   7e. engine-prefill — the offload engine's dense-KV ``prefill_batch`` and
                joins captured (``models.prefill.DenseKVPrefill``): a 4 x 64
                prefill 21 times across ``start_batch`` and 21 one-row
@@ -2400,16 +2412,15 @@ def phase_parity(dev, cfg, params) -> None:
     engine in float32), so per-step logits (std ~1.3 here) must agree
     within atol PARITY_ATOL = 0.1; a wrong expert, weight or kernel moves
     them by O(1)."""
-    from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+    from repro_torch.core import OffloadEngine
+    from repro_torch.core.host_model import resident_config
     from repro_torch.models import build_model
     from repro_torch.serving.api import DenseBackend, HobbitBackend
 
     cfg8 = dataclasses.replace(
         cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     model = build_model(cfg8)
-    n = cfg8.num_layers * cfg8.moe.num_experts
-    ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
-                        prefetch=False)
+    ecfg = resident_config(cfg8)
     dense = DenseBackend(model, params)
     hob = HobbitBackend(OffloadEngine(model, params, ecfg))
     rng = np.random.default_rng(SEED + 1)
@@ -2552,21 +2563,20 @@ def phase_paged_parity(dev, cfg, params) -> None:
     same prompts and teacher-forced tokens: per-step logits within
     PARITY_ATOL (attention runs in another kernel and another summation
     order; a wrong page, position or mask moves the logits by O(1))."""
-    from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+    from repro_torch.core import OffloadEngine
+    from repro_torch.core.host_model import resident_config
     from repro_torch.models import build_model
     from repro_torch.serving.api import HobbitBackend
 
     cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     model = build_model(cfg8)
-    n = cfg8.num_layers * cfg8.moe.num_experts
     rng = np.random.default_rng(SEED + 3)
     b, s, steps = 2, 100, 4          # 100-token prompts span two 64-token pages
     prompts = rng.integers(0, cfg8.vocab_size, (b, s))
     teacher = rng.integers(0, cfg8.vocab_size, (steps, b))
     runs = {}
     for paged in (False, True):
-        ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
-                            prefetch=False, paged_kv=paged)
+        ecfg = dataclasses.replace(resident_config(cfg8), paged_kv=paged)
         hob = HobbitBackend(OffloadEngine(model, params, ecfg))
         try:
             hob.start_batch(b, s + steps + 4)
@@ -2864,16 +2874,15 @@ def phase_single_sequence(dev, cfg, params) -> dict:
     logits there (their gap within 2 * PARITY_ATOL, bf16 rounding: both
     paths compute the same function in another order), after which the
     sequences legitimately differ."""
-    from repro_torch.core import EngineConfig, OffloadEngine, Thresholds
+    from repro_torch.core import OffloadEngine
+    from repro_torch.core.host_model import resident_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import api
 
     cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     model = build_model(cfg8)
-    n = cfg8.num_layers * cfg8.moe.num_experts
-    ecfg = EngineConfig(hi_slots=n, lo_slots=1, thresholds=Thresholds(1.0, 1.0),
-                        prefetch=False)
+    ecfg = resident_config(cfg8)
     rng = np.random.default_rng(SEED + 6)
     prompt = rng.integers(0, cfg8.vocab_size, 16)
     seq = rng.integers(0, cfg8.vocab_size, 12)
@@ -2920,6 +2929,248 @@ def phase_single_sequence(dev, cfg, params) -> dict:
           f"{nll_d:.5f}, |diff| = {diff:.5f} <= {NLL_ATOL}", flush=True)
     return dict(engine_tokens=by_engine, api_tokens=by_api, parted_at=part, logit_gap=gap,
                 nll_hobbit=nll_h, nll_dense=nll_d, generate_s=gen_s, kernel_dispatch=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: the simulator's host model measured on the card, and the
+# simulator held against the engine it models
+# ---------------------------------------------------------------------------
+SIM_PROMPT, SIM_NEW = 48, 32        # the compared sequence
+SIM_WARM = 16                       # prompt and new tokens of each warm-up
+SIM_DEPTHS = (2, LAYERS)            # the resident step's cuts: its slope per layer
+SIM_KEYS = ("tok_s", "load_stall_s", "overlap_fraction", "hit_ratio", "loads_hi",
+            "loads_lo", "precision_downgrades", "upgrades")
+
+
+def _resident_steps(model, params, prompt):
+    """``host_model.resident_step`` of `model` cut to each of SIM_DEPTHS
+    (the first layers of `params`), and a profiler window of 8 steps at
+    the full cut; returns the steps, the hi expert's bytes and the window."""
+    from repro_torch.core import PREC_HI, OffloadEngine
+    from repro_torch.core import host_model as hm
+    from repro_torch.models import build_model
+
+    steps, window = [], None
+    for depth in SIM_DEPTHS:
+        cut = (model if depth == model.cfg.num_layers else
+               build_model(dataclasses.replace(model.cfg, num_layers=depth).validate()))
+        eng = OffloadEngine(cut, {**params, "layers": params["layers"][:depth]},
+                            hm.resident_config(cut.cfg))
+        try:
+            steps.append(hm.resident_step(eng, prompt, SIM_WARM))
+            hi_bytes = eng.expert_bytes[PREC_HI]
+            if cut is model:
+                eng.start_sequence(16)
+                for _ in range(2):          # the steps captured again after start
+                    eng.decode_token(1)
+                window = _profile(lambda: eng.decode_token(1), 8)
+        finally:
+            eng.close()
+        del eng
+        _free_engine()
+    return steps, hi_bytes, window
+
+
+def _step_split(steps, window, layers) -> dict:
+    """Where the replay steps' wall goes, in ms per step and per MoE layer:
+    the load stall (the host waiting on a copy), the compute kernels'
+    device time (`window`: the same token stream replayed under the
+    profiler) and the rest, the device idle with no load awaited: host
+    work.  Capture steps are left out (their count and seconds beside)."""
+    replay = [st for st in steps if not st["captures"]]
+    n = len(replay)
+    wall = sum(st["s"] for st in replay) / n * 1e3
+    stall = sum(st["stall_s"] for st in replay) / n * 1e3
+    kern = window.get("kernel_ms_per_step")
+    split = {"replay_steps": n, "wall_ms": wall, "stall_ms": stall, "kernel_ms": kern,
+             "host_ms": None if kern is None else wall - stall - kern,
+             "copy_device_ms": window.get("copy_ms_per_step"),
+             "profiled_wall_ms": window["step_ms"],
+             "capture_steps": len(steps) - n,
+             "capture_s": sum(st["s"] for st in steps if st["captures"])}
+    for k in ("wall_ms", "stall_ms", "kernel_ms", "host_ms"):
+        if split[k] is not None:
+            split[k.replace("_ms", "_ms_per_layer")] = split[k] / layers
+    return split
+
+
+def phase_simulator(dev, model, params, serve_link_gbps=None) -> dict:
+    """``core.host_model`` on the card.  (1) The two constants of the host
+    model on the unconstrained configuration of phase 7d (every expert
+    resident at bf16, no prefetch): the pinned copy rate of one hi expert,
+    and the slope of the median load-free, capture-free ``decode_token``
+    wall over the MoE layers of the model cut to SIM_DEPTHS (the intercept,
+    work done once a step, beside it), with the device time per layer of a
+    profiler window and the committed ``H100_HOST``.  (2) The default
+    ``EngineConfig()`` at batch 1: a warm-up ``engine.generate``, then a
+    48-token prompt and 32 new tokens, each step timed; the engine's
+    counters of that sequence against the simulator's on the same trace
+    (warm-up trace first, through one simulator: the engine's cache keeps
+    its residents across ``start_sequence``, the simulator's across
+    ``run``), under ``H100_HOST``, under this run's constants and with the
+    compute constant replaced by the replay steps' wall less stall per
+    layer.  The engine's tok/s is given over every step and over the replay
+    steps (``start_sequence`` drops the graphs, so the first step captures
+    them again; the timeline has no capture).  The same token stream is
+    then replayed under the profiler, and the replay steps' wall split into
+    load stall, compute kernels and host work.  (3) The four systems'
+    simulated table on that trace (cold; one copy engine in prediction
+    order, as the reference's benchmark builds it) with hobbit on the serve
+    configuration beside it.  Gated: the kernels launched, finite positive
+    constants, the simulated tokens x layers equal to the trace's.  The gap
+    is measured, not gated.  `serve_link_gbps`: the serve phase's engine's
+    startup link measurement, printed beside."""
+    from repro_torch.core import PREC_LO, EngineConfig, OffloadEngine, precision_decisions
+    from repro_torch.core import host_model as hm
+    from repro_torch.core.simulator import H100_HOST, OffloadSimulator, simulate_systems
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    v = model.cfg.vocab_size
+    rng = np.random.default_rng(SEED + 11)
+
+    res_steps, hi_bytes, window = _resident_steps(model, params, rng.integers(0, v, SIM_WARM))
+    hw, meas = hm.measure_hardware(res_steps, hi_bytes, dev, name="h100_measured")
+    layers = sum(model.cfg.layer_is_moe())
+    fixed = meas["step_fixed_s"]
+    check(all(math.isfinite(x) and x > 0 for x in (hw.link_gbps, hw.compute_s_per_layer)),
+          f"simulator: measured constants {hw}")
+    dev_ms = window.get("kernel_ms_per_step")
+    print(f"[simulator] ({card}) link_gbps: {hw.link_gbps:.2f} GB/s measured (pinned "
+          f"{hi_bytes / 1e6:.1f} MB hi expert copy, best of 3), preset "
+          f"{H100_HOST.link_gbps:.2f}, measured / preset "
+          f"{hw.link_gbps / H100_HOST.link_gbps:.3f}"
+          + (f"; the serve engine's startup measurement (64 MiB) {serve_link_gbps:.2f} GB/s"
+             if serve_link_gbps is not None else ""), flush=True)
+    depths = ", ".join(
+        f"{s['moe_layers']} layers {s['median_step_s'] * 1e3:.3f} ms ({s['load_steps']} load / "
+        f"{s['capture_steps']} capture steps of {len(s['step_s'])} left out)" for s in res_steps)
+    print(f"[simulator] ({card}) compute_s_per_layer: {hw.compute_s_per_layer * 1e3:.3f} "
+          f"ms measured, the slope of the median resident decode_token wall over depth "
+          f"({depths}); work done once a step (intercept) {fixed * 1e3:.3f} ms; preset "
+          f"{H100_HOST.compute_s_per_layer * 1e3:.3f} ms, measured / preset "
+          f"{hw.compute_s_per_layer / H100_HOST.compute_s_per_layer:.3f}; compute kernels' "
+          f"device time per layer at {layers} layers (profiler, 8 steps): "
+          + (f"{dev_ms / layers:.3f} ms, busy share {window['device_busy_share']:.3f}"
+             if dev_ms is not None else "not measured"), flush=True)
+
+    ecfg = EngineConfig()
+    eng = OffloadEngine(model, params, ecfg)
+    try:
+        warm = rng.integers(0, v, SIM_WARM)
+        eng.generate([int(t) for t in warm], SIM_WARM)
+        warm_trace = list(eng.trace)
+        before = eng.stats()
+        prompt = [int(t) for t in rng.integers(0, v, SIM_PROMPT)]
+        ops.reset_dispatch_counts()
+        tokens, steps = hm.timed_generate(eng, prompt, SIM_NEW)
+        counts = ops.dispatch_counts()
+        stats = eng.stats()
+        trace = list(eng.trace)
+        sim_cfg = hm.sim_config(ecfg, eng.expert_bytes)
+        th = eng.loader.th
+        # the same token stream again: its capture step, then the replay
+        # steps under the profiler
+        stream = prompt + tokens
+        eng.start_sequence(len(stream) + 1)
+        eng.decode_token(stream[0])
+        feed = iter(stream[1:])
+        captures = sum(n for k, n in ops.dispatch_counts().items() if k.endswith(".capture"))
+        serve_window = _profile(lambda: eng.decode_token(next(feed)), len(stream) - 1)
+        serve_window["captures"] = sum(n for k, n in ops.dispatch_counts().items()
+                                       if k.endswith(".capture")) - captures
+    finally:
+        eng.close()
+    del eng
+    _free_engine()
+    walls = [st["s"] for st in steps]
+    measured = hm.sequence_counters(before, stats, walls)
+
+    bad = {k: n for k, n in counts.items() if k.endswith(".torch")}
+    check(not bad, f"simulator: plain versions ran: {bad}")
+    for op in ("gating_topk", "stacked_gating", "grouped_matmul"):
+        check(counts.get(f"{op}.cuda", 0) > 0, f"simulator: no {op} launch")
+    lo_pairs = sum(int((precision_decisions(np.asarray(e.gate_vals), th) == PREC_LO).sum())
+                   for tok in trace for e in tok)
+    check(lo_pairs > 0 and stats["loads_lo"] > 0,
+          f"simulator: the sequence served {lo_pairs} lo pairs, the engine loaded "
+          f"{stats['loads_lo']} lo experts")
+    for op in ("grouped_dequant_matmul", "grouped_dequant_combine"):
+        check(counts.get(f"{op}.cuda", 0) > 0, f"simulator: no {op} launch")
+
+    split = _step_split(steps, serve_window, layers)
+    res_kernel = None if dev_ms is None else dev_ms / layers
+    upgrade_gb = measured["upgrades"] * hi_bytes / 1e9
+    print(f"[simulator] ({card}) where a replay step's wall goes on the serve configuration "
+          f"(ms per step; kernels from the same token stream replayed under the profiler, "
+          f"{serve_window['captures']} captures in that window; host = wall - stall - "
+          f"kernels, the device idle with no load awaited): {json.dumps(split)}; resident "
+          f"compute kernels per layer {res_kernel}; upgrades {measured['upgrades']} = "
+          f"{upgrade_gb:.2f} GB of hi copies, {upgrade_gb / hw.link_gbps:.3f} s at the "
+          f"measured link", flush=True)
+
+    # the replay steps' wall less their load stall, per MoE layer: what a
+    # layer costs on the serve configuration (host work included) where
+    # compute_s_per_layer is the resident step's slope; a third simulation
+    # takes it, to see what is left of the gap with it
+    busy_s = (split["wall_ms"] - split["stall_ms"]) / 1e3 / layers
+    serve_hw = dataclasses.replace(hw, name="serve_wall", compute_s_per_layer=busy_s)
+    traces = [warm_trace, trace]
+    sims = {name: hm.simulate_sequences(traces, layers, m, sim_cfg)[1]
+            for name, m in (("h100_host", H100_HOST), ("measured", hw),
+                            ("serve_wall", serve_hw))}
+    # the paper's table as the reference's benchmark builds it: one copy
+    # engine, transfers in prediction order (under the budgeted issue the
+    # baselines, whose caches have no lo pool, would downgrade a prefetch
+    # into it: CacheStarvation), beside hobbit as the engine serves
+    table = simulate_systems(trace, layers, H100_HOST,
+                             dataclasses.replace(sim_cfg, streams=1, ordered=True))
+    table["hobbit (serve config)"] = OffloadSimulator(
+        "hobbit", layers, H100_HOST, sim_cfg).run(trace)
+    check(len(trace) == SIM_PROMPT + SIM_NEW and all(len(t) == layers for t in trace),
+          f"simulator: trace of {len(trace)} tokens x {[len(t) for t in trace][:4]} layers")
+    for name, res in [*((k, s["result"]) for k, s in sims.items()), *table.items()]:
+        check(len(res["per_token_s"]) == len(trace),
+              f"simulator: {name} covered {len(res['per_token_s'])} of {len(trace)} tokens")
+    replay = [w for w, st in zip(walls, steps) if not st["captures"]]
+    rows = {"measured": {**{k: measured[k] for k in SIM_KEYS},
+                         "tok_s_replay": len(replay) / sum(replay),
+                         "median_step_ms": statistics.median(walls) * 1e3,
+                         "wall_less_stall_ms_per_layer": busy_s * 1e3}}
+    for name, s in sims.items():
+        per_token = s["result"]["per_token_s"]
+        rows[f"simulated ({name})"] = {
+            **{k: s[k] for k in SIM_KEYS},
+            "median_step_ms": statistics.median(per_token) * 1e3}
+        if name != "serve_wall":        # its constant holds the fixed work already
+            rows[f"simulated ({name})"]["tok_s_with_step_fixed"] = (
+                len(per_token) / (sum(per_token) + len(per_token) * fixed))
+    print(f"[simulator] ({card}) one batch-1 sequence on the serve configuration "
+          f"(EngineConfig(): hi {ecfg.hi_slots}, lo {ecfg.lo_slots}, streams "
+          f"{ecfg.streams}, budgeted issue, upgrade on), {SIM_PROMPT}-token prompt + "
+          f"{SIM_NEW} new tokens after a {SIM_WARM} + {SIM_WARM} warm-up.  The engine's "
+          f"cache keeps its residents across start_sequence (records and pins reset) "
+          f"where a new simulator starts cold, so the warm-up's trace and this "
+          f"sequence's go through one simulator, its cache kept across runs; engine's "
+          f"wall (tok_s over every step, tok_s_replay without the {split['capture_steps']} "
+          f"capture steps, {split['capture_s']:.3f} s) against the simulator's timeline "
+          f"for this sequence, simulated under H100_HOST, this run's constants (each also "
+          f"with the step's fixed work, {fixed * 1e3:.3f} ms, added per token) and "
+          f"serve_wall (this run's link, compute = the replay steps' wall less stall per "
+          f"layer): {json.dumps(rows)}", flush=True)
+    base = table["dense_layerwise"]["tok_per_s"]
+    simulated = {name: {"tok_s": r["tok_per_s"], "speedup": r["tok_per_s"] / base,
+                        "load_stall_s": r["load_stall_s"],
+                        "overlap_fraction": r["overlap_fraction"],
+                        "hit_ratio": r["cache"]["hit_ratio"]} for name, r in table.items()}
+    print(f"[simulator] ({card}) simulated, H100_HOST, the sequence's trace from a cold "
+          f"cache, the four systems with one copy engine in prediction order and hobbit "
+          f"on the serve configuration (speedup over dense_layerwise): "
+          f"{json.dumps(simulated)}", flush=True)
+    return {"hardware": dataclasses.asdict(hw), "preset": dataclasses.asdict(H100_HOST),
+            "measure": meas, "resident_steps": res_steps, "profile": window,
+            "engine": measured, "split": split, "serve_profile": serve_window,
+            "rows": rows, "systems": simulated, "tokens": tokens, "kernel_dispatch": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -4388,8 +4639,9 @@ def _whisper_inputs(cfg, b: int, s: int, seed: int):
 
 def _profile(fn, steps: int) -> dict:
     """`fn()` called `steps` times under torch.profiler: kernel launches and
-    device ms per call, the busy share (kernel time over wall) and the top
-    kernels; "not measured" when the profiler records no device time."""
+    device ms per call (all, the kernels alone, the copies and memsets
+    alone), the busy share (device time over wall) and the top kernels;
+    "not measured" when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4406,7 +4658,11 @@ def _profile(fn, steps: int) -> dict:
     if busy_us <= 0:
         return {"step_ms": wall / steps * 1e3, "device_busy_share": "not measured"}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    copy_us = sum(e.self_device_time_total for e in events
+                  if e.key.startswith(("Memcpy", "Memset")))
     return {"step_ms": wall / steps * 1e3, "device_ms_per_step": busy_us / steps / 1e3,
+            "kernel_ms_per_step": (busy_us - copy_us) / steps / 1e3,
+            "copy_ms_per_step": copy_us / steps / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,
             "kernels_per_step": sum(e.count for e in events) / steps,
             "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / steps / 1e3
@@ -5026,6 +5282,8 @@ def main() -> None:
         host_mode = phase_host_mode(dev, model, params)
     with phase("single-sequence"):
         single = phase_single_sequence(dev, cfg, params)
+    with phase("simulator"):
+        simulator = phase_simulator(dev, model, params, serve["link_gbps"])
     with phase("engine-prefill"):
         engine_prefill = phase_engine_prefill(dev, model, params)
     del model, params
@@ -5095,6 +5353,7 @@ def main() -> None:
              "grouped_sync": per_expert["grouped_dense"],
              "grouped_sync_paged": per_expert["grouped_paged"],
              "host_mode": host_mode["host"], "single_sequence": single,
+             "simulator": simulator,
              "serve_nemotron": nem, "serve_nemotron_q4": nem_q,
              "serve_internvl2": ivl["serve"], "serve_gemma2": g2, "serve_gemma2_q4": g2q,
              "serve_gemma3": g3["serve"], "serve_llama4": l4["serve"],

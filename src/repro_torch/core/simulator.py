@@ -1,14 +1,29 @@
 """Trace-driven latency simulator for expert-offloading systems.
 
-This container has no GPU/TPU+PCIe pair to measure, so — exactly like the
-paper's own Fig. 9 analysis — we model the decode timeline analytically and
-drive it with *real routing traces* recorded from a trained MoE model.
+The decode timeline is modelled analytically, as in the paper's Fig. 9
+analysis, and driven with *real routing traces* recorded by the engine
+(``OffloadEngine.trace``).  The timeline semantics are the JAX reference's,
+unchanged: on the same ``HardwareModel`` and trace, ``simulate_systems``,
+``OffloadSimulator`` and ``ServingTimeline`` give the reference's results.
 
-The cost model has three knobs (defaults = the paper's RTX 4090 group):
-    link_gbps      host->device expert-fetch bandwidth (PCIe 4.0: 32 GB/s)
-    compute_s      per-layer GPU compute time (paper measures ~3 ms/layer on
-                   a 4090 for Mixtral; scaled by expert size)
+The cost model has three knobs:
+    link_gbps      host->device expert-fetch bandwidth
+    compute_s      per-MoE-layer compute time
     expert_bytes   per-precision expert size (from quant.expert_nbytes)
+
+Presets (``HARDWARE``): the paper's two edge devices with its published
+figures (``rtx4090``: PCIe 4.0 at 32 GB/s, ~3 ms/layer for Mixtral;
+``jetson_orin``), and ``h100_host``, the card this port runs on, measured
+there by ``core.host_model`` (chip_smoke.py's "simulator" phase):
+``link_gbps`` is the pinned host -> device rate of one bf16 Mixtral expert
+copy, ``compute_s_per_layer`` the engine's own per-MoE-layer wall at batch
+1 with every expert resident (decode_token steps, logits read back), its
+slope over depth.  What stays analytic: transfers serialise per stream at
+the link rate, compute per layer is a constant whatever the precision mix
+(``lo_compute_discount`` is not read by the timeline), a step's fixed work
+has no term, and the host's own work between layers is the resident
+step's: what the serve path adds (prefetch, staging, upgrades) is not in
+the constant, so ``h100_host`` bounds the engine's tok/s from above.
 
 Systems modeled (the paper's baselines):
     dense_layerwise   llama.cpp-style: stream every expert of every layer
@@ -62,10 +77,18 @@ class HardwareModel:
 RTX4090 = HardwareModel("rtx4090", link_gbps=32.0, compute_s_per_layer=3e-3)
 JETSON_ORIN = HardwareModel("jetson_orin", link_gbps=7.0,
                             compute_s_per_layer=9e-3)
-TPU_V5E_HOST = HardwareModel("tpu_v5e_host", link_gbps=32.0,
-                             compute_s_per_layer=1.5e-3)
+# measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit by
+# chip_smoke.py's phase 7f (core/host_model.py), the median of three runs
+# in one call: the pinned copy of one 352.3 MB bf16 Mixtral-8x7B expert
+# (45.28-48.98 GB/s), and the slope over depth of the median resident
+# decode_token wall at batch 1 of Mixtral-8x7B cut to 2 and 4 layers
+# (0.972-1.342 ms per MoE layer; the step's fixed work, -0.071-1.270 ms,
+# has no term in the timeline).  A resident step's: the serve path's host
+# work per layer is not in it, so tok/s simulated under it is a bound.
+H100_HOST = HardwareModel("h100_host", link_gbps=48.88,
+                          compute_s_per_layer=1.223e-3)
 
-HARDWARE = {h.name: h for h in (RTX4090, JETSON_ORIN, TPU_V5E_HOST)}
+HARDWARE = {h.name: h for h in (RTX4090, JETSON_ORIN, H100_HOST)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -96,14 +96,20 @@ def _sim_cfg(sim, score, pol, streams, ordered, upgrade, prefetch_conf):
         ordered=ordered, upgrade=upgrade, prefetch_conf=prefetch_conf)
 
 
-@pytest.mark.parametrize("hw", sorted(rsim.HARDWARE))
+# the reference's presets and the port's card, each model built on both
+# sides from one set of fields (the reference's TPU preset lives only there)
+HW_FIELDS = {**{n: dataclasses.asdict(h) for n, h in rsim.HARDWARE.items()},
+             "h100_host": dataclasses.asdict(tsim.H100_HOST)}
+
+
+@pytest.mark.parametrize("hw", sorted(HW_FIELDS))
 @pytest.mark.parametrize("streams,ordered,upgrade,conf", [
     (1, True, True, 0.0), (2, False, True, 0.0), (2, False, False, 0.5)],
     ids=["paper", "budgeted", "no-upgrade"])
 def test_simulate_systems_matches_reference(hw, streams, ordered, upgrade, conf):
-    want = rsim.simulate_systems(_trace(rsim, 7), LAYERS, rsim.HARDWARE[hw],
+    want = rsim.simulate_systems(_trace(rsim, 7), LAYERS, rsim.HardwareModel(**HW_FIELDS[hw]),
                                  _sim_cfg(rsim, rscore, rpol, streams, ordered, upgrade, conf))
-    got = tsim.simulate_systems(_trace(tsim, 7), LAYERS, tsim.HARDWARE[hw],
+    got = tsim.simulate_systems(_trace(tsim, 7), LAYERS, tsim.HardwareModel(**HW_FIELDS[hw]),
                                 _sim_cfg(tsim, tscore, tpol, streams, ordered, upgrade, conf))
     assert sorted(got) == ["dense_layerwise", "hobbit", "on_demand", "prefetch_lru"]
     _same(got, want)
