@@ -48,11 +48,18 @@ What changes on a card:
   predictor call reads back its stacked-gating probabilities: one or two
   calls per active row on every MoE layer but the last (the adaptive walk,
   then a one-layer prediction when the walk did not reach the next layer).
-  A union-overflow miss waits for its staged copy; host compute mode reads
-  each (token, expert) pair's hidden row back; each step ends with one
-  logits readback.  The paged KV layout adds none: its step prologue reads
-  positions that already live on the host, and each chunked-prefill call
-  reads back its logits as the reference does.
+  A union-overflow miss waits for its staged copy (a wait that
+  ``load_stall_s`` does not count); host compute mode reads each (token,
+  expert) pair's hidden row back; each step ends with one logits readback.
+  The paged KV layout adds none: its step prologue reads positions that
+  already live on the host, and each chunked-prefill call reads back its
+  logits as the reference does.
+* While a ``torch.profiler`` session is active the step records spans
+  (``repro_torch.spans``): ``engine.step``, and on the grouped path under
+  it ``engine.prologue``, each MoE layer's ``engine.segment``, ``.route``,
+  ``.predict``, ``.load``, ``.pairs`` (an ``engine.reload`` under it for
+  each union-overflow copy), ``.ffn`` and ``.retire``, then
+  ``engine.logits`` (docs/TORCH_METRICS.md).
 * Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
   backend: a page pool with a radix prefix trie and copy-on-write, chunked
   prefill, and decode attention through the paged flash-decode kernel.
@@ -121,6 +128,7 @@ from repro_torch.models.model import Model, unstack_layers
 from repro_torch.models.prefill import DenseKVPrefill
 from repro_torch.quant.quantize import (PACK_FACTOR, QTensor, dequantize, expert_nbytes,
                                         quantize)
+from repro_torch.spans import span
 
 HI_NAMES = ("wi", "wo")
 LO_NAMES = ("wi_data", "wi_scale", "wo_data", "wo_scale")
@@ -327,6 +335,13 @@ class OffloadEngine:
         hi_b = expert_nbytes(d, f, 16)
         lo_b = expert_nbytes(d, f, ecfg.lo_bits, group_size=ecfg.group_size)
         self.expert_bytes = {PREC_HI: hi_b, PREC_LO: lo_b}
+        one = {n: t[0].nbytes for n, t in (*self.storage_hi[0].items(),
+                                          *self.storage_lo[0].items())}
+        # one expert's bytes as the grouped FFN kernels read them
+        # (kops.grouped_ffn_weight_bytes)
+        self._matrix_bytes = dict(hi_bytes=one["wi"] + one["wo"],
+                                  lo_wi_bytes=one["wi_data"] + one["wi_scale"],
+                                  lo_wo_bytes=one["wo_data"] + one["wo_scale"])
         self.loader = DynamicExpertLoader(
             self.cache, ecfg.thresholds if ecfg.dynamic_loading
             else Thresholds(1.0, 1.0),
@@ -348,6 +363,7 @@ class OffloadEngine:
         self._hi_pairs: Dict[int, int] = {}     # hi pairs per grouped launch -> launches
         self._lo_pairs: Dict[int, int] = {}     # lo pairs per grouped launch -> launches
         self._lo_slots: Dict[int, int] = {}     # distinct lo slots per grouped launch -> launches
+        self._hi_slots: Dict[int, int] = {}     # distinct hi slots per grouped launch -> launches
         self._expert_dispatches = 0
         self._union_reloads = 0
         self._layer_s_ema = 0.0
@@ -677,9 +693,13 @@ class OffloadEngine:
         The grouped path serves ``grouped=True`` in device compute mode; the
         per-expert reference path serves the rest."""
         self._check_open()
-        if self.grouped:
-            return self._decode_step_batch_grouped(tokens)
-        return self._decode_step_batch_reference(tokens)
+        with span("engine.step") as sp:
+            if sp.on:
+                sp.attrs.update(step=self.cache.records.t,
+                                rows=int(np.count_nonzero(self.active)))
+            if self.grouped:
+                return self._decode_step_batch_grouped(tokens)
+            return self._decode_step_batch_reference(tokens)
 
     def decode_token(self, token: int) -> np.ndarray:
         """One decode step at batch 1 (the single-sequence API).  Returns
@@ -834,13 +854,13 @@ class OffloadEngine:
         return addresses((*self.pool_hi.values(), *self.pool_lo.values(), self._ffn_table))
 
     def _decode_step_batch_grouped(self, tokens) -> np.ndarray:
-        ecfg, mc = self.ecfg, self.cfg.moe
+        ecfg = self.ecfg
         tokens = self._step_tokens(tokens)
-        b, k = self.batch, mc.top_k
-        rows = [r for r in range(b) if self.active[r]]
-        self.cache.advance_token()
-        x = self._embed_step(to_device(tokens[:, None], self.device))
-        self._step_prologue(rows)
+        rows = [r for r in range(self.batch) if self.active[r]]
+        with span("engine.prologue"):
+            self.cache.advance_token()
+            x = self._embed_step(to_device(tokens[:, None], self.device))
+            self._step_prologue(rows)
 
         row_trace = {r: [] for r in rows}
         for mi, li in enumerate(self.moe_layers):
@@ -849,109 +869,141 @@ class OffloadEngine:
                                               self._layer_period_ema)
             # ---- the captured segment (attention, norm, gating), then one
             # host sync for the hidden state and the router result ----
-            tg0 = time.perf_counter()
-            x, hs, hs32, vals_g, idx_g = self._layer_steps[mi](x, key=self._segment_key(li))
-            h_host, vals_np, idx_np = to_host(hs32, vals_g, idx_g)
-            self._gating_s += time.perf_counter() - tg0
-            tops: Dict[int, np.ndarray] = {}
-            gates: Dict[int, np.ndarray] = {}
-            for r in rows:
-                tops[r] = idx_np[r]
-                gates[r] = vals_np[r]
-                for e, g in zip(tops[r], gates[r]):
-                    self.fleet.observe((mi, int(e)), float(g))
+            with span("engine.segment", mi):
+                tg0 = time.perf_counter()
+                x, hs, hs32, vals_g, idx_g = self._layer_steps[mi](
+                    x, key=self._segment_key(li))
+                h_host, vals_np, idx_np = to_host(hs32, vals_g, idx_g)
+                self._gating_s += time.perf_counter() - tg0
 
-            self._score_pending_preds(mi, tops)
+            with span("engine.route", mi):
+                tops: Dict[int, np.ndarray] = {}
+                gates: Dict[int, np.ndarray] = {}
+                for r in rows:
+                    tops[r] = idx_np[r]
+                    gates[r] = vals_np[r]
+                    for e, g in zip(tops[r], gates[r]):
+                        self.fleet.observe((mi, int(e)), float(g))
 
-            # ---- on-demand scoring (union over slots); pins first ----
-            self.loader.new_layer()
-            for r in rows:
-                self.loader.score_and_enqueue(mi, tops[r].tolist(), gates[r],
-                                              clear_pins=False)
+                self._score_pending_preds(mi, tops)
+
+                # ---- on-demand scoring (union over slots); pins first ----
+                self.loader.new_layer()
+                for r in rows:
+                    self.loader.score_and_enqueue(mi, tops[r].tolist(), gates[r],
+                                                  clear_pins=False)
 
             pred_entry = {}
             if ecfg.prefetch:
-                pred_entry = self._prefetch_predictions(
-                    mi, rows, h_host, use_async=ecfg.async_prefetch)
+                with span("engine.predict", mi):
+                    pred_entry = self._prefetch_predictions(
+                        mi, rows, h_host, use_async=ecfg.async_prefetch)
 
             # ---- loading ----
-            t_load0 = time.perf_counter()
-            if ecfg.async_prefetch:
-                self.scheduler.wait(mi)
-                self.scheduler.drain_on_demand(self.loader.take_queued(), mi)
-            else:
-                self.loader.drain(mi)
-            t_load = time.perf_counter() - t_load0
+            with span("engine.load", mi):
+                t_load0 = time.perf_counter()
+                if ecfg.async_prefetch:
+                    self.scheduler.wait(mi)
+                    self.scheduler.drain_on_demand(self.loader.take_queued(), mi)
+                else:
+                    self.loader.drain(mi)
+                t_load = time.perf_counter() - t_load0
 
-            # ---- pairs: hi + lo, union-overflow experts in extra pool rows ----
-            hi_pairs, lo_pairs = [], []
-            w_hi = np.zeros((b, k), np.float32)
-            w_lo = np.zeros((b, k), np.float32)
-            n_ovf_hi = n_ovf_lo = 0
-            for r in rows:
-                dec = precision_decisions(gates[r], self.loader.th)
-                for j in range(k):
-                    d_ = int(dec[j])
-                    if d_ == PREC_SKIP:
-                        continue
-                    e = int(tops[r][j])
-                    is_hi = d_ == PREC_HI
-                    slot = self.cache.lookup((mi, e), is_hi)
-                    if (slot is not None and is_hi
-                            and self.cache.is_inflight((mi, e), True)):
-                        # an upgrade re-copy owns the slot but its bytes are
-                        # still landing; the slot holds no hi weights yet
-                        slot = None
-                    if (slot is None and is_hi and ecfg.async_prefetch
-                            and self.scheduler.serves_lo_downgrade(mi, e)):
-                        # issue-time downgrade: serve the lo copy
-                        is_hi = False
-                        slot = self.cache.lookup((mi, e), False)
-                        self.scheduler.served_lo_expert_steps += 1
-                    if slot is None:
-                        if is_hi:
-                            self.cache.stats.misses_hi += 1
-                            slot = ecfg.hi_slots + n_ovf_hi
-                            n_ovf_hi += 1
-                        else:
-                            self.cache.stats.misses_lo += 1
-                            slot = ecfg.lo_slots + n_ovf_lo
-                            n_ovf_lo += 1
-                        self._commit_one(d_, slot, self._stage(mi, e, d_))
-                        self.loader.loaded_bytes += self.expert_bytes[d_]
-                        self.loader.n_loads[d_] += 1
-                        self._union_reloads += 1
+            with span("engine.pairs", mi):
+                hi_pairs, lo_pairs, w_hi, w_lo = self._layer_pairs(mi, rows, tops, gates)
+                n_hs = len({s_ for _, _, s_ in hi_pairs})
+                n_ls = len({s_ for _, _, s_ in lo_pairs})
+                for hist, n in ((self._hi_pairs, len(hi_pairs)),
+                                (self._lo_pairs, len(lo_pairs)),
+                                (self._hi_slots, n_hs), (self._lo_slots, n_ls)):
+                    hist[n] = hist.get(n, 0) + 1
+
+            with span("engine.ffn", mi) as sp:
+                # the pinned table is rewritten only after this layer's
+                # readback synchronised the stream that copied it for the
+                # layer before
+                table = self._table_host.numpy()
+                pack_pair_table(table, hi_pairs, lo_pairs, w_hi, w_lo)
+                self._ffn_table.copy_(self._table_host, non_blocking=True)
+                x = self._ffn_step(hs, x, key=self._ffn_key())
+                self._expert_dispatches += 1
+            if sp.on:                   # outside the span: its time is the FFN's
+                p = self.batch * self.cfg.moe.top_k   # pack_pair_table's index rows
+                idx = table[:6 * p].reshape(6, p)
+                sp.attrs.update(hi_pairs=len(hi_pairs), lo_pairs=len(lo_pairs),
+                                hi_slots=n_hs, lo_slots=n_ls,
+                                weight_bytes=kops.grouped_ffn_weight_bytes(
+                                    idx[2], idx[5], idx[3] < self.batch, **self._matrix_bytes))
+
+            with span("engine.retire", mi):
+                for r in rows:
+                    row_trace[r].append(self._trace_entry(mi, r, tops, gates,
+                                                          pred_entry))
+                self.scheduler.retire_layer(mi)
+                dt_full = time.perf_counter() - t_layer0
+                dt = dt_full - t_load
+                self._layer_s_ema = (dt if self._layer_s_ema == 0.0
+                                     else 0.8 * self._layer_s_ema + 0.2 * dt)
+                self._layer_period_ema = (
+                    dt_full if self._layer_period_ema == 0.0
+                    else 0.8 * self._layer_period_ema + 0.2 * dt_full)
+
+        with span("engine.logits"):
+            return self._step_epilogue(self._logits_step(x), rows, row_trace)
+
+    def _layer_pairs(self, mi: int, rows, tops, gates):
+        """MoE layer mi's (row, rank, pool slot) hi and lo pairs and their
+        (B, k) gate weights: each row's precision decisions and cache
+        lookups, union-overflow experts staged and committed into the extra
+        pool rows (``engine.reload``: the wait for the copy, which
+        ``load_stall_s`` does not count)."""
+        ecfg = self.ecfg
+        b, k = self.batch, self.cfg.moe.top_k
+        hi_pairs, lo_pairs = [], []
+        w_hi = np.zeros((b, k), np.float32)
+        w_lo = np.zeros((b, k), np.float32)
+        n_ovf_hi = n_ovf_lo = 0
+        for r in rows:
+            dec = precision_decisions(gates[r], self.loader.th)
+            for j in range(k):
+                d_ = int(dec[j])
+                if d_ == PREC_SKIP:
+                    continue
+                e = int(tops[r][j])
+                is_hi = d_ == PREC_HI
+                slot = self.cache.lookup((mi, e), is_hi)
+                if (slot is not None and is_hi
+                        and self.cache.is_inflight((mi, e), True)):
+                    # an upgrade re-copy owns the slot but its bytes are
+                    # still landing; the slot holds no hi weights yet
+                    slot = None
+                if (slot is None and is_hi and ecfg.async_prefetch
+                        and self.scheduler.serves_lo_downgrade(mi, e)):
+                    # issue-time downgrade: serve the lo copy
+                    is_hi = False
+                    slot = self.cache.lookup((mi, e), False)
+                    self.scheduler.served_lo_expert_steps += 1
+                if slot is None:
                     if is_hi:
-                        hi_pairs.append((r, j, slot))
-                        w_hi[r, j] = gates[r][j]
+                        self.cache.stats.misses_hi += 1
+                        slot = ecfg.hi_slots + n_ovf_hi
+                        n_ovf_hi += 1
                     else:
-                        lo_pairs.append((r, j, slot))
-                        w_lo[r, j] = gates[r][j]
-
-            for hist, n in ((self._hi_pairs, len(hi_pairs)), (self._lo_pairs, len(lo_pairs))):
-                hist[n] = hist.get(n, 0) + 1
-            ns = len({s_ for _, _, s_ in lo_pairs})
-            self._lo_slots[ns] = self._lo_slots.get(ns, 0) + 1
-            # the pinned table is rewritten only after this layer's readback
-            # synchronised the stream that copied it for the layer before
-            pack_pair_table(self._table_host.numpy(), hi_pairs, lo_pairs, w_hi, w_lo)
-            self._ffn_table.copy_(self._table_host, non_blocking=True)
-            x = self._ffn_step(hs, x, key=self._ffn_key())
-            self._expert_dispatches += 1
-
-            for r in rows:
-                row_trace[r].append(self._trace_entry(mi, r, tops, gates,
-                                                      pred_entry))
-            self.scheduler.retire_layer(mi)
-            dt_full = time.perf_counter() - t_layer0
-            dt = dt_full - t_load
-            self._layer_s_ema = (dt if self._layer_s_ema == 0.0
-                                 else 0.8 * self._layer_s_ema + 0.2 * dt)
-            self._layer_period_ema = (
-                dt_full if self._layer_period_ema == 0.0
-                else 0.8 * self._layer_period_ema + 0.2 * dt_full)
-
-        return self._step_epilogue(self._logits_step(x), rows, row_trace)
+                        self.cache.stats.misses_lo += 1
+                        slot = ecfg.lo_slots + n_ovf_lo
+                        n_ovf_lo += 1
+                    with span("engine.reload", mi, e, d_, self.expert_bytes[d_]):
+                        self._commit_one(d_, slot, self._stage(mi, e, d_))
+                    self.loader.loaded_bytes += self.expert_bytes[d_]
+                    self.loader.n_loads[d_] += 1
+                    self._union_reloads += 1
+                if is_hi:
+                    hi_pairs.append((r, j, slot))
+                    w_hi[r, j] = gates[r][j]
+                else:
+                    lo_pairs.append((r, j, slot))
+                    w_lo[r, j] = gates[r][j]
+        return hi_pairs, lo_pairs, w_hi, w_lo
 
     def _step_epilogue(self, lg: torch.Tensor, rows, row_trace) -> np.ndarray:
         """Advance the active slots, keep their trace rows and read the
@@ -1183,6 +1235,9 @@ class OffloadEngine:
             # gather of P experts does
             "hi_pairs_per_launch": _spread(self._hi_pairs),
             "lo_slots_per_launch": _spread(self._lo_slots),
+            # distinct hi slots of each grouped hi launch pair (several
+            # pairs share a slot at batch > 1)
+            "hi_slots_per_launch": _spread(self._hi_slots),
             "expert_dispatches": self._expert_dispatches,
             "union_reloads": self._union_reloads,
             # "<op>.<cuda|torch>" -> count: a card run showing .torch counts

@@ -89,6 +89,7 @@ import numpy as np
 from repro_torch.core.cache import CacheStarvation, MultidimensionalCache
 from repro_torch.core.scoring import (PREC_HI, PREC_LO, PREC_SKIP, Thresholds,
                                 precision_decisions)
+from repro_torch.spans import span
 
 ON_DEMAND, PREFETCH, UPGRADE = "on_demand", "prefetch", "upgrade"
 
@@ -472,7 +473,7 @@ class StagingEngine:
         staged = []
         for t in tasks:
             tc = time.perf_counter()
-            staged.append(self.stage_fn(t.layer, t.expert, t.precision))
+            staged.append(self._staged(t))
             self._emulate_copy(tc, t.bytes)
         return staged, t0, time.perf_counter()
 
@@ -480,9 +481,14 @@ class StagingEngine:
         """Worker body of one budgeted-path job (one expert copy); with link
         emulation on, the copy occupies its stream for bytes/link_bps."""
         t0 = time.perf_counter()
-        staged = self.stage_fn(task.layer, task.expert, task.precision)
+        staged = self._staged(task)
         self._emulate_copy(t0, task.bytes)
         return staged, t0, time.perf_counter()
+
+    def _staged(self, t: LoadTask):
+        """``stage_fn`` on one task, in a ``loader.stage`` span."""
+        with span("loader.stage", t.layer, t.expert, t.precision, t.reason, t.bytes):
+            return self.stage_fn(t.layer, t.expert, t.precision)
 
     # ---------------- budgeted issue ----------------
     # The compute-window estimate feeding the budget is a noisy EMA; only
@@ -881,7 +887,7 @@ class StagingEngine:
                 self.wait_all()
                 slot, _ = self.cache.admit(key, is_hi, current_layer)
             tc = time.perf_counter()
-            buf = self.stage_fn(t.layer, t.expert, t.precision)
+            buf = self._staged(t)
             self._emulate_copy(tc, t.bytes)
             entries.append((t, slot, buf))
             self.loader.loaded_bytes += t.bytes

@@ -24,6 +24,7 @@ from repro_torch.core.scoring import Thresholds, precision_decisions, PREC_HI, P
 from repro_torch.device import to_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import softmax_last
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -69,11 +70,12 @@ class AdaptiveExpertPredictor:
         lo, hi = layer + 1, min(layer + p, self.num_layers - 1)
         if lo > hi:
             return []
-        x = to_device(np.asarray(hidden, np.float32),
-                      self.gates.device)[None, :]                  # (1, D)
-        stack = self.gates[lo : hi + 1]                            # (P, D, E)
-        logits = kops.stacked_gating(x, stack)                     # (P, 1, E)
-        probs = softmax_last(logits)[:, 0].cpu().numpy()
+        with span("predictor.gating", layer, hi + 1 - lo):
+            x = to_device(np.asarray(hidden, np.float32),
+                          self.gates.device)[None, :]              # (1, D)
+            stack = self.gates[lo : hi + 1]                        # (P, D, E)
+            logits = kops.stacked_gating(x, stack)                 # (P, 1, E)
+            probs = softmax_last(logits)[:, 0].cpu().numpy()
         preds = []
         w = self.fleet_weight if self.fleet is not None else 0.0
         for i, l in enumerate(range(lo, hi + 1)):

@@ -906,6 +906,29 @@ def grouped_matmul_groups(slots) -> list:
             for i in range(0, len(ps), GMM_GROUP)]
 
 
+def grouped_ffn_weight_bytes(hi_slots, lo_slots, lo_real, *, hi_bytes: int,
+                             lo_wi_bytes: int, lo_wo_bytes: int) -> int:
+    """Pool bytes one grouped FFN launch pair reads: ``grouped_matmul`` on
+    the hi pairs' slots (wi, then wo) and ``grouped_dequant_matmul`` /
+    ``grouped_dequant_combine`` on the lo pairs' slots, pads included.
+    hi_slots / lo_slots: each pair's pool slot (P each); lo_real: which lo
+    pairs are real (P bools).  ``grouped_mm_kernel`` streams each slot once
+    per group of its pairs (``grouped_matmul_groups``), for wi and again for
+    wo, so a launch of pads only still reads one hi expert.
+    ``grouped_mmv_kernel`` runs passes of GROUPED_PAIRS pairs and streams
+    each distinct slot of a pass once: over every pair for wi, over the real
+    pairs only for the combine's wo, where pads stream nothing.  hi_bytes:
+    one hi expert's wi and wo; lo_wi_bytes / lo_wo_bytes: one lo expert's
+    codes and scales of each matrix."""
+    total = len(grouped_matmul_groups(hi_slots)) * hi_bytes
+    lo = list(zip(lo_slots, lo_real))
+    for a in range(0, len(lo), GROUPED_PAIRS):
+        one_pass = lo[a:a + GROUPED_PAIRS]
+        total += len({int(s) for s, _ in one_pass}) * lo_wi_bytes
+        total += len({int(s) for s, real in one_pass if real}) * lo_wo_bytes
+    return total
+
+
 def grouped_matmul_schedule(plan: GroupedMatmulPlan, groups: int) -> list:
     """Each block's sweeps in the order it streams them, as the kernel walks
     them (``Sweeps`` in grouped_matmul.cu): block c * ranks + r (cluster c,

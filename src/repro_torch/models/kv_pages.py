@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.capture import CapturedStep, addresses
 from repro_torch.device import DeviceLike, to_device, to_host
+from repro_torch.spans import span
 
 
 class PagePoolExhausted(RuntimeError):
@@ -545,33 +546,37 @@ class ChunkedPrefill:
         if not self._pending:
             return finished
         slots = self.pending_slots
-        c = self.chunk
-        toks = np.zeros((len(slots), c), np.int64)
-        ints = np.zeros((3, len(slots)), np.int64)        # starts, ns, wstarts
-        for i, s in enumerate(slots):
-            prompt, fed, ws = self._pending[s]
-            n = min(c, len(prompt) - fed)
-            toks[i, :n] = prompt[fed:fed + n]
-            ints[:, i] = (fed, n, ws)
-            self.pool.ensure(s, fed + n)
-            self.pool.make_writable(s, max(fed, ws), fed + n)
-        dev = self.pool.device
-        args = (to_device(self.pool.table[slots], dev), to_device(toks, dev),
-                *to_device(ints, dev))
-        if self._step is None:
-            lg = self._prefill_chunk(*args)
-        else:
-            lg = self._step(*args, key=addresses((*self.pool.k, *self.pool.v)))
-        (lg,) = to_host(lg)                 # read back before the next replay
-        for i, s in enumerate(slots):
-            prompt, fed, ws = self._pending[s]
-            fed += int(ints[1, i])
-            if fed >= len(prompt):
-                del self._pending[s]
-                self.pool.register_prefix(s, prompt)
-                finished[s] = lg[i]
-            else:
-                self._pending[s] = (prompt, fed, ws)
+        with span("prefill.chunk", len(slots)):
+            with span("prefill.plan"):
+                c = self.chunk
+                toks = np.zeros((len(slots), c), np.int64)
+                ints = np.zeros((3, len(slots)), np.int64)    # starts, ns, wstarts
+                for i, s in enumerate(slots):
+                    prompt, fed, ws = self._pending[s]
+                    n = min(c, len(prompt) - fed)
+                    toks[i, :n] = prompt[fed:fed + n]
+                    ints[:, i] = (fed, n, ws)
+                    self.pool.ensure(s, fed + n)
+                    self.pool.make_writable(s, max(fed, ws), fed + n)
+                dev = self.pool.device
+                args = (to_device(self.pool.table[slots], dev), to_device(toks, dev),
+                        *to_device(ints, dev))
+            with span("prefill.replay"):
+                if self._step is None:
+                    lg = self._prefill_chunk(*args)
+                else:
+                    lg = self._step(*args, key=addresses((*self.pool.k, *self.pool.v)))
+            with span("prefill.readback"):
+                (lg,) = to_host(lg)             # read back before the next replay
+            for i, s in enumerate(slots):
+                prompt, fed, ws = self._pending[s]
+                fed += int(ints[1, i])
+                if fed >= len(prompt):
+                    del self._pending[s]
+                    self.pool.register_prefix(s, prompt)
+                    finished[s] = lg[i]
+                else:
+                    self._pending[s] = (prompt, fed, ws)
         return finished
 
     def _prefill_chunk(self, table, tokens, starts, ns, wstarts) -> torch.Tensor:

@@ -51,6 +51,7 @@ from repro_torch.serving.api import DenseBackend, InferenceBackend
 from repro_torch.serving.decode import sample_token
 from repro_torch.serving.workload import (DEFAULT_AGING_S, effective_priority,
                                           slo_urgency)
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -200,115 +201,129 @@ class BatchingServer:
             return True
 
         while self.queue or active or admitting:
-            # finished requests free their slots before the next step
-            for slot in [s for s, r in active.items()
-                         if len(outs[s]) >= r.max_new_tokens]:
-                retire(slot)
-            # admission: up to admit_k queued requests prefill concurrently,
-            # each gated on KV capacity for its whole lifetime.  At most one
-            # preemption per scheduler iteration keeps the pause path from
-            # thrashing the batch.
-            order_queue()
-            if self.queue and len(admitting) < self.admit_k:
-                req = self.queue[0]
-                need = len(req.prompt) + req.max_new_tokens + 1
-                blocked = not free or not self.backend.can_admit(
-                    need, prompt=None if getattr(req, "_paused", None)
-                    else req.prompt)
-                if blocked:
-                    try_preempt()       # at most one pause per iteration
-            while free and self.queue and len(admitting) < self.admit_k:
-                req = self.queue[0]
-                need = len(req.prompt) + req.max_new_tokens + 1
-                paused = getattr(req, "_paused", None)
-                # the prompt rides along so paged backends can price the
-                # request net of prefix sharing (aliased prefix = free);
-                # a resuming request restores private pages, so no prompt
-                if not self.backend.can_admit(
-                        need, prompt=None if paused else req.prompt):
-                    if not active and not admitting:
-                        # nothing in flight can ever free capacity for it
-                        raise RuntimeError(
-                            f"request rid={req.rid} needs {need} KV tokens "
-                            "but the drained pool cannot hold it; grow "
-                            "kv_pages / max_len or shrink the request")
-                    break               # wait for a retirement to free pages
-                self.queue.pop(0)
-                slot = free.pop(0)
-                t0 = time.time()
-                if paused is not None:
-                    # resume a preempted victim: KV restored from its host
-                    # snapshot, decode continues where it left off.  The
-                    # snapshot may need more pages than can_admit priced
-                    # (aliased prefix pages were copied out private), so a
-                    # failed restore requeues the victim
-                    try:
-                        self.backend.resume(slot, paused["snapshot"])
-                    except PagePoolExhausted:
-                        self.queue.insert(0, req)
-                        free.insert(0, slot)
-                        break           # wait for a retirement to free pages
-                    req._paused = None  # type: ignore[attr-defined]
-                    active[slot] = req
-                    outs[slot] = paused["outs"]
-                    pending_tok[slot] = paused["pending_tok"]
-                    self.events.append(("resume", slot, req.rid, step_idx))
+            with span("sched.iter"):
+                # finished requests free their slots before the next step
+                for slot in [s for s, r in active.items()
+                             if len(outs[s]) >= r.max_new_tokens]:
+                    retire(slot)
+                # admission: up to admit_k queued requests prefill concurrently,
+                # each gated on KV capacity for its whole lifetime.  At most one
+                # preemption per scheduler iteration keeps the pause path from
+                # thrashing the batch.
+                order_queue()
+                if self.queue and len(admitting) < self.admit_k:
+                    req = self.queue[0]
+                    need = len(req.prompt) + req.max_new_tokens + 1
+                    blocked = not free or not self.backend.can_admit(
+                        need, prompt=None if getattr(req, "_paused", None)
+                        else req.prompt)
+                    if blocked:
+                        try_preempt()       # at most one pause per iteration
+                while free and self.queue and len(admitting) < self.admit_k:
+                    req = self.queue[0]
+                    need = len(req.prompt) + req.max_new_tokens + 1
+                    paused = getattr(req, "_paused", None)
+                    # the prompt rides along so paged backends can price the
+                    # request net of prefix sharing (aliased prefix = free);
+                    # a resuming request restores private pages, so no prompt
+                    if not self.backend.can_admit(
+                            need, prompt=None if paused else req.prompt):
+                        if not active and not admitting:
+                            # nothing in flight can ever free capacity for it
+                            raise RuntimeError(
+                                f"request rid={req.rid} needs {need} KV tokens "
+                                "but the drained pool cannot hold it; grow "
+                                "kv_pages / max_len or shrink the request")
+                        break               # wait for a retirement to free pages
+                    self.queue.pop(0)
+                    slot = free.pop(0)
+                    t0 = time.time()
+                    with span("sched.admit") as sp:
+                        if sp.on:
+                            sp.attrs["rids"] = [req.rid]
+                        if paused is not None:
+                            # resume a preempted victim: KV restored from its
+                            # host snapshot, decode continues where it left
+                            # off.  The snapshot may need more pages than
+                            # can_admit priced (aliased prefix pages were
+                            # copied out private), so a failed restore
+                            # requeues the victim
+                            try:
+                                self.backend.resume(slot, paused["snapshot"])
+                            except PagePoolExhausted:
+                                self.queue.insert(0, req)
+                                free.insert(0, slot)
+                                break       # wait for a retirement to free pages
+                            req._paused = None  # type: ignore[attr-defined]
+                            active[slot] = req
+                            outs[slot] = paused["outs"]
+                            pending_tok[slot] = paused["pending_tok"]
+                            self.events.append(("resume", slot, req.rid, step_idx))
+                            continue
+                        req.queue_wait_s = t0 - req.submitted_at
+                        self.backend.join_begin(slot, np.asarray(req.prompt, np.int32),
+                                                reserve_tokens=need)
+                        admitting[slot] = req
+                        admit_t0[slot] = t0
+                        self.events.append(("admit", slot, req.rid, step_idx))
+                # one shared call advances every in-progress admission one chunk
+                if admitting:
+                    with span("sched.join") as sp:
+                        if sp.on:
+                            sp.attrs["rids"] = [r.rid for r in admitting.values()]
+                        done = self.backend.join_step()
+                    now = time.time()
+                    for slot, logits in done.items():
+                        req = admitting.pop(slot)
+                        req.prefill_latency_s = now - admit_t0.pop(slot)
+                        req.admission_wait_s = now - req.submitted_at
+                        with span("sched.sample"):
+                            tok = int(self._sample(logits[None])[0])
+                        active[slot] = req
+                        outs[slot] = [tok][: req.max_new_tokens]
+                        pending_tok[slot] = tok
+                        self.events.append(("join", slot, req.rid, step_idx))
+                stepping = [s for s, r in active.items()
+                            if len(outs[s]) < r.max_new_tokens]
+                if not stepping:
                     continue
-                req.queue_wait_s = t0 - req.submitted_at
-                self.backend.join_begin(slot, np.asarray(req.prompt, np.int32),
-                                        reserve_tokens=need)
-                admitting[slot] = req
-                admit_t0[slot] = t0
-                self.events.append(("admit", slot, req.rid, step_idx))
-            # one shared call advances every in-progress admission one chunk
-            if admitting:
-                done = self.backend.join_step()
-                now = time.time()
-                for slot, logits in done.items():
-                    req = admitting.pop(slot)
-                    req.prefill_latency_s = now - admit_t0.pop(slot)
-                    req.admission_wait_s = now - req.submitted_at
-                    tok = int(self._sample(logits[None])[0])
-                    active[slot] = req
-                    outs[slot] = [tok][: req.max_new_tokens]
-                    pending_tok[slot] = tok
-                    self.events.append(("join", slot, req.rid, step_idx))
-            stepping = [s for s, r in active.items()
-                        if len(outs[s]) < r.max_new_tokens]
-            if not stepping:
-                continue
-            tokens = np.zeros((self.max_batch,), np.int32)
-            for slot in stepping:
-                tokens[slot] = pending_tok[slot]
-            t0 = time.time()
-            logits = self.backend.step(tokens)
-            dt = time.time() - t0
-            # expert-load stall and issue-time precision downgrades accrued
-            # this step, split across the requests that rode in it (offload
-            # backends only; dense reports 0)
-            step_stats = self.backend.stats()
-            now_stall = step_stats.get("load_stall_s", 0.0)
-            stall = (now_stall - last_stall) / len(stepping)
-            last_stall = now_stall
-            now_dg = step_stats.get("precision_downgrades", 0)
-            downgrades = (now_dg - last_downgrades) / len(stepping)
-            last_downgrades = now_dg
-            now_sl = step_stats.get("served_lo_expert_steps", 0)
-            served_lo = (now_sl - last_served_lo) / len(stepping)
-            last_served_lo = now_sl
-            nxt = self._sample(logits)
-            for slot in stepping:
-                active[slot].decode_s += dt
-                active[slot].load_stall_s += stall
-                active[slot].precision_downgrades += downgrades
-                active[slot].served_lo += served_lo
-                outs[slot].append(int(nxt[slot]))
-                pending_tok[slot] = int(nxt[slot])
-            self._step_time_s += dt
-            self._step_tokens += len(stepping)
-            self._occupancy_sum += len(stepping) + len(admitting)
-            self._steps += 1
-            step_idx += 1
+                tokens = np.zeros((self.max_batch,), np.int32)
+                for slot in stepping:
+                    tokens[slot] = pending_tok[slot]
+                t0 = time.time()
+                with span("sched.step") as sp:
+                    logits = self.backend.step(tokens)
+                dt = time.time() - t0
+                if sp.on:
+                    sp.attrs["rids"] = [active[s].rid for s in stepping]
+                # expert-load stall and issue-time precision downgrades accrued
+                # this step, split across the requests that rode in it (offload
+                # backends only; dense reports 0)
+                with span("sched.stats"):
+                    step_stats = self.backend.stats()
+                now_stall = step_stats.get("load_stall_s", 0.0)
+                stall = (now_stall - last_stall) / len(stepping)
+                last_stall = now_stall
+                now_dg = step_stats.get("precision_downgrades", 0)
+                downgrades = (now_dg - last_downgrades) / len(stepping)
+                last_downgrades = now_dg
+                now_sl = step_stats.get("served_lo_expert_steps", 0)
+                served_lo = (now_sl - last_served_lo) / len(stepping)
+                last_served_lo = now_sl
+                with span("sched.sample"):
+                    nxt = self._sample(logits)
+                for slot in stepping:
+                    active[slot].decode_s += dt
+                    active[slot].load_stall_s += stall
+                    active[slot].precision_downgrades += downgrades
+                    active[slot].served_lo += served_lo
+                    outs[slot].append(int(nxt[slot]))
+                    pending_tok[slot] = int(nxt[slot])
+                self._step_time_s += dt
+                self._step_tokens += len(stepping)
+                self._occupancy_sum += len(stepping) + len(admitting)
+                self._steps += 1
+                step_idx += 1
 
     # ------------------------------------------------------------------
     def close(self):
