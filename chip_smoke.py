@@ -67,13 +67,15 @@ and each printing its seconds:
                the engine's gating_s, the lo pairs and distinct slots per
                grouped launch, every grouped launch on the tensor-core
                kernel; every MoE layer's captured segment (attention, norm,
-               gating) and grouped FFN (fixed pair count B * top_k, one
+               router and predictor gating) and grouped FFN (fixed pair count B * top_k, one
                graph for every layer: as many FFN calls as layer steps, two
                grouped_matmul and one of each grouped dequant launch per
                layer step) and the step's embed and logits replayed as CUDA
                graphs and never run eagerly; one segment's replay and one
                FFN replay on a fixed input against the same function called
-               eagerly (the FFN's max |diff| must be 0);
+               eagerly (the FFN's max |diff| must be 0), and the segment's
+               predictor probabilities for every row equal to the
+               predictor's one-row call bit for bit;
   5. parity  — the offload engine with every expert resident at full
                precision against the dense model, step by step;
   6. serve-paged — the same server and model on the paged KV layout
@@ -343,6 +345,7 @@ BF16_FLOPS = 989e12
 SEED = 0
 ARCH = "mixtral-8x7b"
 LAYERS = 4
+SERVE_BATCH = 4     # rows of the Mixtral serve phases: the grouped path's B
 GRANITE = "granite-3-2b"
 NEMOTRON = "nemotron-4-15b"
 INTERNVL = "internvl2-26b"
@@ -570,11 +573,14 @@ def _gating_gates(dev, g, p, d, e, *, aligned=True):
 def _gating_rows(dev, g) -> list:
     """Both router kernels at the serving path's shapes (Mixtral-8x7B: D
     4096, E 8; gating_topk over bf16 x at B = 1-4 with K 2, stacked_gating
-    over float32 x at B = 1 with P = 1, 2), through the wrappers, against
-    the plain versions; two calls bit-identical.  Timed twice each, between
-    two timings of the launch floor (a one-element fill, timed the same
-    way), beside torch.einsum for stacked_gating.  Then the cluster size
-    swept at the serving shapes (``ops._gating_at``), and the edge variants
+    over float32 x at B = 1 with P = 1, 2 (the per-expert path's one-row
+    calls) and at the serve batch B = 4 with P = 2, at E 8 and at
+    Phi-3.5-MoE's E 16 (the grouped path's one call per MoE layer, in its
+    captured segment)), through the wrappers, against the plain versions;
+    two calls bit-identical.  Timed twice each, between two timings of the
+    launch floor (a one-element fill, timed the same way), beside
+    torch.einsum for stacked_gating.  Then the cluster size swept at the
+    serving shapes (``ops._gating_at``), and the edge variants
     (E 1-256, K 1-6, B 1-17, P 2-3, ragged and tiny D, float32 x, unaligned
     gates, tied logits; the wrapper's cluster size 1-8) through the
     wrappers, each bit-identical over two calls.  The kernel's layout
@@ -596,6 +602,9 @@ def _gating_rows(dev, g) -> list:
               .to(torch.bfloat16), gates, k) for b in (1, 2, 3, 4)]
     x1 = torch.randn((1, d), generator=g, device=dev)
     cases += [("stacked_gating", f"P={p}", x1, stack[:p], None) for p in (1, 2)]
+    xb = torch.randn((SERVE_BATCH, d), generator=g, device=dev)
+    cases += [("stacked_gating", f"B={SERVE_BATCH} P=2{'' if ee == e else f' E={ee}'}", xb, gt,
+               None) for ee, gt in ((e, stack), (16, _gating_gates(dev, g, 2, d, 16)))]
     shapes = {"gating_topk": {}, "stacked_gating": {}}
     err = {"gating_topk": 0.0, "stacked_gating": 0.0}
     same = []
@@ -617,14 +626,14 @@ def _gating_rows(dev, g) -> list:
         else:
             plain = cuda_ms(lambda: ref.stacked_gating_ref(x, gt))
             lib = graph_ms(lambda: torch.einsum("bd,pde->pbe", x, gt))
-        p, b = gt.shape[0], x.shape[0]
+        p, b, ee = gt.shape[0], x.shape[0], gt.shape[2]
         out = new()
-        bms, by = bound(nbytes(x, gt, *out), 2 * p * b * d * e)
-        plan = ops.gating_plan(d, e, b, vec=gt.data_ptr() % 16 == 0)
-        xb = int(x.dtype == torch.bfloat16)
-        regs = ops.gating_regs(xb, op == "gating_topk", plan.vec, b)
+        bms, by = bound(nbytes(x, gt, *out), 2 * p * b * d * ee)
+        plan = ops.gating_plan(d, ee, b, vec=gt.data_ptr() % 16 == 0)
+        bf = int(x.dtype == torch.bfloat16)
+        regs = ops.gating_regs(bf, op == "gating_topk", plan.vec, b)
         shapes[op][label] = dict(
-            p=p, b=b, d=d, e=e, k=kk, x=str(x.dtype)[6:], ms=ms, ms_runs=runs, call_ms=call,
+            p=p, b=b, d=d, e=ee, k=kk, x=str(x.dtype)[6:], ms=ms, ms_runs=runs, call_ms=call,
             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, cluster=plan.ranks,
             slice=plan.slice, blocks=plan.ranks * p, regs=regs)
         lib_s = f", torch.einsum {lib:.4f} ms on the card" if lib is not None else ""
@@ -638,13 +647,13 @@ def _gating_rows(dev, g) -> list:
           f"{floor[0]:.4f} / {floor[1]:.4f} ms", flush=True)
 
     sweep = {}
-    for op, label, x, gt, kk in (cases[0], cases[3], cases[5]):
+    for op, label, x, gt, kk in (cases[0], cases[3], cases[5], cases[6]):
         name = f"{op} {label}"
         sweep[name] = {}
         for c in GATING_SWEEP:
             err[op] = max(err[op], _gating_check(f"{name} cluster {c}", op, x, gt, kk, ranks=c))
             sweep[name][c] = graph_ms(lambda: _gating_call(op, x, gt, kk, c))
-        chosen = ops.gating_plan(d, e, x.shape[0]).ranks
+        chosen = ops.gating_plan(d, gt.shape[2], x.shape[0]).ranks
         each = " ".join(f"{c}: {t:.4f}" for c, t in sweep[name].items())
         print(f"[kernels] {name} by cluster size, ms on the card: {each}; the wrapper "
               f"picks {chosen}", flush=True)
@@ -696,7 +705,7 @@ def _gating_rows(dev, g) -> list:
           flush=True)
     out = []
     for op, label, line in (("gating_topk", "B=4", "stacked_gating.py:113"),
-                            ("stacked_gating", "P=2", "stacked_gating.py:53")):
+                            ("stacked_gating", f"B={SERVE_BATCH} P=2", "stacked_gating.py:53")):
         a = shapes[op][label]
         out.append(dict(
             name=op, route="cuda", source="src/repro_torch/kernels/csrc/gating.cu",
@@ -2216,9 +2225,10 @@ def mixtral_cut():
 
 def _gating_path(counts, es, label, grouped) -> None:
     """Prints the engine's gating_s (host wall from each layer segment's
-    replay, gating_topk its last kernel, to its hidden state and routes on
-    the host, waiting also for the layer before's grouped FFN still on the
-    card), the real lo pairs each grouped launch carried and the distinct
+    replay, the router's gating_topk and the predictor's stacked gating its
+    last kernels, to its routes and predictor probabilities on the host,
+    waiting also for the layer before's grouped FFN still on the card), the
+    real lo pairs each grouped launch carried and the distinct
     pool slots among them, and the real hi pairs; every grouped launch (`grouped`:
     ``ops.grouped_launches()`` of the run) must have gone to the
     tensor-core kernel."""
@@ -2306,7 +2316,9 @@ def _segment_replay_check(eng, label) -> float:
     same segment called eagerly on it (after the serve: the replay writes
     this input's K/V at the last step's positions, and so does the eager
     call, identically).  The same kernels on the same inputs: expect 0;
-    checked at PARITY_ATOL and equal routes."""
+    checked at PARITY_ATOL and equal routes.  The predictor probabilities
+    the replay computed for every row must equal the predictor's one-row
+    call on that row's float32 hidden state bit for bit."""
     from repro_torch.kernels import ops
     g = torch.Generator(device=eng.device).manual_seed(SEED + 9)
     x = torch.randn((eng.batch, 1, eng.cfg.d_model), generator=g, device=eng.device)
@@ -2318,10 +2330,16 @@ def _segment_replay_check(eng, label) -> float:
           and after.get("engine_layer0.capture", 0) == before.get("engine_layer0.capture", 0),
           f"{label}: the segment did not replay its graph")
     eager = eng._layer_segment(0, x)
-    names = ("x", "hs", "hs32", "vals", "idx")
+    names = ("x", "hs", "vals", "idx", "probs")
     diff = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names, replay, eager)}
-    check(torch.equal(replay[4], eager[4]), f"{label}: replayed routes {replay[4].tolist()} != "
-                                            f"eager {eager[4].tolist()}")
+    check(torch.equal(replay[3], eager[3]), f"{label}: replayed routes {replay[3].tolist()} != "
+                                            f"eager {eager[3].tolist()}")
+    hs, probs = replay[1], replay[4]
+    for r in range(eng.batch):
+        one = eng.predictor.layer_probs(hs[r:r + 1].to(torch.float32), 0)[:, 0]
+        check(torch.equal(probs[:, r], one),
+              f"{label}: row {r}'s segment predictor probabilities differ from its one-row "
+              f"call by {float((probs[:, r] - one).abs().max())}")
     worst = max(diff.values())
     check(worst <= PARITY_ATOL, f"{label}: segment replay vs eager max |diff| {diff}")
     print(f"[{label}] layer 0 segment, replay vs eager on one input: max |diff| {worst} "
@@ -2345,7 +2363,7 @@ def phase_serve(dev, model, params) -> dict:
           f"on the card, measured link {eng.scheduler.link_bps / 1e9:.1f} GB/s",
           flush=True)
     rng = np.random.default_rng(SEED)
-    n_req, new_tokens, max_batch = 6, 16, 4
+    n_req, new_tokens, max_batch = 6, 16, SERVE_BATCH
     probe = _FiniteLogits(backend)
     srv = BatchingServer(probe, max_batch=max_batch, max_len=64 + new_tokens + 8)
     for i in range(n_req):
@@ -2494,7 +2512,7 @@ def phase_serve_paged(dev, model, params) -> dict:
           f"{ecfg.prefix_sharing}", flush=True)
     rng = np.random.default_rng(SEED + 2)
     sys_p = rng.integers(0, cfg.vocab_size, SYSTEM_PROMPT)
-    n_req, new_tokens, max_batch = 8, 16, 4
+    n_req, new_tokens, max_batch = 8, 16, SERVE_BATCH
     probe = _PeakPages(backend)
     srv = BatchingServer(probe, max_batch=max_batch, admit_k=1,
                          max_len=SYSTEM_PROMPT + 48 + new_tokens + 8)

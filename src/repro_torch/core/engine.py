@@ -42,15 +42,22 @@ What changes on a card:
   views and the dense dequant-matmul kernel, one call per product, per lo
   expert.  Neither path materialises a float32 weight on the card.
 * The host blocks on the card where the reference does.  Per MoE layer it
-  reads back the normed hidden state, and on the grouped path the gating
-  result with it, in one synchronisation after the layer's captured
-  segment (the scheduler runs on the host).  With prefetch on, each
-  predictor call reads back its stacked-gating probabilities: one or two
-  calls per active row on every MoE layer but the last (the adaptive walk,
-  then a one-layer prediction when the walk did not reach the next layer).
-  A union-overflow miss waits for its staged copy (a wait that
-  ``load_stall_s`` does not count); host compute mode reads each (token,
-  expert) pair's hidden row back; each step ends with one logits readback.
+  synchronises once after the layer's captured segment (the scheduler
+  runs on the host).  On the grouped path that one readback brings the
+  router's top-k and, with prefetch on and on every MoE layer but the
+  last, the adaptive predictor's (P, B, E) probabilities, which the
+  segment computes for every row with one stacked-gating launch on the
+  float32 normed hidden state; the adaptive walk and its one-layer
+  fallback read each row's slice of them, with no call of their own
+  (``segment_predictions``).  The per-expert path reads back the normed
+  hidden state, gates on the host and, with prefetch on, makes one or two
+  predictor calls per active row on every MoE layer but the last (the
+  walk, then a one-layer prediction when the walk did not reach the next
+  layer), each an H2D copy, a launch and a readback
+  (``predictor_host_calls``).  A union-overflow miss waits for its staged
+  copy (a wait that ``load_stall_s`` does not count); host compute mode
+  reads each (token, expert) pair's hidden row back; each step ends with
+  one logits readback.
   The paged KV layout adds none: its step prologue reads positions that
   already live on the host, and each chunked-prefill call reads back its
   logits as the reference does.
@@ -59,18 +66,21 @@ What changes on a card:
   it ``engine.prologue``, each MoE layer's ``engine.segment``, ``.route``,
   ``.predict``, ``.load``, ``.pairs`` (an ``engine.reload`` under it for
   each union-overflow copy), ``.ffn`` and ``.retire``, then
-  ``engine.logits`` (docs/TORCH_METRICS.md).
+  ``engine.logits``; the per-expert path records each layer's
+  ``engine.predict`` with a ``predictor.gating`` under it for each host
+  call (docs/TORCH_METRICS.md).
 * Paged KV (``paged_kv=True``) shares ``models.kv_pages`` with the dense
   backend: a page pool with a radix prefix trie and copy-on-write, chunked
   prefill, and decode attention through the paged flash-decode kernel.
 * The grouped path's device work is captured (``capture.CapturedStep``,
   the counterpart of the reference's ``_jit``, always on as there): the
   step's embedding, each MoE layer's segment — attention on either KV
-  layout, the FFN norm, the float32 copy of the normed hidden state the
-  host reads and the gating kernel — each MoE layer's grouped FFN, and the
-  step's logits.  On the card each is a CUDA graph per batch shape,
-  replayed every step ("engine_embed", "engine_layer<i>", "engine_ffn",
-  "engine_logits" counters); on the CPU each runs eagerly.  The segments
+  layout, the FFN norm, the gating kernel and the predictor's stacked
+  gating on the float32 copy of the normed hidden state — each MoE
+  layer's grouped FFN, and the step's logits.  On the card each is a CUDA
+  graph per batch shape, replayed every step ("engine_embed",
+  "engine_layer<i>", "engine_ffn", "engine_logits" counters); on the CPU
+  each runs eagerly.  The segments
   read positions, the page table and the active mask from step-state
   buffers that ``_step_prologue`` fills once per step.  The FFN
   (``grouped_ffn``) runs at the reference's fixed pair count P = B * top_k,
@@ -366,6 +376,7 @@ class OffloadEngine:
         self._hi_slots: Dict[int, int] = {}     # distinct hi slots per grouped launch -> launches
         self._expert_dispatches = 0
         self._union_reloads = 0
+        self._segment_predictions = 0   # row-layer predictions from segment readbacks
         self._layer_s_ema = 0.0
         self._layer_period_ema = 0.0
         self._closed = False
@@ -745,14 +756,19 @@ class OffloadEngine:
 
     def _layer_segment(self, mi: int, x: torch.Tensor):
         """MoE layer mi's fixed-shape segment on the grouped path: attention,
-        the FFN norm and the gating kernel.  Returns the residual stream,
-        the normed hidden state hs (B, D), its float32 copy (what the host
-        reads) and the router's top-k probabilities and experts (B, k)."""
+        the FFN norm, the gating kernel and, with prefetch on, the adaptive
+        predictor's stacked gating for every row on the float32 normed
+        hidden state (``AdaptiveExpertPredictor.layer_probs``).  Returns the
+        residual stream, the normed hidden state hs (B, D), the router's
+        top-k probabilities and experts (B, k) and the predictor's
+        probabilities (P, B, E) for MoE layers mi+1..mi+P (None on the last
+        MoE layer or with prefetch off)."""
         x, h, h32 = self._attn_segment(mi, x)
         hs = h[:, 0]
         _, vals, idx = kops.gating_topk(hs, self.routers_dev[mi:mi + 1],
                                         top_k=self.cfg.moe.top_k)
-        return x, hs, h32, vals[0], idx[0]
+        probs = self.predictor.layer_probs(h32, mi) if self.ecfg.prefetch else None
+        return x, hs, vals[0], idx[0], probs
 
     def _attn_segment(self, mi: int, x: torch.Tensor):
         """MoE layer mi's attention and FFN norm (the per-expert path's
@@ -794,17 +810,23 @@ class OffloadEngine:
             if not (p.layer == pr.layer and rr == r)]
         self._pending_preds.append((pr, mi, r))
 
-    def _prefetch_predictions(self, mi: int, rows, h_host, *,
-                              use_async: bool) -> Dict[int, object]:
+    def _prefetch_predictions(self, mi: int, rows, *, use_async: bool, h_host=None,
+                              probs: Optional[np.ndarray] = None) -> Dict[int, object]:
         """Adaptive prefetch for subsequent layers (§3.3): one merged job per
         target layer, each (expert, precision) keeping the largest gate any
-        row gave it."""
+        row gave it.  Each row predicts from `probs`, the segment's (P, B, E)
+        predictor probabilities (grouped path), or else from its hidden
+        state in `h_host` (B, D) through the predictor's own calls."""
         pred_entry: Dict[int, object] = {}
         merged: Dict[int, List[Tuple[int, int]]] = {}
         gmax: Dict[Tuple[int, int, int], float] = {}
         for r in rows:
-            walk = self.predictor.adaptive_walk(h_host[r], mi, self.cache,
-                                                self.loader.th)
+            hid = None if h_host is None else h_host[r]
+            row_probs = None if probs is None else probs[:, r]
+            if row_probs is not None:
+                self._segment_predictions += 1
+            walk = self.predictor.adaptive_walk(hid, mi, self.cache, self.loader.th,
+                                                probs=row_probs)
             walk_layers = set()
             for pr, dec in walk:
                 pairs = merged.setdefault(pr.layer, [])
@@ -818,7 +840,7 @@ class OffloadEngine:
                 if pr.layer == mi + 1:
                     pred_entry[r] = pr
             if mi + 1 not in walk_layers:
-                nxt = self.predictor.predict_layers(h_host[r], mi, 1)
+                nxt = self.predictor.predict_layers(hid, mi, 1, probs=row_probs)
                 if nxt:
                     self._push_pending(nxt[0], mi, r)
                     pred_entry[r] = nxt[0]
@@ -867,13 +889,15 @@ class OffloadEngine:
             t_layer0 = time.perf_counter()
             self.scheduler.set_deadline_clock(mi, self._layer_s_ema,
                                               self._layer_period_ema)
-            # ---- the captured segment (attention, norm, gating), then one
-            # host sync for the hidden state and the router result ----
+            # ---- the captured segment (attention, norm, gating, the
+            # predictor's gating), then one host sync for the router result
+            # and the predictor's probabilities ----
             with span("engine.segment", mi):
                 tg0 = time.perf_counter()
-                x, hs, hs32, vals_g, idx_g = self._layer_steps[mi](
+                x, hs, vals_g, idx_g, probs_g = self._layer_steps[mi](
                     x, key=self._segment_key(li))
-                h_host, vals_np, idx_np = to_host(hs32, vals_g, idx_g)
+                vals_np, idx_np, *probs_np = to_host(
+                    *(t for t in (vals_g, idx_g, probs_g) if t is not None))
                 self._gating_s += time.perf_counter() - tg0
 
             with span("engine.route", mi):
@@ -897,7 +921,8 @@ class OffloadEngine:
             if ecfg.prefetch:
                 with span("engine.predict", mi):
                     pred_entry = self._prefetch_predictions(
-                        mi, rows, h_host, use_async=ecfg.async_prefetch)
+                        mi, rows, use_async=ecfg.async_prefetch,
+                        probs=probs_np[0] if probs_np else None)
 
             # ---- loading ----
             with span("engine.load", mi):
@@ -1048,8 +1073,9 @@ class OffloadEngine:
             self._score_pending_preds(mi, tops)
             pred_entry = {}
             if ecfg.prefetch:
-                pred_entry = self._prefetch_predictions(mi, rows, h_host,
-                                                        use_async=False)
+                with span("engine.predict", mi):
+                    pred_entry = self._prefetch_predictions(mi, rows, use_async=False,
+                                                            h_host=h_host)
 
             # ---- on-demand scoring + synchronous loading (union over rows) ----
             self.loader.new_layer()
@@ -1221,9 +1247,10 @@ class OffloadEngine:
             "pred_accuracy": {int(d): float(a)
                               for d, a in self.predictor.accuracy().items()},
             # host wall from each grouped layer segment's launch (attention,
-            # norm, router) to its hidden state and routes on the host; the
-            # readback also waits for the device work still queued before
-            # the segment (the layer before's grouped FFN)
+            # norm, router, the predictor's stacked gating) to its routes and
+            # predictor probabilities on the host; the readback also waits
+            # for the device work still queued before the segment (the layer
+            # before's grouped FFN)
             "gating_s": self._gating_s,
             # real (row, expert) pairs each grouped lo launch pair carried
             # (one launch pair per MoE layer and step, at P = B * top_k; 0
@@ -1240,6 +1267,13 @@ class OffloadEngine:
             "hi_slots_per_launch": _spread(self._hi_slots),
             "expert_dispatches": self._expert_dispatches,
             "union_reloads": self._union_reloads,
+            # the adaptive predictor's stacked-gating calls issued from the
+            # host (one H2D copy, launch and readback each: the per-expert
+            # path's); 0 on the grouped path, whose captured segments gate
+            # every row and whose readbacks serve segment_predictions
+            # (row-layer predictions)
+            "predictor_host_calls": self.predictor.host_calls,
+            "segment_predictions": self._segment_predictions,
             # "<op>.<cuda|torch>" -> count: a card run showing .torch counts
             # would be timing the plain versions
             "kernel_dispatch": kops.dispatch_counts(),

@@ -9,6 +9,17 @@ matmuls at once with the Stacking Computer (the stacked_gating kernel,
 The adaptive walk: predict layer l+1; if all predicted experts are cached,
 continue to l+2, ... stop at the first layer with a miss (that's the one
 worth prefetching for) or after `p` layers.
+
+Where the probabilities come from: ``layer_probs`` is the one stacked-gating
+launch and softmax for B token rows.  ``predict_layers`` / ``adaptive_walk``
+either run it for one row from the host's hidden state (an H2D copy, the
+launch and a ``.cpu()`` readback: the ``predictor.gating`` span, counted in
+``host_calls``; the engine's per-expert path) or take the row's (P, E)
+probabilities the caller already has: the engine's grouped path runs
+``layer_probs`` for every row inside each MoE layer's captured segment and
+reads them back with the router's result.  The kernel reduces each (router,
+row) in an order that depends on neither B nor P, so both give the same
+probabilities bit for bit.
 """
 
 from __future__ import annotations
@@ -60,22 +71,44 @@ class AdaptiveExpertPredictor:
         self.fleet_weight = float(fleet_weight)
         # accuracy bookkeeping: self.eval[d] = (correct_top1, total) for dist d
         self._acc: dict[int, List[int]] = {}
+        # stacked-gating calls issued from the host (predict_layers without
+        # precomputed probabilities)
+        self.host_calls = 0
+
+    def _layers(self, layer: int, p: Optional[int]) -> Tuple[int, int]:
+        """[lo, hi] of the layers a prediction at `layer` covers (lo > hi:
+        none, `layer` is the last)."""
+        p = p if p is not None else self.p
+        return layer + 1, min(layer + p, self.num_layers - 1)
 
     # ---------------- raw prediction ----------------
-    def predict_layers(self, hidden: np.ndarray, layer: int,
-                       p: Optional[int] = None) -> List[Prediction]:
+    def layer_probs(self, x: torch.Tensor, layer: int,
+                    p: Optional[int] = None) -> Optional[torch.Tensor]:
+        """x: (B, D) float32 gating inputs at `layer`, on the routers'
+        device.  Softmax probabilities (P, B, E) of the routers of layers
+        l+1..l+p for every row, from one stacked gating launch; None when
+        `layer` is the last.  No host read: the engine captures it."""
+        lo, hi = self._layers(layer, p)
+        if lo > hi:
+            return None
+        return softmax_last(kops.stacked_gating(x, self.gates[lo : hi + 1]))
+
+    def predict_layers(self, hidden: Optional[np.ndarray], layer: int,
+                       p: Optional[int] = None, *,
+                       probs: Optional[np.ndarray] = None) -> List[Prediction]:
         """hidden: (D,) gating input at `layer`.  Predict layers l+1..l+p via
-        one stacked gating call."""
-        p = p if p is not None else self.p
-        lo, hi = layer + 1, min(layer + p, self.num_layers - 1)
+        one stacked gating call, or from `probs`: this row's (P', E)
+        probabilities of layers l+1.. (``layer_probs``, P' >= p) when the
+        caller has them, with no call (`hidden` is then unused)."""
+        lo, hi = self._layers(layer, p)
         if lo > hi:
             return []
-        with span("predictor.gating", layer, hi + 1 - lo):
-            x = to_device(np.asarray(hidden, np.float32),
-                          self.gates.device)[None, :]              # (1, D)
-            stack = self.gates[lo : hi + 1]                        # (P, D, E)
-            logits = kops.stacked_gating(x, stack)                 # (P, 1, E)
-            probs = softmax_last(logits)[:, 0].cpu().numpy()
+        if probs is None:
+            with span("predictor.gating", layer, hi + 1 - lo):
+                x = to_device(np.asarray(hidden, np.float32),
+                              self.gates.device)[None, :]          # (1, D)
+                probs = self.layer_probs(x, layer, p)[:, 0].cpu().numpy()
+            self.host_calls += 1
         preds = []
         w = self.fleet_weight if self.fleet is not None else 0.0
         for i, l in enumerate(range(lo, hi + 1)):
@@ -88,13 +121,15 @@ class AdaptiveExpertPredictor:
         return preds
 
     # ---------------- adaptive walk ----------------
-    def adaptive_walk(self, hidden: np.ndarray, layer: int,
-                      cache: MultidimensionalCache,
-                      th: Thresholds) -> List[Tuple[Prediction, np.ndarray]]:
+    def adaptive_walk(self, hidden: Optional[np.ndarray], layer: int,
+                      cache: MultidimensionalCache, th: Thresholds, *,
+                      probs: Optional[np.ndarray] = None
+                      ) -> List[Tuple[Prediction, np.ndarray]]:
         """Walk forward; return [(prediction, precision_decisions)] for the
         first future layer whose predicted experts are not fully cached
-        (the paper preloads exactly those), or [] if everything is resident."""
-        preds = self.predict_layers(hidden, layer)
+        (the paper preloads exactly those), or [] if everything is resident.
+        `probs`: as in ``predict_layers``."""
+        preds = self.predict_layers(hidden, layer, probs=probs)
         for pr in preds:
             dec = precision_decisions(pr.gate_vals, th)
             missing = []

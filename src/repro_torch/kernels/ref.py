@@ -23,8 +23,14 @@ def dequant_matmul_ref(x: torch.Tensor, q: QTensor) -> torch.Tensor:
 
 
 def stacked_gating_ref(x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
-    """logits[p] = x @ gates[p] in float32.  x (B, D); gates (P, D, E)."""
-    return torch.einsum("bd,pde->pbe", x.to(torch.float32), gates.to(torch.float32))
+    """logits[p] = x @ gates[p] in float32.  x (B, D); gates (P, D, E).
+    The products are formed elementwise and each (router, row, expert) is
+    summed over D on its own, so on the CPU row r's logits for router p
+    depend on neither B nor P, as in the kernel (a B-row call equals B
+    one-row calls bit for bit, and slice 0 of a P = 2 call a P = 1 call; a
+    batched einsum or matmul on the CPU blocks its sums by B and P)."""
+    x, gates = x.to(torch.float32), gates.to(torch.float32)
+    return (x[None, :, None, :] * gates.transpose(1, 2)[:, None]).sum(-1)
 
 
 def softmax_last(logits: torch.Tensor) -> torch.Tensor:

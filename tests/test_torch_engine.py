@@ -216,6 +216,136 @@ def test_hi_pairs_per_launch_counts_every_grouped_launch(models):
         tb.close()
 
 
+def _record_prefetches(eng):
+    """Record every prefetch job eng's synchronous loader is given."""
+    jobs = []
+    enqueue = eng.loader.enqueue_prefetch
+
+    def spy(layer, experts, dec, *a, **kw):
+        jobs.append((layer, list(experts), np.asarray(dec).tolist()))
+        return enqueue(layer, experts, dec, *a, **kw)
+    eng.loader.enqueue_prefetch = spy
+    return jobs
+
+
+def _predict_on_host(eng):
+    """Turn eng's grouped path back to per-row host calls: each row's
+    predictions come from ``predict_layers`` on the float32 hidden state
+    its segment computed (read back on the CPU), not from the segment's
+    probabilities."""
+    hidden = {}
+    attn, prefetch = eng._attn_segment, eng._prefetch_predictions
+
+    def attn_segment(mi, x):
+        x, h, h32 = attn(mi, x)
+        hidden[mi] = h32.numpy().copy()
+        return x, h, h32
+
+    def prefetch_on_host(mi, rows, *, use_async, h_host=None, probs=None):
+        return prefetch(mi, rows, use_async=use_async, h_host=hidden[mi])
+    eng._attn_segment, eng._prefetch_predictions = attn_segment, prefetch_on_host
+
+
+def test_segment_predictions_equal_per_row_host_calls(models):
+    """The grouped path's predictor probabilities, computed for every row
+    in each MoE layer's segment, equal ``predict_layers`` called per row on
+    the segment's hidden state, and an engine that predicts through those
+    per-row host calls makes the same predictions, prefetch jobs, trace and
+    ``pred_accuracy`` (batch 4, 16 steps, synchronous loading).  The
+    segment launches the stacked gating once per MoE layer but the last,
+    and the predictor no call from the host."""
+    from repro_torch.kernels import ops as kops
+    cfg, _, _, port, tparams = models
+    ecfg = EngineConfig(hi_slots=8, lo_slots=4, async_prefetch=False)
+    seg, host = (OffloadEngine(port, tparams, ecfg) for _ in range(2))
+    _predict_on_host(host)
+    jobs = [_record_prefetches(e) for e in (seg, host)]
+    probs_seen = []
+    layer_probs = seg.predictor.layer_probs
+
+    def spy(x, layer, p=None):
+        out = layer_probs(x, layer, p)
+        if out is not None:
+            probs_seen.append((x.clone(), layer, out.clone()))
+        return out
+    seg.predictor.layer_probs = spy
+    b, steps = 4, 16
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(0, cfg.vocab_size, (b, 6))
+    teacher = rng.integers(0, cfg.vocab_size, (steps, b))
+    try:
+        for e in (seg, host):
+            e.start_batch(b, 32)
+            e.prefill_batch(prompts)
+        kops.reset_dispatch_counts()
+        for t in range(steps):
+            seg.decode_step_batch(teacher[t])
+        launches = kops.dispatch_counts().get("stacked_gating.torch", 0)
+        seg.predictor.layer_probs = layer_probs
+        for t in range(steps):
+            host.decode_step_batch(teacher[t])
+        assert launches == len(probs_seen) == steps * (seg.num_moe_layers - 1)
+        for x, layer, out in probs_seen:
+            assert out.shape == (min(ecfg.prefetch_p, seg.num_moe_layers - 1 - layer), b,
+                                 cfg.moe.num_experts)
+            for r in range(b):
+                assert torch.equal(out[:, r], layer_probs(x[r:r + 1], layer)[:, 0])
+                for p in (None, 1):
+                    want = seg.predictor.predict_layers(x[r].numpy(), layer, p)
+                    got = seg.predictor.predict_layers(None, layer, p,
+                                                       probs=out[:, r].numpy())
+                    assert [(w.layer, w.experts) for w in want] == \
+                        [(g.layer, g.experts) for g in got]
+                    assert all(np.array_equal(w.gate_vals, g.gate_vals)
+                               for w, g in zip(want, got))
+        assert jobs[0] and jobs[0] == jobs[1]
+        assert len(seg.trace) == len(host.trace) == steps * b
+        for ra, rb_ in zip(seg.trace, host.trace):
+            for a, c in zip(ra, rb_):
+                assert a.experts == c.experts and a.pred_experts == c.pred_experts
+                assert (a.pred_gate_vals is None) == (c.pred_gate_vals is None)
+                if a.pred_gate_vals is not None:
+                    assert np.array_equal(a.pred_gate_vals, c.pred_gate_vals)
+        assert any(t.pred_experts for row in seg.trace for t in row)
+        ss, hs = seg.stats(), host.stats()
+        assert ss["pred_accuracy"] and ss["pred_accuracy"] == hs["pred_accuracy"]
+        for key in ("loads_hi", "loads_lo", "loaded_bytes", "union_reloads"):
+            assert ss[key] == hs[key], key
+        assert ss["segment_predictions"] == steps * b * (seg.num_moe_layers - 1)
+        # the check above called predict_layers from the host on seg
+        # itself, once per row, layer and p
+        assert ss["predictor_host_calls"] == 2 * len(probs_seen) * b
+        assert hs["predictor_host_calls"] >= steps * b * (host.num_moe_layers - 1)
+        assert hs["segment_predictions"] == 0
+    finally:
+        seg.close()
+        host.close()
+
+
+def test_segment_launches_no_predictor_gating_without_prefetch(models):
+    """With prefetch off the grouped segment has no stacked-gating launch and
+    nothing predicts."""
+    from repro_torch.kernels import ops as kops
+    cfg, _, _, port, tparams = models
+    eng = OffloadEngine(port, tparams, EngineConfig(hi_slots=8, lo_slots=4,
+                                                    async_prefetch=False, prefetch=False))
+    rng = np.random.default_rng(17)
+    try:
+        eng.start_batch(4, 32)
+        eng.prefill_batch(rng.integers(0, cfg.vocab_size, (4, 6)))
+        kops.reset_dispatch_counts()
+        for _ in range(4):
+            eng.decode_step_batch(rng.integers(0, cfg.vocab_size, 4))
+        counts = kops.dispatch_counts()
+        assert counts["gating_topk.torch"] == 4 * eng.num_moe_layers
+        assert counts.get("stacked_gating.torch", 0) == 0
+        st = eng.stats()
+        assert st["predictor_host_calls"] == st["segment_predictions"] == 0
+        assert all(t.pred_experts is None for row in eng.trace for t in row)
+    finally:
+        eng.close()
+
+
 def test_default_async_engine_matches_dense_unconstrained():
     """Default EngineConfig (async staging on two streams, measured link)
     with every expert resident at full precision equals the dense model —

@@ -187,8 +187,12 @@ def test_engine_phases_tile_each_step_and_count_reloads_and_pairs(recorder):
     reloads = [s for s in got if s.name == "engine.reload"]
     assert len(reloads) == after["union_reloads"] - before["union_reloads"] > 0
     assert all(by_id[s.parent].name == "engine.pairs" for s in reloads)
-    gating = [s for s in got if s.name == "predictor.gating"]
-    assert gating and all(by_id[s.parent].name == "engine.predict" for s in gating)
+    # the grouped path predicts from its segments' readbacks: no host call,
+    # one segment prediction per row on every MoE layer but the last
+    assert not any(s.name == "predictor.gating" for s in got)
+    assert before["predictor_host_calls"] == after["predictor_host_calls"] == 0
+    assert (after["segment_predictions"] - before["segment_predictions"]
+            == 6 * 2 * (eng.num_moe_layers - 1))
     assert any(s.name == "loader.stage" for s in got)
     ffn = [s for s in got if s.name == "engine.ffn"]
     for attr, key in (("hi_pairs", "hi_pairs_per_launch"), ("lo_pairs", "lo_pairs_per_launch"),
@@ -196,6 +200,33 @@ def test_engine_phases_tile_each_step_and_count_reloads_and_pairs(recorder):
         assert collections.Counter(s.attrs[attr] for s in ffn) == _hist_delta(after, before,
                                                                                key), attr
     assert all(s.attrs["weight_bytes"] > 0 for s in ffn)
+
+
+def test_per_expert_path_predicts_through_host_calls_under_engine_predict(recorder):
+    model, params = _smoke_model()
+    eng = OffloadEngine(model, params, EngineConfig(hi_slots=2, lo_slots=1, grouped=False))
+    try:
+        eng.start_batch(2, 64)
+        rng = np.random.default_rng(0)
+        eng.prefill_batch(rng.integers(0, 256, (2, 8)))
+        before = eng.stats()
+        with _profiling():
+            for _ in range(4):
+                eng.decode_step_batch(rng.integers(0, 256, (2,)))
+        after = eng.stats()
+    finally:
+        eng.close()
+    got = spans.snapshot()
+    by_id = {s.id: s for s in got}
+    gating = [s for s in got if s.name == "predictor.gating"]
+    assert gating and all(by_id[s.parent].name == "engine.predict" for s in gating)
+    predict = [s for s in got if s.name == "engine.predict"]
+    assert len(predict) == 4 * eng.num_moe_layers
+    assert all(by_id[s.parent].name == "engine.step" for s in predict)
+    # at least one call per row on every MoE layer but the last
+    calls = after["predictor_host_calls"] - before["predictor_host_calls"]
+    assert calls == len(gating) >= 4 * 2 * (eng.num_moe_layers - 1)
+    assert after["segment_predictions"] == 0
 
 
 def test_batching_server_spans_carry_the_request_ids(recorder):
