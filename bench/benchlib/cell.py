@@ -1,11 +1,12 @@
-"""One run of one cell: weights, backend, warm-up and window in one
-``BatchingServer.run()``, then the metrics, the correctness check and the
-result line's fields."""
+"""One run of one cell: the configuration's block, weights, backend,
+warm-up and window in one ``BatchingServer.run()``, then the metrics, the
+correctness check and the result line's fields."""
 
 from __future__ import annotations
 
 import gc
 import importlib.util
+from types import ModuleType
 from typing import Callable, Optional
 
 import numpy as np
@@ -13,15 +14,31 @@ import torch
 
 from benchlib import check, devtrace, paths, spec as specs, traffic
 from benchlib.loop import ClosedLoop, Probe, now, time_sampling
-from benchlib.weights import make_weights
+
+DEFAULT_BLOCK = "moe_gqa"
+
+
+def _load(kind: str, name: str, path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _reader(name: str, bench):
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
-                                                  paths.metric_file(name, bench))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load("metric", name, paths.metric_file(name, bench)).read
+
+
+def load_block(cfg: dict, bench=paths.BENCH) -> ModuleType:
+    """The configuration's block (``bench/blocks/<block>.py``; interface in
+    ``bench/blocks/__init__.py``), from the benchmark directory `bench`."""
+    name = cfg.get("block", DEFAULT_BLOCK)
+    return _load("block", name, paths.block_file(name, bench))
+
+
+def load_reference(block: ModuleType, bench=paths.BENCH) -> ModuleType:
+    """The block's plain reference (``bench/reference/<REFERENCE>.py``)."""
+    return _load("reference", block.REFERENCE, paths.reference_file(block.REFERENCE, bench))
 
 
 def read_metrics(rec, metrics, bench=paths.BENCH) -> dict:
@@ -50,16 +67,16 @@ def run_cell(manifest: paths.Manifest, cell_name: str, seed: int, seconds: float
     cfg = config or manifest.config_file(cell)
     mix = mix or manifest.traffic_file(cell)
     traffic.check_mix(mix)
-    spec = specs.plain_spec(cfg)
+    block = load_block(cfg, bench)
+    spec = block.plain_spec(cfg)
     eng = cfg["engine"]
     dev = torch.device(device)
 
-    model = Model(specs.port_config(cfg))
-    weights = make_weights(spec, seed, dev)
+    model = Model(block.port_config(cfg))
+    weights = block.make_weights(spec, seed, dev)
     backend = make_backend(BackendConfig(
-        kind="hobbit", paged=True, page_size=eng["kv_page_size"],
-        prefill_chunk=eng["prefill_chunk"],
-        engine=specs.engine_config(cfg)), model, weights)
+        kind="hobbit", paged=eng["paged_kv"], page_size=eng["kv_page_size"],
+        prefill_chunk=eng["prefill_chunk"], engine=specs.engine_config(cfg)), model, weights)
     if wrap_backend is not None:
         backend = wrap_backend(backend)
 
@@ -69,7 +86,7 @@ def run_cell(manifest: paths.Manifest, cell_name: str, seed: int, seconds: float
     stream = traffic.jobs(mix, spec["vocab_size"], rng)
     tracer = devtrace.Tracer(mix["trace_start_frac"] * seconds, mix["trace_s"]) if trace else None
     loop = ClosedLoop(None, mix, stream, seconds=seconds, chunk=chunk, spec=spec,
-                      t_start=t_start, tracer=tracer)
+                      block=block, t_start=t_start, tracer=tracer)
     probe = Probe(backend, loop)
     srv = None
     try:
@@ -111,7 +128,7 @@ def run_cell(manifest: paths.Manifest, cell_name: str, seed: int, seconds: float
     rids = check.sample(rec, outputs, mix["check_requests"], seed)
     t_check = now()
     reading = check.readings(weights, spec, prompts, outputs, rec.logits, rids,
-                             control=control)
+                             reference=load_reference(block, bench), control=control)
     reading["check_s"] = now() - t_check
     limits = paths.limits_file(cell_name, bench)
     ok, compared = check.verdict(reading, limits, len(failed))

@@ -1,6 +1,7 @@
 """What decides ``correct``: the served tokens of a sample of the window's
 requests, and the logits they were drawn from, against the plain reference
-(``bench/reference/plain.py``).
+of the configuration's block (``bench/reference/<module>.py``, named by the
+block's ``REFERENCE``).
 
 The sample is drawn from the seed among the requests that had a token in
 the window, with the request that served the most tokens always in it.
@@ -51,10 +52,10 @@ def _summary(gap: np.ndarray, err: np.ndarray, prefix: str = "") -> Dict[str, fl
 
 def readings(weights: dict, spec: dict, prompts: Dict[int, np.ndarray],
              outputs: Dict[int, np.ndarray], logits: Dict[int, List[np.ndarray]],
-             rids: List[int], *, control: bool = False) -> Dict[str, object]:
-    """The sample's per-position gaps and logit errors (and the control's),
-    on the weights' device, float32 with TF32 off."""
-    from reference import plain
+             rids: List[int], *, reference, control: bool = False) -> Dict[str, object]:
+    """The sample's per-position gaps and logit errors (and the control's)
+    against `reference` (a module with the block's ``logits``), on the
+    weights' device, float32 with TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = weights["embed"].device
@@ -62,7 +63,7 @@ def readings(weights: dict, spec: dict, prompts: Dict[int, np.ndarray],
     for rid in rids:
         prompt, out = np.asarray(prompts[rid], np.int64), np.asarray(outputs[rid], np.int64)
         toks = torch.from_numpy(np.concatenate([prompt, out[:-1]]))
-        ref = plain.logits(weights, spec, toks, len(prompt))
+        ref = reference.logits(weights, spec, toks, len(prompt))
         best = ref.max(dim=-1).values
         norm = ref.norm(dim=-1)
         o = torch.from_numpy(out).to(dev)
@@ -74,7 +75,7 @@ def readings(weights: dict, spec: dict, prompts: Dict[int, np.ndarray],
         per.append(float(g.max()))
         per_err.append(float(e.mean()))
         if control:
-            c = plain.logits(weights, spec, toks, len(prompt), fp8=True)
+            c = reference.logits(weights, spec, toks, len(prompt), fp8=True)
             cgaps.append((best - ref.gather(1, c.argmax(-1)[:, None])[:, 0]).cpu().numpy())
             cerrs.append(((c - ref).norm(dim=-1) / norm).cpu().numpy())
             per_cerr.append(float(cerrs[-1].mean()))

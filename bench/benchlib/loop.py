@@ -2,12 +2,13 @@
 records.
 
 ``Probe`` wraps the backend that the server drives: it times each
-``step``, ``join_step`` and ``stats`` call (host spans), stamps every output
-token with its time and request, and hands each call's entry to the loop,
-which decides the phases by the clock: warm-up (the warm-up wave, then the
-mix's traffic until ``warmup_s`` and ``warmup_decode_steps`` are met), the
-measured window of ``seconds`` from the first call after that, and the
-drain.  When a request's slot is released its client submits the next
+``step``, ``join_step`` and ``stats`` call (host spans), notes at each
+``join_begin`` how much of the prompt the prefix cache already held, stamps
+every output token with its time and request, and hands each call's entry
+to the loop, which decides the phases by the clock: warm-up (the warm-up
+wave, then the mix's traffic until ``warmup_s`` and ``warmup_decode_steps``
+are met), the measured window of ``seconds`` from the first call after
+that, and the drain.  When a request's slot is released its client submits the next
 request at once (no think time), stamped as submitted when the reply it
 waited for completed.  When the window has closed no new request is
 submitted and every request in flight is cut to the tokens it has, so the
@@ -48,9 +49,12 @@ def counters(s: dict) -> Dict[str, float]:
 
 @dataclasses.dataclass
 class Record:
-    """Everything a run measured; the metric readers take it."""
+    """Everything a run measured; the metric readers take it.  `spec` and
+    `block` are the configuration's (``bench/blocks/``): the FLOP counts
+    are ``block.token_flops`` / ``chunk_flops`` on `spec`."""
     spec: dict
     t_start: float
+    block: object = None
     w0: Optional[float] = None
     w1: Optional[float] = None
     spans: List[Tuple[str, float, float]] = dataclasses.field(default_factory=list)
@@ -60,7 +64,7 @@ class Record:
     warm: Set[int] = dataclasses.field(default_factory=set)
     # decode steps: (t0, t1, [(rid, keys attended by the token fed)])
     steps: List[Tuple[float, float, list]] = dataclasses.field(default_factory=list)
-    # join_step calls: (t0, t1, [(rid, first position, tokens)])
+    # join_step calls: (t0, t1, [(rid, first position, tokens prefilled)])
     joins: List[Tuple[float, float, list]] = dataclasses.field(default_factory=list)
     stats: List[Tuple[float, Dict[str, float]]] = dataclasses.field(default_factory=list)
     failed: Set[int] = dataclasses.field(default_factory=set)
@@ -106,7 +110,7 @@ class ClosedLoop:
     """Clients, phases and the record of one run (module docstring)."""
 
     def __init__(self, server, mix: dict, jobs, *, seconds: float, chunk: int, spec: dict,
-                 t_start: float, tracer=None):
+                 block, t_start: float, tracer=None):
         from repro_torch.serving.batching import Request
         self._request = Request
         self.server = server
@@ -115,13 +119,14 @@ class ClosedLoop:
         self.seconds = float(seconds)
         self.chunk = int(chunk)
         self.tracer = tracer
-        self.rec = Record(spec=spec, t_start=t_start)
+        self.rec = Record(spec=spec, t_start=t_start, block=block)
         self.req: Dict[int, object] = {}
         self.client: Dict[int, int] = {}
         self.slot_rid: Dict[int, int] = {}
         self.rid_slot: Dict[int, int] = {}
         self.count: Dict[int, int] = {}
         self.fed: Dict[int, int] = {}
+        self.matched: Dict[int, int] = {}   # slot -> prompt tokens the prefix cache held
         self.admitting: List[int] = []
         self.active: Set[int] = set()
         self.wave_left: Set[int] = set()
@@ -161,7 +166,9 @@ class ClosedLoop:
             if kind == "admit":
                 self.slot_rid[slot] = rid
                 self.rid_slot[rid] = slot
-                self.fed[rid] = 0
+                # the chunked prefill starts feeding at the matched prefix,
+                # re-feeding the last token of a prompt matched whole
+                self.fed[rid] = min(self.matched.pop(slot, 0), self.rec.prompt_len[rid] - 1)
                 self.count[rid] = 0
                 self.admitting.append(rid)
 
@@ -192,10 +199,15 @@ class ClosedLoop:
 
     # ---- probe callbacks ----
     def on_join(self, t0: float, t1: float, done: dict, pending: List[int]) -> None:
+        """A request the call finished was fed the rest of its prompt from
+        where its admission started feeding (the last chunk under paged KV,
+        the whole prompt in the dense-KV one-shot prefill); one still
+        pending, one chunk."""
+        finished = {self.slot_rid[slot] for slot in done}
         entries = []
         for rid in pending:
             plen = self.rec.prompt_len[rid]
-            n = min(self.chunk, plen - self.fed[rid])
+            n = plen - self.fed[rid] if rid in finished else min(self.chunk, plen - self.fed[rid])
             entries.append((rid, self.fed[rid], n))
             self.fed[rid] += n
         self.rec.joins.append((t0, t1, entries))
@@ -253,6 +265,14 @@ class Probe:
         self.loop.rec.spans.append(("step", t0, t1))
         self.loop.on_step(t0, t1, lg, stepping)
         return lg
+
+    def join_begin(self, slot, prompt, reserve_tokens=None):
+        """Note how much of the prompt the page pool's prefix cache matched
+        (its ``prefix_hit_tokens`` grows by that; no pool: none)."""
+        kv = getattr(self.inner, "kv", None)
+        hit = kv.prefix_hit_tokens if kv is not None else 0
+        self.inner.join_begin(slot, prompt, reserve_tokens=reserve_tokens)
+        self.loop.matched[slot] = kv.prefix_hit_tokens - hit if kv is not None else 0
 
     def join_step(self):
         self.loop._sync_admits()

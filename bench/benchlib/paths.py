@@ -70,3 +70,11 @@ def limits_file(cell_name: str, bench: Path = BENCH) -> Optional[Dict]:
 
 def metric_file(name: str, bench: Path = BENCH) -> Path:
     return bench / "metrics" / f"{name}.py"
+
+
+def block_file(name: str, bench: Path = BENCH) -> Path:
+    return bench / "blocks" / f"{name}.py"
+
+
+def reference_file(name: str, bench: Path = BENCH) -> Path:
+    return bench / "reference" / f"{name}.py"

@@ -1,10 +1,11 @@
 """Cache and predictor (core/predictor.py, core/engine.py): host wall of
 the adaptive prefetch predictions (the program's ``engine.predict`` spans:
-each row's stacked-gating calls and their readbacks, the walk over the
-cache and the prefetch submissions), per decode step wholly inside the
-traced sub-window; spans read through ``repro_torch.spans.snapshot()``,
-summed where they start inside those steps.  None without a trace or
-without the program's spans."""
+the walk over the gating probabilities that each MoE layer's captured
+segment computed for every row, the cache pins and the prefetch
+submissions; on the grouped path no stacked-gating call or readback of
+its own), per decode step wholly inside the traced sub-window; spans read
+through ``repro_torch.spans.snapshot()``, summed where they start inside
+those steps.  None without a trace or without the program's spans."""
 
 
 def read(rec):

@@ -4,17 +4,14 @@ CPU tests: the cell's files with small widths, lengths and times."""
 import copy
 
 from benchlib import paths
+from benchlib.cell import load_block
 
 
-def smoke_config(name: str = "mixtral-8x7b-l8", *, width: int = 64, layers: int = 2,
-                 vocab: int = 512, experts: int = 0) -> dict:
+def smoke_config(name: str = "mixtral-8x7b-l8", **sizes) -> dict:
+    """The configuration file `name` cut by its block's ``smoke_config``
+    (``moe_gqa``: width 64, 2 layers, a vocabulary of 512)."""
     cfg = paths.load_json(paths.BENCH / "configs" / f"{name}.json")
-    cfg.update(hidden_size=width, intermediate_size=width, num_attention_heads=4,
-               num_key_value_heads=2, num_hidden_layers=layers, vocab_size=vocab,
-               num_local_experts=experts or (4 if cfg["num_local_experts"] == 8 else 8))
-    cfg["engine"] = dict(cfg["engine"], hi_slots=4, lo_slots=2, group_size=16,
-                         kv_page_size=16, prefill_chunk=16)
-    return cfg
+    return load_block(cfg).smoke_config(cfg, **sizes)
 
 
 def smoke_mix(manifest, cell: str) -> dict:

@@ -124,7 +124,8 @@ def test_control_is_not_correct(cell, device):
             outs[rid] = rng.integers(0, spec["vocab_size"], n_tok)
             toks = torch.from_numpy(np.concatenate([prompts[rid], outs[rid][:-1]]))
             rows[rid] = list(plain.logits(w, spec, toks, 24).cpu().numpy())
-        r = check.readings(w, spec, prompts, outs, rows, list(range(n_req)), control=True)
+        r = check.readings(w, spec, prompts, outs, rows, list(range(n_req)), reference=plain,
+                           control=True)
         assert r["err_max"] < 1e-4
         ok, compared = check.control_verdict(r, limits)
         assert not ok, (seed, compared)

@@ -8,8 +8,10 @@ import shutil
 
 import pytest
 
-from benchlib import paths
-from benchlib.cell import run_cell
+from benchlib import flops, paths
+from benchlib.cell import read_metrics, run_cell
+from benchlib.devtrace import TraceData
+from benchlib.loop import now
 from smoke import smoke_config, smoke_mix
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -135,3 +137,92 @@ def test_a_cell_is_added_by_files_and_entries(tmp_path):
                    False, t_start=__import__("time").perf_counter(), device="cpu", bench=bench)
     assert set(res["metrics"]) == {"decode_tok_s", "setup_s"}
     assert res["correct"] and res["attempted"] > 0
+
+
+TEST_BLOCK = '''"""A test block: moe_gqa's equations under a reference and a FLOP count of
+its own (each FLOP counted twice, so a test tells the two counts apart)."""
+
+from benchlib import flops, spec as specs, weights
+
+REFERENCE = "tiny_reference"
+plain_spec = specs.plain_spec
+port_config = specs.port_config
+make_weights = weights.make_weights
+
+
+def token_flops(spec, context):
+    return 2.0 * flops.token_flops(spec, context)
+
+
+def chunk_flops(spec, start, n, *, head=False):
+    return 2.0 * flops.chunk_flops(spec, start, n, head=head)
+'''
+MOE_SUBLAYER = ('        x = x + _moe(p["ffn"], _norm(p["ffn_norm"], x, spec), decode, spec, '
+                'fp8)\n')
+
+
+@pytest.mark.parametrize("variant", ["own_reference", "wrong_reference", "dense_kv"])
+def test_a_block_is_added_by_files_and_entries(tmp_path, variant):
+    """A copy of the benchmark gains a block, its reference, a configuration
+    naming the block, a mix, limits and a cell, no existing file edited,
+    and the run takes the block's reference (one that leaves out the MoE
+    sub-layer fails the check), its FLOP counts and the file's KV layout (dense:
+    every admission prefills its whole prompt in one ``join_step``, as the
+    configuration file's ``engine.paged_kv: false`` asks)."""
+    bench = tmp_path / "bench"
+    shutil.copytree(paths.BENCH, bench, ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    before = {p.relative_to(bench): p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    dense = variant == "dense_kv"
+    (bench / "blocks" / "tiny_block.py").write_text(TEST_BLOCK)
+    ref_src = (bench / "reference" / "plain.py").read_text()
+    assert MOE_SUBLAYER in ref_src
+    if variant == "wrong_reference":
+        ref_src = ref_src.replace(MOE_SUBLAYER, "")
+    (bench / "reference" / "tiny_reference.py").write_text(ref_src)
+    cfg = dict(smoke_config(), block="tiny_block")
+    cfg["engine"] = dict(cfg["engine"], paged_kv=not dense)
+    (bench / "configs" / "tiny-block.json").write_text(json.dumps(cfg))
+    mix = smoke_mix(paths.Manifest.load(), "mixtral-decode-c4")
+    (bench / "traffic" / "tiny-chat.json").write_text(json.dumps(mix))
+    (bench / "limits" / "tiny-block-decode.json").write_bytes(
+        (bench / "limits" / "mixtral-decode-c4.json").read_bytes())
+    man = json.loads(json.dumps(MAN))
+    man["configs"].append({"name": "tiny-block", "source": "https://example.org/tiny",
+                           "file": "bench/configs/tiny-block.json", "reduced": [], "why": "t"})
+    man["workloads"].append({"name": "tiny-block-decode", "config": "tiny-block",
+                             "traffic": "tiny-chat", "chips": 1, "why": "t"})
+    for m in man["end_to_end"] + man["per_layer"]:
+        if "mixtral-decode-c4" in m.get("workloads", []):
+            m["workloads"].append("tiny-block-decode")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    after = {p.relative_to(bench): p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    assert all(after[k] == v for k, v in before.items())
+
+    seen = []
+    t_start = now()
+    res = run_cell(paths.Manifest.load(tmp_path / "BENCHMARK.json"), "tiny-block-decode", 3,
+                   1.0, False, t_start=t_start, device="cpu", bench=bench,
+                   wrap_backend=lambda b: seen.append(b) or b)
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert res["correct"] == (variant != "wrong_reference"), res["check"]
+    rec = res["rec"]
+    assert rec.block.__file__ == str(bench / "blocks" / "tiny_block.py")
+    assert (seen[0].engine.kv_pool is None) == dense
+    entries = [e for _, _, es in rec.joins for e in es]
+    whole = [start == 0 and n == rec.prompt_len[rid] for rid, start, n in entries]
+    assert all(whole) if dense else not all(whole)
+    fed = {}
+    for rid, start, n in entries:
+        assert start == fed.get(rid, 0)
+        fed[rid] = start + n
+    assert all(fed[rid] == rec.prompt_len[rid] for rid in fed if rec.stamps[rid])
+
+    rec.trace = TraceData(t_start, now(), [])
+    got = {k: v["value"] for k, v in read_metrics(
+        rec, [{"name": n, "unit": "%"} for n in ("decode_mfu", "prefill_mfu")]).items()}
+    scale = 100.0 / (rec.trace.window_s * 989e12)
+    decoded = sum(flops.token_flops(rec.spec, keys) for _, _, es in rec.steps for _, keys in es)
+    prefilled = sum(flops.chunk_flops(rec.spec, start, n, head=start + n >= rec.prompt_len[rid])
+                    for rid, start, n in entries)
+    assert got["decode_mfu"] == pytest.approx(2.0 * decoded * scale)
+    assert got["prefill_mfu"] == pytest.approx(2.0 * prefilled * scale)

@@ -1,15 +1,19 @@
 """The metric arithmetic on hand-made records: window rate, gap and
 first-token percentiles, counter deltas and shares, FLOP counts, interval
-unions."""
+unions; and the prefill entries the loop records when the prefix cache
+holds part of a prompt."""
 
 import math
+import time
 
+import numpy as np
 import pytest
 
-from benchlib import arith, flops, peaks
-from benchlib.cell import read_metrics
+from benchlib import arith, flops, paths, peaks, traffic
+from benchlib.cell import load_block, read_metrics, run_cell
 from benchlib.devtrace import TraceData, breakdown
 from benchlib.loop import Record, counters
+from smoke import smoke_config, smoke_mix
 
 SPEC = {"d_model": 8, "num_heads": 2, "num_kv_heads": 1, "head_dim": 4, "num_layers": 2,
         "num_experts": 4, "top_k": 2, "d_ff_expert": 16, "vocab_size": 32}
@@ -21,7 +25,7 @@ def _stats(hits, misses, nbytes, stall, hi, lo, skips):
 
 
 def record():
-    rec = Record(spec=SPEC, t_start=0.0, w0=10.0, w1=20.0)
+    rec = Record(spec=SPEC, t_start=0.0, w0=10.0, w1=20.0, block=load_block({}))
     # request 1: tokens every 0.5 s from 9.0; request 2 from 12.2, with one 2 s gap
     rec.stamps = {1: [9.0 + 0.5 * i for i in range(30)], 2: [12.2, 12.4, 14.4, 14.6],
                   -1: [5.0]}
@@ -124,3 +128,57 @@ def test_readers_find_nothing_without_a_trace():
         "device_idle_share.prefill", "prefill_mfu", "ffn_kernel_ms_per_step",
         "host_ms_per_step", "decode_mfu")])
     assert out == {}
+
+
+def test_prefill_entries_start_where_the_prefix_cache_left_off(monkeypatch):
+    """Prompts that share a two-page prefix: while a request that holds it
+    is live, the page pool's radix cache hands it to the next admission,
+    whose chunked prefill then feeds only the rest.  The loop records just
+    what was fed (each entry one chunk at most, every prompt fed to its end
+    from its matched length), so ``prefill_mfu`` counts no FLOP of the
+    shared tokens, and the run stays correct against the reference over
+    the whole prompts."""
+    man = paths.Manifest.load()
+    cfg = smoke_config()
+    chunk, page = cfg["engine"]["prefill_chunk"], cfg["engine"]["kv_page_size"]
+    shared = 2 * page
+    # 24 decode steps of warm-up: admissions while another request holds the
+    # prefix come before the window opens, however slow the CPU
+    mix = dict(smoke_mix(man, "mixtral-decode-c4"), prompt_len=[shared + 8, 72],
+               warmup_decode_steps=24)
+
+    def jobs(mix, vocab, rng):
+        prefix = rng.integers(0, vocab, shared)
+        plens = traffic.strata(*mix["prompt_len"], mix["strata"])
+        olens = traffic.strata(*mix["output_len"], mix["strata"])
+        rid = 0
+        while True:         # outputs of different lengths: one request is live at each admission
+            for i in rng.permutation(mix["strata"]):
+                tail = rng.integers(0, vocab, plens[i] - shared)
+                yield traffic.Job(rid=rid, prompt=np.concatenate([prefix, tail]).astype(
+                    np.int32), max_new_tokens=int(olens[(i + rid) % mix["strata"]]))
+                rid += 1
+
+    monkeypatch.setattr(traffic, "jobs", jobs)
+    seen = []
+    t_start = time.perf_counter()
+    res = run_cell(man, "mixtral-decode-c4", 2**31 + 5, 1.0, False, t_start=t_start,
+                   device="cpu", config=cfg, mix=mix,
+                   wrap_backend=lambda b: seen.append(b) or b)
+    assert res["correct"], res["check"]
+    rec = res["rec"]
+    first, fed = {}, {}
+    for _, _, entries in rec.joins:
+        for rid, start, n in entries:
+            assert 0 < n <= chunk
+            assert start == fed.setdefault(rid, first.setdefault(rid, start))
+            fed[rid] = start + n
+    assert all(fed[rid] == rec.prompt_len[rid] for rid in fed if rec.stamps[rid])
+    assert first[0] == 0 and set(first.values()) == {0, shared}
+    assert sum(first.values()) == seen[0].kv.prefix_hit_tokens
+
+    rec.trace = TraceData(t_start, time.perf_counter(), [])
+    got = read_metrics(rec, [{"name": "prefill_mfu", "unit": "%"}])["prefill_mfu"]["value"]
+    f = sum(flops.chunk_flops(rec.spec, start, n, head=start + n >= rec.prompt_len[rid])
+            for _, _, entries in rec.joins for rid, start, n in entries)
+    assert got == pytest.approx(100.0 * f / (rec.trace.window_s * peaks.BF16_FLOPS))

@@ -1,12 +1,16 @@
-"""The benchmark's weight generator makes the tree the port's ``Model.init``
-makes (same keys, shapes and dtypes), from the seed alone."""
+"""The benchmark's weight generators make the tree the port's ``Model.init``
+makes (same keys, shapes and dtypes), from the seed alone: every
+configuration file through its block."""
 
 import pytest
 import torch
 
 from benchlib import paths, spec as specs
+from benchlib.cell import load_block
 from benchlib.weights import make_weights
 from smoke import smoke_config
+
+CONFIGS = sorted(p.stem for p in (paths.BENCH / "configs").glob("*.json"))
 
 
 def _leaves(tree, path=()):
@@ -20,12 +24,13 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b-l8", "phi-3.5-moe-l8"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_tree_matches_model_init(name):
     from repro_torch.models.model import Model
     cfg = smoke_config(name)
-    model = Model(specs.port_config(cfg))
-    ours = dict(_leaves(make_weights(specs.plain_spec(cfg), 7, "cpu")))
+    block = load_block(cfg)
+    model = Model(block.port_config(cfg))
+    ours = dict(_leaves(block.make_weights(block.plain_spec(cfg), 7, "cpu")))
     theirs = dict(_leaves(model.init(7, device="cpu")))
     assert ours.keys() == theirs.keys()
     for k in ours:
